@@ -1,0 +1,580 @@
+// Packed (seq-major) flash attention forward and backward (kernels K5 and K6
+// of the port).
+//
+// Replaces: paddle_tpu/ops/pallas/flash_attention_packed.py::_fwd_kernel (K5)
+// and ::_bwd_fused_kernel (K6), the custom-vjp pair behind every uncached
+// attention call of a GPT train step (12 forward and 12 backward calls a step
+// for GPT-2 124M at s = 1024).
+//
+// Layout: q, k and v are (batch, seq, heads * head_dim) views read through
+// their batch and row strides, so the three views of one fused qkv projection
+// ((b, s, 3, h, d), row stride 3*h*d) go in without a copy. out, dout, dq, dk
+// and dv are contiguous (b, s, h * d); lse and delta are fp32 (b, h, sq).
+//
+// Semantics (the JAX kernels'): logits s = q.k * scale + bias[i, j] (an
+// optional shared fp32 (sq, sk) bias), causal masking bottom-right aligned
+// (key j is visible to query row i iff j <= i + sk - sq), softmax and the
+// logsumexp in fp32. A row with no visible key gives output 0, lse -1e30 and
+// zero gradients (`_zero_masked_rows`). The backward recomputes
+// p = exp(s - lse) tile by tile; delta = rowsum(dout * out);
+// ds = p * (dp - delta); dq = ds k * scale, dk = ds^T q * scale, dv = p^T dout.
+// Unlike the TPU kernel, p and ds stay fp32 in the products (the JAX kernel
+// rounds them to the input dtype before its matmuls).
+//
+// Bound on the H100 (GPT-2 124M, b = 24, s = 1024, h = 12, d = 64, bf16):
+// K5 moves ~151 MB and does ~39 GFLOP of causal score work: ~0.045 ms at
+// 3.35 TB/s or 989 TFLOP/s, a tie. K6 does ~2.5x the operations over ~302 MB,
+// ~0.1 ms. Both need the tensor cores to come near their bound.
+//
+// Design (simple and right first: fp32 FMA on CUDA cores, no tensor cores):
+//  * A CTA of 256 threads is a 16 x 16 grid; each thread owns a 4 x 4
+//    micro-tile of every 64 x 64 score tile (rows ty*4+i, columns tx+16*j)
+//    and the same 4 rows of every 64 x d product, so the online-softmax
+//    rescale and the row reductions (16-lane shuffles) stay in registers.
+//  * Tiles live in shared memory as fp32; k and v tiles are stored
+//    transposed with a padded stride (65), so both the score product
+//    (lanes along keys) and dq = ds k (lanes along head_dim) read them
+//    without bank conflicts.
+//  * K5: one CTA per (64-row q tile, head, batch); it streams the 64-key
+//    k/v tiles up to the last key its rows can see (causal tiles above the
+//    diagonal are skipped), keeping (m, l, acc) per row.
+//  * K6: one CTA per (64-key block, head, batch); dk and dv accumulate in
+//    registers over the q tiles that can see the block, dq is added into an
+//    fp32 workspace with atomicAdd (so its summation order varies from run
+//    to run), and a cast pass writes dq in the input dtype. delta comes from
+//    a pre-pass (one warp a row). The TPU kernel's resident dq slab and its
+//    block sizes are VMEM tuning and have no counterpart here.
+#include "common.cuh"
+
+namespace ptt {
+namespace {
+
+constexpr int kBQ = 64;        // query rows a tile
+constexpr int kBK = 64;        // keys a tile
+constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 micro-tile each
+constexpr int kPad = kBK + 1;  // padded row of a transposed tile
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float sum16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float max16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// key `col` is visible to query `row`
+__device__ __forceinline__ bool visible(int row, int col, int sq, int sk,
+                                        int offset, int causal) {
+  return row < sq && col < sk && (!causal || col <= row + offset);
+}
+
+template <int D>
+__host__ __device__ constexpr int fwd_smem_floats() {
+  return kBQ * (D + 1) + D * kPad + kBK * D + kBQ * kPad;
+}
+
+template <int D>
+__host__ __device__ constexpr int bwd_smem_floats() {
+  return 2 * D * kPad + 2 * kBQ * (D + 1) + kBQ * kPad + 2 * kBQ;
+}
+
+// ---------------------------------------------------------------------------
+// K5: forward
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+packed_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ bias,
+                  T* __restrict__ out, float* __restrict__ lse, int sq, int sk,
+                  int h, long long qsb, long long qss, long long ksb,
+                  long long kss, long long vsb, long long vss, float scale,
+                  int causal) {
+  constexpr int DJ = D / 16;   // output columns a thread
+  constexpr int QS = D + 1;    // padded q row
+  extern __shared__ float smem[];
+  float* qs = smem;                 // [kBQ][QS]  q rows, pre-scaled
+  float* kt = qs + kBQ * QS;        // [D][kPad]  k tile, transposed
+  float* vs = kt + D * kPad;        // [kBK][D]   v tile
+  float* ps = vs + kBK * D;         // [kBQ][kPad] probabilities
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int bb = blockIdx.z, hh = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const int offset = sk - sq;
+  const T* qb = q + bb * qsb + hh * D;
+  const T* kb = k + bb * ksb + hh * D;
+  const T* vb = v + bb * vsb + hh * D;
+
+  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
+    const int r = idx / D, c = idx % D, row = q0 + r;
+    qs[r * QS + c] = row < sq ? to_f32(qb[row * qss + c]) * scale : 0.f;
+  }
+  // keys any row of this tile can see
+  int kend = sk;
+  if (causal) kend = max(0, min(sk, min(q0 + kBQ, sq) + offset));
+
+  float m[4], l[4], acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DJ; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < kend; k0 += kBK) {
+    __syncthreads();  // the previous tile is no longer read
+    for (int idx = tid; idx < kBK * D; idx += kThreads) {
+      const int key = idx / D, c = idx % D, j = k0 + key;
+      float kv = 0.f, vv = 0.f;
+      if (j < sk) {
+        kv = to_f32(kb[j * kss + c]);
+        vv = to_f32(vb[j * vss + c]);
+      }
+      kt[c * kPad + key] = kv;
+      vs[key * D + c] = vv;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * QS + c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = kt[c * kPad + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool ok = visible(row, col, sq, sk, offset, causal);
+        float sc = s[i][j];
+        if (ok && bias != nullptr) sc += bias[static_cast<long long>(row) * sk + col];
+        s[i][j] = ok ? sc : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], max16(mx));
+      // rows fully masked so far keep l = 0 (exp(s - m_new) would be 1)
+      const bool live = m_new > 0.5f * kNegInf;
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = live ? expf(s[i][j] - m_new) : 0.f;
+        ps[(ty * 4 + i) * kPad + tx + 16 * j] = p;
+        rs += p;
+      }
+      l[i] = l[i] * alpha + sum16(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DJ; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      float vv[DJ];
+#pragma unroll
+      for (int c = 0; c < DJ; ++c) vv[c] = vs[kk * D + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = ps[(ty * 4 + i) * kPad + kk];
+#pragma unroll
+        for (int c = 0; c < DJ; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    T* orow = out + ((static_cast<long long>(bb) * sq + row) * h + hh) * D;
+#pragma unroll
+    for (int c = 0; c < DJ; ++c) orow[tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
+    if (tx == 0)
+      lse[(static_cast<long long>(bb) * h + hh) * sq + row] =
+          m[i] + logf(l[i] > 0.f ? l[i] : 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6: backward (delta pre-pass, main sweep over k blocks, dq cast pass)
+// ---------------------------------------------------------------------------
+
+// delta[b, h, i] = sum_c dout[b, i, h, c] * out[b, i, h, c]; one warp a row
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+packed_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                    float* __restrict__ delta, int b, int sq, int h) {
+  const long long wrow = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (wrow >= static_cast<long long>(b) * sq * h) return;
+  // wrow enumerates (b, i, h) in memory order of out
+  const T* o = out + wrow * D;
+  const T* g = dout + wrow * D;
+  float acc = 0.f;
+  for (int c = lane; c < D; c += 32) acc = fmaf(to_f32(o[c]), to_f32(g[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int hh = static_cast<int>(wrow % h);
+    const long long bi = wrow / h;  // b * sq + i
+    const int i = static_cast<int>(bi % sq);
+    const long long bb = bi / sq;
+    delta[(bb * h + hh) * sq + i] = acc;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ bias,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq_ws,
+                  T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h,
+                  long long qsb, long long qss, long long ksb, long long kss,
+                  long long vsb, long long vss, float scale, int causal) {
+  constexpr int DJ = D / 16;
+  constexpr int QS = D + 1;
+  extern __shared__ float smem[];
+  float* kt = smem;                 // [D][kPad]  k block, transposed
+  float* vt = kt + D * kPad;        // [D][kPad]  v block, transposed
+  float* qs = vt + D * kPad;        // [kBQ][QS]  q tile
+  float* gs = qs + kBQ * QS;        // [kBQ][QS]  dout tile
+  float* ps = gs + kBQ * QS;        // [kBQ][kPad] p, then ds
+  float* ls = ps + kBQ * kPad;      // [kBQ] lse
+  float* ds_ = ls + kBQ;            // [kBQ] delta
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int bb = blockIdx.z, hh = blockIdx.y, k0 = blockIdx.x * kBK;
+  const int offset = sk - sq;
+  const long long hd = static_cast<long long>(h) * D;  // contiguous row
+  const T* qb = q + bb * qsb + hh * D;
+  const T* kb = k + bb * ksb + hh * D;
+  const T* vb = v + bb * vsb + hh * D;
+  const T* gb = dout + static_cast<long long>(bb) * sq * hd + hh * D;
+  const float* lb = lse + (static_cast<long long>(bb) * h + hh) * sq;
+  const float* db = delta + (static_cast<long long>(bb) * h + hh) * sq;
+  float* dqb = dq_ws + static_cast<long long>(bb) * sq * hd + hh * D;
+
+  for (int idx = tid; idx < kBK * D; idx += kThreads) {
+    const int key = idx / D, c = idx % D, j = k0 + key;
+    float kv = 0.f, vv = 0.f;
+    if (j < sk) {
+      kv = to_f32(kb[j * kss + c]);
+      vv = to_f32(vb[j * vss + c]);
+    }
+    kt[c * kPad + key] = kv;
+    vt[c * kPad + key] = vv;
+  }
+
+  float dka[4][DJ], dva[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DJ; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  // the first query row that can see key k0
+  const int qstart = causal ? max(0, k0 - offset) : 0;
+  for (int q0 = (qstart / kBQ) * kBQ; q0 < sq; q0 += kBQ) {
+    __syncthreads();  // the previous tile is no longer read
+    for (int idx = tid; idx < kBQ * D; idx += kThreads) {
+      const int r = idx / D, c = idx % D, row = q0 + r;
+      const bool live = row < sq;
+      qs[r * QS + c] = live ? to_f32(qb[row * qss + c]) : 0.f;
+      gs[r * QS + c] = live ? to_f32(gb[row * hd + c]) : 0.f;
+    }
+    if (tid < kBQ) {
+      const int row = q0 + tid;
+      ls[tid] = row < sq ? lb[row] : kNegInf;
+      ds_[tid] = row < sq ? db[row] : 0.f;
+    }
+    __syncthreads();
+
+    // s = q k^T and dp = dout v^T for rows ty*4+i, keys tx+16*j
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float a[4], g[4], kc[4], vc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = qs[(ty * 4 + i) * QS + c];
+        g[i] = gs[(ty * 4 + i) * QS + c];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kc[j] = kt[c * kPad + tx + 16 * j];
+        vc[j] = vt[c * kPad + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i], kc[j], s[i][j]);
+          dp[i][j] = fmaf(g[i], vc[j], dp[i][j]);
+        }
+    }
+    // p = exp(s - lse) (0 where masked or the row has no visible key), then
+    // ds = p (dp - delta); p goes to shared memory for dv first
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, row = q0 + r;
+      const float lr = ls[r];
+      const bool live = lr > 0.5f * kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float p = 0.f;
+        if (live && visible(row, col, sq, sk, offset, causal)) {
+          float sc = s[i][j] * scale;
+          if (bias != nullptr) sc += bias[static_cast<long long>(row) * sk + col];
+          p = expf(sc - lr);
+        }
+        ps[r * kPad + tx + 16 * j] = p;
+        s[i][j] = p * (dp[i][j] - ds_[r]);  // ds, kept until p is consumed
+      }
+    }
+    __syncthreads();
+    // dv[key] += sum_q p[q][key] dout[q]  (keys ty*4+i, columns tx+16*c)
+#pragma unroll 4
+    for (int qq = 0; qq < kBQ; ++qq) {
+      float g[DJ];
+#pragma unroll
+      for (int c = 0; c < DJ; ++c) g[c] = gs[qq * QS + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = ps[qq * kPad + ty * 4 + i];
+#pragma unroll
+        for (int c = 0; c < DJ; ++c) dva[i][c] = fmaf(p, g[c], dva[i][c]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps[(ty * 4 + i) * kPad + tx + 16 * j] = s[i][j];
+    __syncthreads();
+    // dk[key] += sum_q ds[q][key] q[q]
+#pragma unroll 4
+    for (int qq = 0; qq < kBQ; ++qq) {
+      float a[DJ];
+#pragma unroll
+      for (int c = 0; c < DJ; ++c) a[c] = qs[qq * QS + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float d = ps[qq * kPad + ty * 4 + i];
+#pragma unroll
+        for (int c = 0; c < DJ; ++c) dka[i][c] = fmaf(d, a[c], dka[i][c]);
+      }
+    }
+    // dq[q] += sum_key ds[q][key] k[key] * scale, into the fp32 workspace
+    float dqa[4][DJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < DJ; ++c) dqa[i][c] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      float kc[DJ];
+#pragma unroll
+      for (int c = 0; c < DJ; ++c) kc[c] = kt[(tx + 16 * c) * kPad + kk];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float d = ps[(ty * 4 + i) * kPad + kk];
+#pragma unroll
+        for (int c = 0; c < DJ; ++c) dqa[i][c] = fmaf(d, kc[c], dqa[i][c]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      if (row >= sq) continue;
+#pragma unroll
+      for (int c = 0; c < DJ; ++c)
+        atomicAdd(dqb + row * hd + tx + 16 * c, dqa[i][c] * scale);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty * 4 + i;
+    if (key >= sk) continue;
+    const long long o = (static_cast<long long>(bb) * sk + key) * hd + hh * D;
+#pragma unroll
+    for (int c = 0; c < DJ; ++c) {
+      dk[o + tx + 16 * c] = from_f32<T>(dka[i][c] * scale);
+      dv[o + tx + 16 * c] = from_f32<T>(dva[i][c]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void cast_kernel(const float* __restrict__ src, T* __restrict__ dst,
+                            long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) dst[i] = from_f32<T>(src[i]);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kern, size_t bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const float* bias;
+  int b, sq, sk, h;
+  long long qsb, qss, ksb, kss, vsb, vss;
+  float scale;
+  int causal;
+};
+
+template <typename T, int D>
+cudaError_t fwd(const Args& a, void* out, float* lse, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * fwd_smem_floats<D>();
+  auto kern = packed_fwd_kernel<T, D>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, a.b);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.bias, static_cast<T*>(out), lse, a.sq,
+      a.sk, a.h, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t bwd(const Args& a, const void* out, const void* dout,
+                const float* lse, float* delta, float* dq_ws, void* dq,
+                void* dk, void* dv, cudaStream_t stream) {
+  const long long n = static_cast<long long>(a.b) * a.sq * a.h * D;
+  cudaError_t e = cudaSuccess;
+  if (n > 0) {
+    if ((e = cudaMemsetAsync(dq_ws, 0, sizeof(float) * n, stream)) != cudaSuccess) return e;
+    const long long rows = static_cast<long long>(a.b) * a.sq * a.h;
+    const int warps = kThreads / 32;
+    packed_delta_kernel<T, D><<<static_cast<unsigned>((rows + warps - 1) / warps),
+                                kThreads, 0, stream>>>(
+        static_cast<const T*>(out), static_cast<const T*>(dout), delta, a.b,
+        a.sq, a.h);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if (a.sk > 0) {
+    const size_t smem = sizeof(float) * bwd_smem_floats<D>();
+    auto kern = packed_bwd_kernel<T, D>;
+    static bool configured = false;
+    if (!configured) {
+      if ((e = allow_smem(kern, smem)) != cudaSuccess) return e;
+      configured = true;
+    }
+    dim3 grid((a.sk + kBK - 1) / kBK, a.h, a.b);
+    kern<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.bias, static_cast<const T*>(dout), lse,
+        delta, dq_ws, static_cast<T*>(dk), static_cast<T*>(dv), a.sq, a.sk,
+        a.h, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if (n > 0) {
+    cast_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+        dq_ws, static_cast<T*>(dq), n);
+    e = cudaGetLastError();
+  }
+  return e;
+}
+
+template <typename T>
+cudaError_t fwd_d(const Args& a, int d, void* out, float* lse, cudaStream_t s) {
+  switch (d) {
+    case 32: return fwd<T, 32>(a, out, lse, s);
+    case 64: return fwd<T, 64>(a, out, lse, s);
+    case 128: return fwd<T, 128>(a, out, lse, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t bwd_d(const Args& a, int d, const void* out, const void* dout,
+                  const float* lse, float* delta, float* dq_ws, void* dq,
+                  void* dk, void* dv, cudaStream_t s) {
+  switch (d) {
+    case 32: return bwd<T, 32>(a, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
+    case 64: return bwd<T, 64>(a, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
+    case 128: return bwd<T, 128>(a, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace ptt
+
+extern "C" int ptt_flash_attention_packed_fwd(
+    const void* q, const void* k, const void* v, const void* bias, void* out,
+    void* lse, int b, int sq, int sk, int h, int d, long long qsb,
+    long long qss, long long ksb, long long kss, long long vsb, long long vss,
+    float scale, int causal, int dtype, void* stream) {
+  using namespace ptt;
+  if (b == 0 || sq == 0 || h == 0) return cudaSuccess;
+  const Args a{q, k, v, static_cast<const float*>(bias), b, sq, sk, h,
+               qsb, qss, ksb, kss, vsb, vss, scale, causal};
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32: return fwd_d<float>(a, d, out, l, s);
+    case kBFloat16: return fwd_d<__nv_bfloat16>(a, d, out, l, s);
+    case kFloat16: return fwd_d<__half>(a, d, out, l, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int ptt_flash_attention_packed_bwd(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* out, const void* dout, const void* lse, void* delta,
+    void* dq_ws, void* dq, void* dk, void* dv, int b, int sq, int sk, int h,
+    int d, long long qsb, long long qss, long long ksb, long long kss,
+    long long vsb, long long vss, float scale, int causal, int dtype,
+    void* stream) {
+  using namespace ptt;
+  if (b == 0 || h == 0) return cudaSuccess;
+  const Args a{q, k, v, static_cast<const float*>(bias), b, sq, sk, h,
+               qsb, qss, ksb, kss, vsb, vss, scale, causal};
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  float* ws = static_cast<float*>(dq_ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32: return bwd_d<float>(a, d, out, dout, l, dl, ws, dq, dk, dv, s);
+    case kBFloat16: return bwd_d<__nv_bfloat16>(a, d, out, dout, l, dl, ws, dq, dk, dv, s);
+    case kFloat16: return bwd_d<__half>(a, d, out, dout, l, dl, ws, dq, dk, dv, s);
+  }
+  return cudaErrorInvalidValue;
+}

@@ -1,7 +1,7 @@
 """Global flags registry — ``set_flags`` / ``get_flags`` / ``flag_value``.
 
 Port of ``paddle_tpu/framework/flags.py`` with only the flags the serving
-path reads. Environment ``FLAGS_<name>`` values seed the defaults at
+and training paths read. Environment ``FLAGS_<name>`` values seed the defaults at
 import, as in the JAX package. No flag binds to a backend config here:
 the routing flags are read by ``nn.functional.attention`` at call time.
 """
@@ -79,6 +79,14 @@ register_flag("flash_attention_block_k", 0,
               help="the JAX package's flash k block override; accepted so "
                    "FLAGS_ settings carry over, the CUDA kernels' tiles "
                    "are fixed")
+register_flag("flash_attention_bwd_block", 0,
+              help="the JAX package's packed flash backward block override; "
+                   "accepted so FLAGS_ settings carry over, the CUDA "
+                   "kernels' tiles are fixed")
+register_flag("enable_flash_ce", False,
+              help="the JAX package's opt-in Pallas flash-CE route (kernels "
+                   "K9-K11); on CUDA it raises until those kernels are "
+                   "ported, on the CPU the chunked loop runs")
 register_flag("flash_attention_min_seq_prod", 1024 * 1024,
               help="uncached sdpa takes the dense path below this sq*sk")
 register_flag("disable_blockwise_attention", False,

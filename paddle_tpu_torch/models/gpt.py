@@ -7,8 +7,11 @@ the input embedding (``h @ wteᵀ``). Parameter names match the JAX model's
 
 Serving passes ``cache=`` (one :mod:`~paddle_tpu_torch.serving.kv_cache`
 view per layer) and a ``LengthMask``; attention then runs the cached kernel
-K4 on the card. Tensor, sequence and pipeline parallelism and the
-deprecated tuple cache of the JAX model are not ported (see ROADMAP.md).
+K4 on the card. Training calls :meth:`GPTForCausalLM.loss`: causal attention
+runs the packed kernels K5/K6 and the LayerNorms K7/K8 on the card, and the
+loss is the chunked ``fused_linear_cross_entropy``. Tensor, sequence and
+pipeline parallelism and the deprecated tuple cache of the JAX model are not
+ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -186,6 +189,15 @@ class GPTForCausalLM(nn.Module):
             return torch.matmul(h, w.t()), new_cache
         h = self.gpt(input_ids, position_ids, attn_mask)
         return torch.matmul(h, w.t())
+
+    def loss(self, input_ids, labels):
+        """Fused LM loss: the tied head's matmul and softmax cross-entropy
+        without materializing the ``[tokens, vocab]`` logits
+        (``ops.fused.fused_linear_cross_entropy``), mean over tokens."""
+        input_ids = torch.as_tensor(input_ids, device=self.device)
+        h = self.gpt(input_ids)
+        w = self.gpt.embeddings.word_embeddings.weight
+        return F.fused_linear_cross_entropy(h, w, labels)
 
     def generate(self, prompt_ids, max_new_tokens=32, eos_id=None,
                  max_len=None, prefill_buckets=None):

@@ -1,12 +1,14 @@
-"""Attention functionals — port of ``paddle_tpu/nn/functional/attention.py``
-(the forward paths the serving slice runs).
+"""Attention functionals — port of ``paddle_tpu/nn/functional/attention.py``.
 
-Three paths, as in the JAX package:
+Four paths, as in the JAX package:
 
 * the cached-attention kernel K4 (``ops/cuda/flash_attention.py``) for
-  :class:`LengthMask` calls;
+  :class:`LengthMask` calls (forward only);
+* the packed flash kernels K5/K6 (``ops/cuda/flash_attention_packed.py``)
+  for uncached attention, differentiable;
 * a blockwise online-softmax loop over KV blocks (``_sdpa_blockwise``) that
-  never builds the ``[b, h, q, sk]`` score matrix;
+  never builds the ``[b, h, q, sk]`` score matrix, with a custom backward
+  that recomputes tiles from the saved logsumexp;
 * the dense path (``_sdpa_raw``: matmul + softmax, causal by iota compare).
 
 Routing of a LengthMask call:
@@ -22,9 +24,19 @@ Routing of a LengthMask call:
   K4's wrapper, which runs the plain version on a CPU tensor; other calls
   with enough keys run the blockwise loop; shorter ones the dense path.
 
-Uncached attention (training) is the next slice: on CUDA, a call at shapes
-where the JAX package would run its flash kernel raises
-``NotImplementedError`` instead of quietly running plain code.
+Routing of an uncached call (``_flash_ok`` / ``_sdpa_flash``):
+
+* **CUDA** — at ``sq * sk >= flash_attention_min_seq_prod`` with no mask or
+  a constant shared 2-D ``(sq, sk)`` mask, K5/K6 for head dims in
+  ``HEAD_DIMS``: every call JAX sends to its packed kernel, without the
+  Mosaic constraints (128-aligned blocks, 128-lane head groups, the dq
+  slab cap). A call JAX sends to its layout-swapping kernel (a 4-D or
+  trainable mask, another head dim) raises ``NotImplementedError`` naming
+  the K1–K3 slice. Attention dropout in training raises too.
+* **CPU** — JAX's route under interpret mode (which skips the min-seq-prod
+  crossover): 128-aligned sequence dims take the packed wrapper when
+  ``flash_attention_packed.supports`` holds (its plain versions on a CPU
+  tensor), and the dense path where JAX would take K1–K3.
 """
 from __future__ import annotations
 
@@ -34,15 +46,18 @@ import torch
 
 from ...framework.flags import flag_value
 from ...ops.cuda import flash_attention as _fa
+from ...ops.cuda import flash_attention_packed as _fp
 
 __all__ = ["LengthMask", "scaled_dot_product_attention", "NEG_INF"]
 
 #: additive-mask floor shared with serving.kv_cache.MASK_MIN
 NEG_INF = -1e30
 
-_TRAINING_SLICE = ("uncached flash attention (kernels K5/K1 of "
-                   "paddle_tpu/ops/pallas) and attention dropout belong to "
-                   "the training slice of the port, which is not done yet")
+_DROPOUT = ("attention dropout in training needs an in-kernel counter-based "
+            "generator (ROADMAP B note 6); the training slice runs dropout 0")
+_K1_K3 = ("this attention call takes the JAX package's layout-swapping "
+          "flash kernel (K1-K3: a 4-D or trainable mask, or a head dim the "
+          "packed kernel does not take), which the port has not ported yet")
 
 
 class LengthMask:
@@ -86,31 +101,32 @@ def _pick_block(n, pref):
 # ---------------------------------------------------------------------------
 # blockwise online-softmax loop
 # ---------------------------------------------------------------------------
+def _valid(q_pos, kv_len, b0, n):
+    """``[b, 1, sq, n]`` validity of keys ``b0 .. b0 + n`` (LengthMask)."""
+    col = b0 + torch.arange(n, dtype=torch.int32, device=q_pos.device)
+    ok = col <= q_pos.to(torch.int32)[:, None, :, None]
+    if kv_len is not None:
+        ok = ok & (col < kv_len.to(torch.int32)[:, None, None, None])
+    return ok
+
+
 def _bw_fwd(q, k, v, q_pos, kv_len, scale, block_k):
-    """Forward loop over KV blocks. Carry: running (max, denom, acc) per
-    query row; the only block-wide temporary is the ``[b, h, sq, block_k]``
-    score tile of the current block."""
+    """Forward loop over KV blocks: ``(out, lse)``. Carry: running (max,
+    denom, acc) per query row; the only block-wide temporary is the
+    ``[b, h, sq, block_k]`` score tile of the current block."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qf = q.transpose(1, 2).float() * scale                   # [b,h,sq,d]
     kf = k.transpose(1, 2).float()
     vf = v.transpose(1, 2).float()
-    qpos_e = q_pos.to(torch.int32)[:, None, :, None]
-    klen_e = (None if kv_len is None
-              else kv_len.to(torch.int32)[:, None, None, None])
     m = torch.full((b, h, sq), NEG_INF, device=q.device)
     l = torch.zeros((b, h, sq), device=q.device)
     acc = torch.zeros((b, h, sq, d), device=q.device)
-    iota = torch.arange(block_k, dtype=torch.int32, device=q.device)
     for b0 in range(0, sk, block_k):
         kb = kf[:, :, b0:b0 + block_k]
         vb = vf[:, :, b0:b0 + block_k]
-        s_ = torch.matmul(qf, kb.transpose(-1, -2))
-        col = b0 + iota
-        ok = col <= qpos_e
-        if klen_e is not None:
-            ok = ok & (col < klen_e)
-        s_ = torch.where(ok, s_, NEG_INF)
+        ok = _valid(q_pos, kv_len, b0, kb.shape[2])
+        s_ = torch.where(ok, torch.matmul(qf, kb.transpose(-1, -2)), NEG_INF)
         m_new = torch.maximum(m, s_.amax(-1))
         # masked entries must contribute 0 even when the whole row is masked
         # so far (m_new == NEG_INF would make exp(s - m_new) = 1)
@@ -119,20 +135,74 @@ def _bw_fwd(q, k, v, q_pos, kv_len, scale, block_k):
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.matmul(p, vb)
         m = m_new
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    return out.transpose(1, 2).to(q.dtype), lse
+
+
+def _bw_bwd(q, k, v, q_pos, kv_len, out, lse, g, scale, block_q, block_k):
+    """FlashAttention-2 recurrence: dq loops over K blocks, dk/dv over Q
+    blocks; every score tile is recomputed from the saved logsumexp, so
+    nothing O(sq·sk) is live."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qf, kf, vf, gf, of = (t.transpose(1, 2).float()
+                          for t in (q, k, v, g, out))
+    delta = (of * gf).sum(-1)                                 # [b,h,sq]
+    dq = torch.zeros((b, h, sq, d), device=q.device)
+    for b0 in range(0, sk, block_k):
+        kb, vb = kf[:, :, b0:b0 + block_k], vf[:, :, b0:b0 + block_k]
+        s_ = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        ok = _valid(q_pos, kv_len, b0, kb.shape[2])
+        p = torch.where(ok, torch.exp(s_ - lse[..., None]), 0.0)
+        ds = p * (torch.matmul(gf, vb.transpose(-1, -2)) - delta[..., None])
+        dq = dq + torch.matmul(ds, kb) * scale
+    dk = torch.zeros((b, h, sk, d), device=q.device)
+    dv = torch.zeros((b, h, sk, d), device=q.device)
+    for q0 in range(0, sq, block_q):
+        qb, gb = qf[:, :, q0:q0 + block_q], gf[:, :, q0:q0 + block_q]
+        s_ = torch.matmul(qb, kf.transpose(-1, -2)) * scale
+        ok = _valid(q_pos[:, q0:q0 + block_q], kv_len, 0, sk)
+        p = torch.where(ok, torch.exp(s_ - lse[:, :, q0:q0 + block_q, None]),
+                        0.0)
+        dv = dv + torch.matmul(p.transpose(-1, -2), gb)
+        ds = p * (torch.matmul(gb, vf.transpose(-1, -2))
+                  - delta[:, :, q0:q0 + block_q, None])
+        dk = dk + torch.matmul(ds.transpose(-1, -2), qb) * scale
+
+    def back(x, dt):
+        return x.transpose(1, 2).to(dt)
+
+    return back(dq, q.dtype), back(dk, k.dtype), back(dv, v.dtype)
+
+
+class _Blockwise(torch.autograd.Function):
+    """The custom vjp of the JAX ``_blockwise``: autograd through the
+    forward loop would keep every block's probability tile (O(sq·sk))."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_len, scale, block_q, block_k):
+        out, lse = _bw_fwd(q, k, v, q_pos, kv_len, scale, block_k)
+        ctx.save_for_backward(q, k, v, q_pos, kv_len, out, lse)
+        ctx.args = (scale, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_pos, kv_len, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bw_bwd(q, k, v, q_pos, kv_len, out, lse, g, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _sdpa_blockwise(q, k, v, q_pos, kv_len=None, scale=None, block_q=0,
                     block_k=0):
     """Blockwise online-softmax attention (q, k, v in paddle (b, s, h, d)
     layout). ``q_pos``/``kv_len`` follow :class:`LengthMask` semantics.
-    ``block_q`` is kept for the JAX signature; the forward loop tiles KV
-    only."""
-    del block_q
+    The forward loop tiles KV; the backward tiles Q by ``block_q`` too."""
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     bk = block_k or _pick_block(k.shape[1], 512)
-    return _bw_fwd(q, k, v, q_pos, kv_len, s, bk)
+    bq = block_q or _pick_block(q.shape[1], 512)
+    return _Blockwise.apply(q, k, v, q_pos, kv_len, s, bq, bk)
 
 
 def _blockwise_ok(q_shape, k_shape, dropout_p, training):
@@ -156,13 +226,13 @@ def _route_length_masked(query, key, value, lm, dropout_p, training, scale):
     b, sq, h, d = query.shape
     sk = key.shape[1]
     if dropout_p > 0.0 and training:
-        raise NotImplementedError(_TRAINING_SLICE)
+        raise NotImplementedError(_DROPOUT)
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     if query.device.type == "cuda":
         return _fa.flash_attention_cached(query, key, value, lm.q_pos,
                                           lm.kv_len, scale=s)
     if _blockwise_ok(query.shape, key.shape, dropout_p, training):
-        if _fa.supports_cached(sq, sk):
+        if _fa.supports(sq, sk):
             return _fa.flash_attention_cached(query, key, value, lm.q_pos,
                                               lm.kv_len, scale=s)
         bq, bk = _blockwise_blocks(sq, sk)
@@ -172,15 +242,17 @@ def _route_length_masked(query, key, value, lm, dropout_p, training, scale):
     return _sdpa_raw(query, key, value, mask, causal=False, scale=scale)
 
 
-def _flash_ok(q_shape, k_shape, mask):
-    """Where the JAX package runs its uncached flash kernel on the TPU
-    (``_flash_ok`` with Pallas available): enabled, at least
-    ``flash_attention_min_seq_prod`` score entries, a mask the kernel
-    streams, 128-aligned sequence dims."""
+def _flash_ok(q_shape, k_shape, mask, on_cuda):
+    """Where the JAX package runs a flash kernel (``_flash_ok`` with Pallas
+    available): enabled, a mask the kernels stream exactly (trailing dims
+    ``(sq, sk)``, broadcastable batch/head dims), and — on CUDA — at least
+    ``flash_attention_min_seq_prod`` score entries; on the CPU (interpret
+    mode, which skips that crossover) 128-aligned sequence dims
+    (``flash_attention.supports``)."""
     if flag_value("disable_flash_attention"):
         return False
     sq, sk = q_shape[1], k_shape[1]
-    if sq * sk < flag_value("flash_attention_min_seq_prod"):
+    if on_cuda and sq * sk < flag_value("flash_attention_min_seq_prod"):
         return False
     if mask is not None:
         ms = tuple(mask.shape)
@@ -191,7 +263,32 @@ def _flash_ok(q_shape, k_shape, mask):
                 return False
         elif ms != (sq, sk):
             return False
-    return _fa.supports_cached(sq, sk)
+    return on_cuda or _fa.supports(sq, sk)
+
+
+def _sdpa_flash(q, k, v, mask=None, causal=False, scale=None,
+                mask_trainable=False):
+    """q, k, v: ``(batch, seq, heads, head_dim)``. The packed kernels take
+    the ``(b, s, h·d)`` reshape of the qkv projection's views (strides
+    ``(s·3hd, 3hd, 1)``: no copy) when the mask is absent or a constant
+    shared 2-D one; see the module docstring for the rest."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    on_cuda = q.device.type == "cuda"
+    packed = mask is None or (mask.ndim == 2 and not mask_trainable)
+    if on_cuda:
+        packed = packed and d in _fp.HEAD_DIMS
+    else:
+        packed = packed and _fp.supports(sq, sk, h, h * d)
+    if packed:
+        out = _fp.flash_attention_packed(
+            q.reshape(b, sq, h * d), k.reshape(b, sk, h * d),
+            v.reshape(b, sk, h * d), h, bias=mask, causal=causal,
+            scale=scale)
+        return out.reshape(b, sq, h, d)
+    if on_cuda:
+        raise NotImplementedError(_K1_K3)
+    return _sdpa_raw(q, k, v, mask, causal=causal, scale=scale)
 
 
 def _sdpa_raw(q, k, v, mask=None, causal=False, scale=None):
@@ -222,10 +319,12 @@ def _sdpa(query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,
         return _route_length_masked(query, key, value, attn_mask, dropout_p,
                                     training, scale)
     if dropout_p > 0.0 and training:
-        raise NotImplementedError(_TRAINING_SLICE)
-    if query.device.type == "cuda" and _flash_ok(query.shape, key.shape,
-                                                  attn_mask):
-        raise NotImplementedError(_TRAINING_SLICE)
+        raise NotImplementedError(_DROPOUT)
+    if _flash_ok(query.shape, key.shape, attn_mask,
+                 query.device.type == "cuda"):
+        trainable = attn_mask is not None and attn_mask.requires_grad
+        return _sdpa_flash(query, key, value, attn_mask, causal=is_causal,
+                           scale=scale, mask_trainable=trainable)
     if (attn_mask is None and is_causal
             and _blockwise_ok(query.shape, key.shape, dropout_p, training)):
         # long causal attention without the flash kernel: blockwise loop

@@ -2,8 +2,9 @@
 (``layer_norm`` only).
 
 Routing as in the JAX package: a last-axis affine LayerNorm whose feature
-count is a multiple of 128 goes to the kernel wrapper (K7 on CUDA, its plain
-version on the CPU); anything else runs the plain PyTorch expression. Either
+count is a multiple of 128 goes to the kernel wrapper (K7 forward and K8
+backward on CUDA, their plain versions on the CPU); anything else runs the
+plain PyTorch expression, which autograd differentiates. Either
 way the statistics are fp32 and the output is in ``x.dtype``, and gamma/beta
 may be fp32 while ``x`` is bf16.
 """

@@ -23,7 +23,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["library", "check", "stream_of", "build_info", "dtype_code"]
+__all__ = ["library", "check", "stream_of", "build_info", "dtype_code",
+           "needs_grad"]
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _OUT = Path(__file__).resolve().parent / "_build"
@@ -36,17 +37,30 @@ _info = {}
 
 p = ctypes.c_void_p
 i32 = ctypes.c_int
+i64 = ctypes.c_longlong
 f32 = ctypes.c_float
 
 #: C signatures of every entry point in csrc/
 _SIGNATURES = {
     # x, gamma, beta, y, rows, features, eps, x_dtype, w_dtype, stream
     "ptt_layer_norm_fwd": [p, p, p, p, i32, i32, f32, i32, i32, p],
+    # x, gamma, dy, dx, dgamma, dbeta, partials, parts, rows, features, eps,
+    # x_dtype, w_dtype, stream
+    "ptt_layer_norm_bwd": [p, p, p, p, p, p, p, i32, i32, i32, f32, i32, i32,
+                           p],
     # q, k, v, q_pos, kv_len, out, b, sq, sk, h, d,
     # q strides (b, s, h), k strides, v strides, scale, dtype, ksplit, stream
     "ptt_flash_attention_cached_fwd": (
         [p, p, p, p, p, p, i32, i32, i32, i32, i32]
-        + [ctypes.c_longlong] * 9 + [f32, i32, i32, p]),
+        + [i64] * 9 + [f32, i32, i32, p]),
+    # q, k, v, bias, out, lse, b, sq, sk, h, d,
+    # q strides (b, s), k strides, v strides, scale, causal, dtype, stream
+    "ptt_flash_attention_packed_fwd": (
+        [p] * 6 + [i32] * 5 + [i64] * 6 + [f32, i32, i32, p]),
+    # q, k, v, bias, out, dout, lse, delta, dq workspace, dq, dk, dv,
+    # b, sq, sk, h, d, q/k/v strides (b, s), scale, causal, dtype, stream
+    "ptt_flash_attention_packed_bwd": (
+        [p] * 12 + [i32] * 5 + [i64] * 6 + [f32, i32, i32, p]),
 }
 
 
@@ -148,3 +162,12 @@ def stream_of(t):
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def needs_grad(*tensors):
+    """Whether autograd would record a call on ``tensors``: grad mode is on
+    and one of them requires grad."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

@@ -8,7 +8,9 @@ view goes in without a copy.
 
 Key ``j`` attends to query row ``i`` of batch ``b`` iff ``j <= q_pos[b, i]``
 and, when ``kv_len`` is given, ``j < kv_len[b]``; a row with no valid key
-gives 0. Forward only: serving holds no gradients through the cache.
+gives 0. Forward only: serving holds no gradients through the cache, and
+on a CUDA tensor the wrapper raises rather than return an output that
+autograd cannot see.
 """
 from __future__ import annotations
 
@@ -16,10 +18,10 @@ import math
 
 import torch
 
-from ._build import check, dtype_code, library, stream_of
+from ._build import check, dtype_code, library, needs_grad, stream_of
 
 __all__ = ["flash_attention_cached", "flash_attention_cached_plain",
-           "supports_cached", "NEG_INF"]
+           "supports", "NEG_INF"]
 
 NEG_INF = -1e30
 #: head dims the kernel is instantiated for
@@ -41,10 +43,12 @@ def _pick_block(seq, pref):
     return 0
 
 
-def supports_cached(seq_q, seq_k):
-    """The JAX kernel's shape gate (128-aligned sequence blocks, a Mosaic
-    tiling constraint). The router consults it only on the CPU, to take the
-    route the JAX package takes; the CUDA kernel takes any shape."""
+def supports(seq_q, seq_k):
+    """The JAX package's shape gate for its flash kernels, cached and
+    layout-swapping alike (``flash_attention.supports`` and
+    ``supports_cached``: 128-aligned sequence blocks, a Mosaic tiling
+    constraint). The router consults it only on the CPU, to take the route
+    the JAX package takes; the CUDA kernel takes any shape."""
     return (_pick_block(seq_q, _DEFAULT_BLOCK) > 0
             and _pick_block(seq_k, _DEFAULT_BLOCK) > 0)
 
@@ -98,6 +102,9 @@ def flash_attention_cached(q, k, v, q_pos, kv_len=None, *, scale=None):
         return flash_attention_cached_plain(q, k, v, q_pos, kv_len, scale)
     if q.device.type != "cuda":
         raise ValueError(f"cached attention kernel needs CUDA, got {q.device}")
+    if needs_grad(q, k, v):
+        raise RuntimeError("flash_attention_cached is forward-only: its "
+                           "kernel's output is not recorded by autograd")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if k.shape != (b, sk, h, d) or v.shape != k.shape:

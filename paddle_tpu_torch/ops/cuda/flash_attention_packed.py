@@ -1,0 +1,293 @@
+"""Packed (seq-major) flash attention: kernels K5 (forward) and K6 (backward)
+and their plain versions.
+
+Port of ``paddle_tpu/ops/pallas/flash_attention_packed.py``. q, k and v are
+``(batch, seq, heads * head_dim)``: the reshaped views of one fused qkv
+projection go in without a copy (the kernels take batch and row strides) and
+the output feeds the out-projection as it is. Causal masking is bottom-right
+aligned (key ``j`` is visible to query ``i`` iff ``j <= i + sk - sq``); an
+optional shared ``(sq, sk)`` additive bias carries no gradient. A query row
+with no visible key gives output 0, logsumexp -1e30 and zero gradients.
+
+:func:`flash_attention_packed` is differentiable: under autograd it saves
+q, k, v, the output and the fp32 logsumexp, and the backward recomputes the
+probabilities from them (K6), as the JAX custom vjp does. The raw launchers
+(:func:`flash_attention_packed_fwd`, :func:`flash_attention_packed_bwd`)
+raise on a CUDA tensor that asks autograd to record them. The JAX kernels'
+block sizes and dropout are TPU matters: the flags ``flash_attention_block_q``,
+``flash_attention_block_k`` and ``flash_attention_bwd_block`` are accepted
+and unused here, and attention dropout is refused by the router.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ._build import check, dtype_code, library, needs_grad, stream_of
+from .flash_attention import _pick_block
+
+__all__ = ["flash_attention_packed", "flash_attention_packed_plain",
+           "flash_attention_packed_fwd", "flash_attention_packed_fwd_plain",
+           "flash_attention_packed_bwd", "flash_attention_packed_bwd_plain",
+           "supports", "HEAD_DIMS", "NEG_INF"]
+
+NEG_INF = -1e30
+#: head dims the kernels are instantiated for
+HEAD_DIMS = (32, 64, 128)
+# the JAX kernel's gate constants, for the CPU route
+# (paddle_tpu/ops/pallas/flash_attention_packed.py)
+_LANES = 128
+_DEFAULT_BLOCK = 1024
+_MAX_BWD_SLAB_BYTES = 10 * 2 ** 20
+
+
+def _group_width(d):
+    """(heads a 128-lane group, its lane width) of the JAX kernel."""
+    if d >= _LANES:
+        return (1, d) if d % _LANES == 0 else (0, 0)
+    return (_LANES // d, _LANES) if _LANES % d == 0 else (0, 0)
+
+
+def supports(seq_q, seq_k, num_heads, embed_dim):
+    """The JAX kernel's shape gate (``flash_attention_packed.supports``):
+    head dims that pack into 128-lane groups, 128-aligned sequence blocks
+    and a backward dq slab under 10 MB — Mosaic constraints. The router
+    consults it only on the CPU; the CUDA kernels take any sequence length
+    and the head dims in :data:`HEAD_DIMS`."""
+    if embed_dim % num_heads:
+        return False
+    hpg, width = _group_width(embed_dim // num_heads)
+    if not hpg or num_heads % hpg:
+        return False
+    if seq_q * width * 4 > _MAX_BWD_SLAB_BYTES:
+        return False
+    return (_pick_block(seq_q, _DEFAULT_BLOCK) > 0
+            and _pick_block(seq_k, _DEFAULT_BLOCK) > 0)
+
+
+def _heads(q, k, num_heads):
+    """``(b, sq, sk, h, d)`` of packed operands."""
+    b, sq, e = q.shape
+    h = int(num_heads)
+    if k.shape[0] != b or k.shape[2] != e or e % h:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"pack {h} heads")
+    return b, sq, k.shape[1], h, e // h
+
+
+def _logits(q, k, num_heads, bias, causal, scale):
+    """fp32 ``[b, h, sq, sk]`` scores with the bias and causal mask applied
+    (masked entries at -1e30), and the boolean visibility."""
+    b, sq, sk, h, d = _heads(q, k, num_heads)
+    qf = q.float().reshape(b, sq, h, d).transpose(1, 2)
+    kf = k.float().reshape(b, sk, h, d).transpose(1, 2)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        row = torch.arange(sq, device=q.device)[:, None]
+        col = torch.arange(sk, device=q.device)[None, :]
+        ok = col <= row + (sk - sq)
+    return torch.where(ok, s, NEG_INF), ok
+
+
+def flash_attention_packed_fwd_plain(q, k, v, num_heads, bias=None,
+                                     causal=False, scale=None):
+    """Plain version of K5: ``(out, lse)``, dense fp32 scores. out is in
+    q's dtype, lse fp32 ``(b, h, sq)``."""
+    b, sq, sk, h, d = _heads(q, k, num_heads)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    s, _ = _logits(q, k, num_heads, bias, causal, scale)
+    m = s.amax(-1, keepdim=True)
+    # rows with no visible key: output 0, lse -1e30 (_zero_masked_rows)
+    p = torch.where(m > NEG_INF * 0.5, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    vf = v.float().reshape(b, sk, h, d).transpose(1, 2)
+    out = torch.matmul(p, vf) / l_safe
+    lse = (m + torch.log(l_safe)).squeeze(-1)
+    return out.transpose(1, 2).reshape(b, sq, h * d).to(q.dtype), lse
+
+
+def flash_attention_packed_bwd_plain(q, k, v, out, lse, dout, num_heads,
+                                     bias=None, causal=False, scale=None):
+    """Plain version of K6: ``(dq, dk, dv)`` in the inputs' dtypes, from the
+    saved output and logsumexp, all in fp32."""
+    b, sq, sk, h, d = _heads(q, k, num_heads)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    s, ok = _logits(q, k, num_heads, bias, causal, scale)
+    lse_ = lse.float()[..., None]
+    p = torch.where(ok & (lse_ > NEG_INF * 0.5), torch.exp(s - lse_), 0.0)
+
+    def heads(t, n):
+        return t.float().reshape(b, n, h, d).transpose(1, 2)
+
+    gf, of = heads(dout, sq), heads(out, sq)
+    delta = (gf * of).sum(-1, keepdim=True)
+    dp = torch.matmul(gf, heads(v, sk).transpose(-1, -2))
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, heads(k, sk)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), heads(q, sq)) * scale
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+
+    def back(t, n, like):
+        return t.transpose(1, 2).reshape(b, n, h * d).to(like.dtype)
+
+    return back(dq, sq, q), back(dk, sk, k), back(dv, sk, v)
+
+
+def _check_operands(q, k, v, bias, num_heads, what, *others):
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} kernel needs CUDA, got {q.device}")
+    if needs_grad(q, k, v, *others):
+        raise RuntimeError(
+            f"{what}: the kernel's output is not recorded by autograd; call "
+            "flash_attention_packed, which differentiates through K5 and K6")
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"q, k, v must be (batch, seq, heads * head_dim); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, sq, sk, h, d = _heads(q, k, num_heads)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(2) != 1:
+            raise ValueError(f"{name} needs a contiguous last axis "
+                             f"(strides {t.stride()})")
+    if bias is not None:
+        if (bias.shape != (sq, sk) or bias.dtype != torch.float32
+                or not bias.is_contiguous() or bias.device != q.device):
+            raise ValueError(f"bias must be contiguous fp32 ({sq}, {sk}) on "
+                             f"{q.device}")
+    return b, sq, sk, h, d
+
+
+def _strides(q, k, v):
+    return (*q.stride()[:2], *k.stride()[:2], *v.stride()[:2])
+
+
+def flash_attention_packed_fwd(q, k, v, num_heads, bias=None, causal=False,
+                               scale=None):
+    """``(out, lse)``: CPU tensors take the plain version; CUDA tensors
+    launch kernel K5. ``bias`` is None or a contiguous fp32 ``(sq, sk)``."""
+    if q.device.type == "cpu":
+        return flash_attention_packed_fwd_plain(q, k, v, num_heads, bias,
+                                                causal, scale)
+    b, sq, sk, h, d = _check_operands(q, k, v, bias, num_heads,
+                                      "flash_attention_packed_fwd")
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    out = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    check(library().ptt_flash_attention_packed_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, sq, sk, h, d, *_strides(q, k, v), float(scale),
+        int(bool(causal)), dtype_code(q.dtype), stream_of(q)),
+        "flash_attention_packed_fwd")
+    flash_attention_packed_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_packed_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
+                               causal=False, scale=None):
+    """``(dq, dk, dv)`` from the forward's ``out`` and ``lse``: CPU tensors
+    take the plain version; CUDA tensors launch kernel K6 (with its delta
+    pre-pass and dq cast pass). dq is summed with atomics, so its last bits
+    vary from run to run."""
+    if q.device.type == "cpu":
+        return flash_attention_packed_bwd_plain(q, k, v, out, lse, dout,
+                                                num_heads, bias, causal, scale)
+    b, sq, sk, h, d = _check_operands(q, k, v, bias, num_heads,
+                                      "flash_attention_packed_bwd", out, dout)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q {tuple(q.shape)} "
+                             f"{q.dtype}, got {tuple(t.shape)} {t.dtype}")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be fp32 ({b}, {h}, {sq}) on {q.device}")
+    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq_ws = torch.empty((b, sq, h * d), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h * d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, h * d), dtype=q.dtype, device=q.device)
+    check(library().ptt_flash_attention_packed_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_ws.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d,
+        *_strides(q, k, v), float(scale), int(bool(causal)),
+        dtype_code(q.dtype), stream_of(q)), "flash_attention_packed_bwd")
+    flash_attention_packed_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashPacked(torch.autograd.Function):
+    """K5 forward, K6 backward; saves q, k, v, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads, causal, scale):
+        out, lse = flash_attention_packed_fwd(q, k, v, num_heads, bias,
+                                              causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse, bias)
+        ctx.args = (num_heads, causal, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, bias = ctx.saved_tensors
+        num_heads, causal, scale = ctx.args
+        dq, dk, dv = flash_attention_packed_bwd(
+            q, k, v, out, lse, dout, num_heads, bias, causal, scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def _bias_f32(bias, sq, sk):
+    """The shared bias as the kernels take it: fp32, contiguous, boolean
+    masks as 0 / -1e30 (as ``flash_attention_packed`` converts them)."""
+    if bias is None:
+        return None
+    if tuple(bias.shape) != (sq, sk):
+        raise ValueError(f"packed attention takes a shared ({sq}, {sk}) "
+                         f"bias, got {tuple(bias.shape)}")
+    if bias.dtype == torch.bool:
+        bias = torch.where(bias, 0.0, NEG_INF)
+    return bias.detach().to(torch.float32).contiguous()
+
+
+def flash_attention_packed(q, k, v, num_heads, bias=None, *, causal=False,
+                           scale=None):
+    """Flash attention over packed ``(batch, seq, heads * head_dim)``
+    tensors; returns ``(batch, seq_q, heads * head_dim)`` in q's dtype.
+
+    ``bias`` (optional) is a shared 2-D ``(seq_q, seq_k)`` additive or
+    boolean mask, constant (no gradient). CPU tensors take the plain
+    versions; CUDA tensors launch K5, and K6 in the backward."""
+    b, sq, sk, h, d = _heads(q, k, num_heads)
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    bias = _bias_f32(bias, sq, sk)
+    if needs_grad(q, k, v):
+        return _FlashPacked.apply(q, k, v, bias, h, bool(causal), scale)
+    return flash_attention_packed_fwd(q, k, v, h, bias, causal, scale)[0]
+
+
+def flash_attention_packed_plain(q, k, v, num_heads, bias=None, *,
+                                 causal=False, scale=None):
+    """The plain version of :func:`flash_attention_packed`, differentiable
+    by autograd itself (the reference run on the card)."""
+    b, sq, sk, h, d = _heads(q, k, num_heads)
+    return flash_attention_packed_fwd_plain(
+        q, k, v, h, _bias_f32(bias, sq, sk), causal, scale)[0]
+
+
+flash_attention_packed_fwd.launches = 0
+flash_attention_packed_bwd.launches = 0

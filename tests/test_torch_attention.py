@@ -3,14 +3,15 @@
 * K4's plain version against the Pallas ``flash_attention_cached`` in
   interpret mode (partial ``kv_len``, a fully masked row);
 * the blockwise loop against ``_sdpa_blockwise`` at decode and verify
-  shapes;
+  shapes, and its backward against the JAX custom vjp's gradients;
 * the dense path against ``_sdpa_raw``;
 * the router: on the CPU the port takes the JAX package's route (Pallas
   available, as under interpret mode) for the prefill, chunk, decode and
   verify shapes, and gives the same output.
 
 Tolerance: 1e-5 absolute on outputs of magnitude ~1 (the same fp32
-arithmetic in another order).
+arithmetic in another order), 1e-4 on gradients relative to their largest
+entry.
 """
 import math
 
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.nn.functional import attention as JA
@@ -88,6 +90,34 @@ def test_blockwise_matches_jax_scan(sq, no_persistent_compile_cache):
     got = PA._sdpa_blockwise(*_t(q, k, v, q_pos, kv_len), scale=s,
                              block_q=sq, block_k=64)
     np.testing.assert_allclose(got.numpy(), want, atol=FP32_TOL, rtol=0)
+
+
+def test_blockwise_backward_matches_jax_custom_vjp():
+    """Causal long-context training without the flash kernel: q_pos from
+    ``sk - sq`` and a partial ``kv_len``, tiled by 64 on both axes."""
+    b, sq, sk, h, d = 2, 128, 192, 2, 16
+    q, k, v = _qkv(b, sq, sk, h, d, seed=5)
+    q_pos = np.broadcast_to(np.arange(sk - sq, sk, dtype=np.int32),
+                            (b, sq)).copy()
+    kv_len = np.array([150, 192], np.int32)
+    co = np.random.RandomState(6).randn(b, sq, h, d).astype(np.float32)
+
+    def f(q, k, v):
+        out = JA._sdpa_blockwise.raw(q, k, v, jnp.asarray(q_pos),
+                                     jnp.asarray(kv_len), block_q=64,
+                                     block_k=64)
+        return jnp.vdot(out, co)
+
+    want = jax.grad(f, (0, 1, 2))(*_j(q, k, v))
+    qt, kt, vt = (t.requires_grad_() for t in _t(q, k, v))
+    out = PA._sdpa_blockwise(qt, kt, vt, *_t(q_pos, kv_len), block_q=64,
+                             block_k=64)
+    assert out.grad_fn is not None and "Blockwise" in out.grad_fn.name()
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(co))
+    for name, a, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        err = float(np.abs(a.numpy() - w).max() / np.abs(w).max())
+        assert err < 1e-4, (name, err)
 
 
 def test_dense_matches_jax_sdpa_raw():

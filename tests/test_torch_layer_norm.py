@@ -1,14 +1,18 @@
-"""LayerNorm of the port (kernel K7's wrapper and the router) against the
-JAX package's Pallas ``fused_layer_norm`` in interpret mode, on the CPU.
+"""LayerNorm of the port (kernel K7's and K8's wrappers and the router)
+against the JAX package's Pallas ``fused_layer_norm`` in interpret mode and
+its ``jax.grad``, on the CPU.
 
-Tolerances: fp32 outputs agree to 1e-5 (same fp32 arithmetic, other
-reduction order). With bf16 x both sides compute in fp32 and round once to
-bf16, so they agree to one bf16 step: |Δ| <= 2^-7 · max(1, |y|).
+Tolerances: fp32 outputs and dx agree to 1e-5 (same fp32 arithmetic, other
+reduction order); dgamma and dbeta are fp32 sums over every row, held to
+1e-5 relative to their largest entry. With bf16 x both sides compute in
+fp32 and round once to bf16, so they agree to one bf16 step:
+|Δ| <= 2^-7 · max(1, |y|).
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import interpret_mode
@@ -91,6 +95,78 @@ def test_router_matches_jax_layer_norm(feat, no_persistent_compile_cache):
     np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
                                atol=FP32_TOL, rtol=0)
     assert k7.layer_norm.launches == calls  # the CPU launches no kernel
+
+
+def _jax_grads(x, g, b, dy):
+    """``(dx, dgamma, dbeta)`` of the Pallas LayerNorm (K8 interpreted)."""
+    def f(x, g, b):
+        return jnp.vdot(fused_layer_norm(x, g, b, eps=1e-5).astype(
+            jnp.float32), dy)
+
+    with interpret_mode():
+        return jax.grad(f, (0, 1, 2))(x, jnp.asarray(g), jnp.asarray(b))
+
+
+def _close_sums(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("rows", [300, 7])   # not multiples of 256
+def test_k8_plain_matches_pallas_grads_fp32(rows, no_persistent_compile_cache):
+    x, g, b = _inputs(rows, 256, seed=4)
+    dy = np.random.RandomState(5).randn(rows, 256).astype(np.float32)
+    want = _jax_grads(jnp.asarray(x), g, b, jnp.asarray(dy))
+    got = k7.layer_norm_bwd(torch.from_numpy(x), torch.from_numpy(g),
+                            torch.from_numpy(dy))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               atol=FP32_TOL, rtol=0)
+    _close_sums(got[1].numpy(), want[1])
+    _close_sums(got[2].numpy(), want[2])
+
+
+def test_k8_plain_bf16_x_fp32_gamma(no_persistent_compile_cache):
+    """bf16 x and dy with fp32 gamma: dx comes back bf16, dgamma and dbeta
+    fp32 (gamma's dtype), as the Pallas custom vjp casts them."""
+    x, g, b = _inputs(300, 128, seed=6)
+    dy = np.random.RandomState(7).randn(300, 128).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    dyb = jnp.asarray(dy).astype(jnp.bfloat16)
+    want = _jax_grads(xb, g, b, dyb.astype(jnp.float32))
+    assert want[0].dtype == jnp.bfloat16 and want[1].dtype == jnp.float32
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16()
+    dyt = torch.from_numpy(np.array(dyb.astype(jnp.float32))).bfloat16()
+    dx, dgamma, dbeta = k7.layer_norm_bwd(xt, torch.from_numpy(g), dyt)
+    assert dx.dtype == torch.bfloat16 and dgamma.dtype == torch.float32
+    _close_bf16(dx.float().numpy(), np.asarray(want[0].astype(jnp.float32)))
+    _close_sums(dgamma.numpy(), want[1])
+    _close_sums(dbeta.numpy(), want[2])
+
+
+def test_module_backward_runs_through_the_k8_wrapper(
+        monkeypatch, no_persistent_compile_cache):
+    """``LayerNorm`` under autograd saves x and gamma and differentiates
+    through ``layer_norm_bwd`` (K8's plain version on the CPU), giving the
+    Pallas custom vjp's gradients."""
+    x, g, b = _inputs(13, 256, seed=8)
+    dy = np.random.RandomState(9).randn(13, 256).astype(np.float32)
+    calls = []
+    real = k7.layer_norm_bwd
+    monkeypatch.setattr(k7, "layer_norm_bwd",
+                        lambda *a: calls.append(1) or real(*a))
+    ln = LayerNorm(256)
+    with torch.no_grad():
+        ln.weight.copy_(torch.from_numpy(g))
+        ln.bias.copy_(torch.from_numpy(b))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = torch.autograd.grad(ln(xt), (xt, ln.weight, ln.bias),
+                              torch.from_numpy(dy))
+    assert calls == [1]
+    want = _jax_grads(jnp.asarray(x), g, b, jnp.asarray(dy))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               atol=FP32_TOL, rtol=0)
+    _close_sums(got[1].numpy(), want[1])
+    _close_sums(got[2].numpy(), want[2])
 
 
 def test_router_gate_mirrors_pallas_gate():
