@@ -9,7 +9,7 @@
    ``sm_90a`` (timed).
 3. Kernel phase: every kernel of the serving and training paths against its
    plain PyTorch version at the shapes GPT-2 124M gives it (serving: K4,
-   K7; training at batch 24 x 1024: K5, K6, K7, K8), in bf16, with the
+   K7; training at batch 24 x 1024: K5, K6, K7, K8; K9-K11 in 6), in bf16, with the
    kernel's, the plain version's and one library call's time (CUDA events,
    L2 flushed before every launch) beside the kernel's bound.
    Tolerance: kernel and plain version compute in fp32 and round once to
@@ -46,7 +46,28 @@
    and a small fp32 model (2 heads of 64, seq 1024, so
    K5/K6 run) trained 3 steps on the card against the CPU port: losses
    within 1e-4.
-6. Prints the ``kernels`` JSON line, then the result line last.
+6. Flash CE (in the kernel phase): K9, K10 and K11 against their plain
+   versions at the train step's shape (24576 tokens, hidden 768, vocab
+   50304, bf16) and at an odd shape (300 tokens, vocab 1000, hidden 128,
+   bias, two ignored labels; bf16 and fp32): within one bf16 step of the
+   largest reference value for bf16, 5e-5 absolute for fp32. Beside them,
+   the chunked loop the flag replaces, forward and backward ms and peak
+   memory.
+7. Recipe phase (the main path of the pretraining slice): GPT-3 Small's
+   recipe (Brown et al. 2020, Table 2.1, Appendix B) on GPT-2 124M built in
+   fp32 from ``torch.manual_seed(0)``: ``amp.decorate(O2, bf16)``,
+   AdamW(0.9, 0.95, 1e-8, weight decay 0.1 but not on biases and
+   LayerNorms), ``LinearWarmup(CosineAnnealingDecay(6e-4, 8, 6e-5), 5)``,
+   ``ClipGradByGlobalNorm(1.0)``, ``GradScaler(2^15)`` and
+   ``FLAGS_enable_flash_ce``, batch 24 x 1024 through ``DeviceLoader``, 3
+   warm-up and 10 timed steps: tokens/s, the step split (forward,
+   backward, unscale + finite check + clip, optimizer), peak memory, K9,
+   K10 and K11 once a step and no call of the chunked loop, the loss
+   falling. Then 3 recipe steps at batch 8 on the kernels against the
+   plain versions (losses within 2e-3, as in 5) and a small fp32 model
+   trained 3 recipe steps on the card (fp32 K9-K11) against the CPU port
+   (losses within 1e-4).
+8. Prints the ``kernels`` JSON line (K4-K11), then the result line last.
 
 Any failure raises and exits non-zero; nothing is printed as a result then.
 """
@@ -343,6 +364,117 @@ def training_kernel_phase(torch, timer):
     return fwd_cases, bwd_cases, ln_fwd, ln_bwd
 
 
+def _max_rel_err(got, want, dtype):
+    """K9-K11 against their plain versions: one bf16 step of the largest
+    reference value for bf16 operands (their tile products are exact
+    products summed in fp32 in another order, and bf16 outputs round once),
+    5e-5 absolute for fp32 ones."""
+    g, w = got.float(), want.float()
+    _require(bool(g.isfinite().all()), "kernel output is finite")
+    err = float((g - w).abs().max())
+    tol = BF16_STEP * float(w.abs().max()) if dtype == "bf16" else 5e-5
+    _require(err <= tol, f"kernel within {tol:.3g} of its plain version "
+             f"(max err {err:.3g})")
+    return err
+
+
+def fused_ce_kernel_phase(torch, timer):
+    """K9, K10 and K11 against their plain versions at the train step's
+    shape (24576 tokens, hidden 768, vocab 50304, bf16, no bias) and at an
+    odd shape (300 tokens, vocab 1000, hidden 128, bias, two ignored
+    labels, bf16 and fp32); plus the chunked loop the flag replaces
+    (``ops/fused.py::_FusedLinearCE``, cuBLAS products) at the train shape:
+    forward and backward ms and peak memory."""
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.ops.cuda import fused_ce as k9
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    fwd, dx_cases, dw_cases = [], [], []
+    chunked = None
+    for name, n, h, v, dt, use_bias in (
+            ("train", 24576, 768, 50304, "bf16", False),
+            ("odd", 300, 128, 1000, "bf16", True),
+            ("odd_fp32", 300, 128, 1000, "fp32", True)):
+        tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = torch.randn(n, h, generator=gen).to("cuda", tdt)
+        w = (0.02 * torch.randn(v, h, generator=gen)).to("cuda", tdt)
+        b = ((0.1 * torch.randn(v, generator=gen)).cuda() if use_bias
+             else None)
+        y = torch.randint(0, v, (n,), generator=gen).cuda()
+        g = torch.full((n,), 1.0 / n, device="cuda")
+        if use_bias:
+            g[[5, 17]] = 0.0              # ignored labels carry g = 0
+        esz = 2 if dt == "bf16" else 4
+        peak = H100_BF16_FLOPS if dt == "bf16" else H100_FP32_FLOPS
+        io_b = (n + v) * h * esz + n * 4 + (v * 4 if use_bias else 0)
+        loss, lse = k9.ce_forward(x, w, b, y)
+        want = k9.ce_forward_plain(x, w, b, y)
+        err = max(_max_rel_err(a, c, dt) for a, c in zip((loss, lse), want))
+        bound, by = _bound(io_b + 2 * n * 4, 2 * n * v * h, peak)
+        shape = {"tokens": n, "hidden": h, "vocab": v, "dtype": dt,
+                 "bias": use_bias}
+        fwd.append({
+            "case": name, "shape": shape, "max_abs_err": err,
+            "ms": timer(lambda: k9.ce_forward(x, w, b, y)),
+            "plain_ms": timer(lambda: k9.ce_forward_plain(x, w, b, y), 5),
+            "library_ms": None, "bound_ms": bound, "bound_by": by})
+        args = (x, w, b, y, g, lse)
+        err = _max_rel_err(k9.ce_backward_dx(*args),
+                           k9.ce_backward_dx_plain(*args), dt)
+        # x, w, labels, g, lse read; dx written; the logits recomputed
+        bound, by = _bound(io_b + 2 * n * 4 + n * h * esz, 4 * n * v * h,
+                           peak)
+        dx_cases.append({
+            "case": name, "shape": shape, "max_abs_err": err,
+            "ms": timer(lambda: k9.ce_backward_dx(*args)),
+            "plain_ms": timer(lambda: k9.ce_backward_dx_plain(*args), 5),
+            "library_ms": None, "bound_ms": bound, "bound_by": by})
+        dw, db = k9.ce_backward_dw(*args)
+        want_dw, want_db = k9.ce_backward_dw_plain(*args)
+        err = _max_rel_err(dw, want_dw, dt)
+        if use_bias:
+            err = max(err, _max_rel_err(db, want_db, dt))
+        bound, by = _bound(io_b + 2 * n * 4 + v * h * esz
+                           + (v * 4 if use_bias else 0), 4 * n * v * h, peak)
+        dw_cases.append({
+            "case": name, "shape": shape, "max_abs_err": err,
+            "ms": timer(lambda: k9.ce_backward_dw(*args)),
+            "plain_ms": timer(lambda: k9.ce_backward_dw_plain(*args), 5),
+            "library_ms": None, "bound_ms": bound, "bound_by": by})
+        if name == "train":
+            chunked = _chunked_loop(torch, timer, fused, x, w, y)
+        del x, w, b, y, g, loss, lse, args, dw, db, want, want_dw, want_db
+        torch.cuda.empty_cache()
+    return fwd, dx_cases, dw_cases, chunked
+
+
+def _chunked_loop(torch, timer, fused, x, w, y):
+    """The chunked loop (cuBLAS products, 2048-token fp32 logits chunks)
+    at the train shape: forward ms, backward ms, peak memory of one
+    forward and backward above the inputs."""
+    xg = x.detach().requires_grad_()
+    wg = w.detach().requires_grad_()
+
+    def forward():
+        return fused._FusedLinearCE.apply(xg, wg, None, y, -100, 0)
+
+    gout = torch.full((x.shape[0],), 1.0 / x.shape[0], device="cuda")
+    losses = forward()
+    fwd_ms = timer(lambda: forward(), 5)
+    bwd_ms = timer(lambda: torch.autograd.grad(losses, (xg, wg), gout,
+                                               retain_graph=True), 5)
+    torch.cuda.synchronize()
+    del losses
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(forward(), (xg, wg), gout)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return {"forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "peak_extra_gib": peak / 2 ** 30}
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Run the routers on the plain versions (the reference run on the card:
@@ -350,18 +482,25 @@ def plain_versions():
     differentiable entry points are differentiated by autograd itself."""
     from paddle_tpu_torch.ops.cuda import flash_attention as k4
     from paddle_tpu_torch.ops.cuda import flash_attention_packed as k5
+    from paddle_tpu_torch.ops.cuda import fused_ce as k9
     from paddle_tpu_torch.ops.cuda import layer_norm as k7
 
     saved = (k4.flash_attention_cached, k5.flash_attention_packed,
-             k7.layer_norm)
+             k7.layer_norm, k9.ce_forward, k9.ce_backward_dx,
+             k9.ce_backward_dw)
     k4.flash_attention_cached = k4.flash_attention_cached_plain
     k5.flash_attention_packed = k5.flash_attention_packed_plain
     k7.layer_norm = k7.layer_norm_plain
+    # the flash-CE autograd function calls these by their module names
+    k9.ce_forward = k9.ce_forward_plain
+    k9.ce_backward_dx = k9.ce_backward_dx_plain
+    k9.ce_backward_dw = k9.ce_backward_dw_plain
     try:
         yield
     finally:
         (k4.flash_attention_cached, k5.flash_attention_packed,
-         k7.layer_norm) = saved
+         k7.layer_norm, k9.ce_forward, k9.ce_backward_dx,
+         k9.ce_backward_dw) = saved
 
 
 def _prefill_decode_logits(torch, model, prompt, max_batch, max_len):
@@ -658,6 +797,236 @@ def small_training_reference(torch, np):
             "max_abs_diff": err}
 
 
+@contextlib.contextmanager
+def _port_flags(**flags):
+    from paddle_tpu_torch.framework import get_flags, set_flags
+
+    prev = get_flags(list(flags))
+    set_flags(flags)
+    try:
+        yield
+    finally:
+        set_flags(prev)
+
+
+@contextlib.contextmanager
+def _counting_chunked_loop():
+    """Counts calls of the chunked loss loop (``ops/fused.py``), which the
+    flash-CE route must not reach."""
+    from paddle_tpu_torch.ops import fused
+
+    calls = [0]
+    real = fused._FusedLinearCE.apply
+
+    def counting(*args):
+        calls[0] += 1
+        return real(*args)
+
+    fused._FusedLinearCE.apply = counting
+    try:
+        yield calls
+    finally:
+        del fused._FusedLinearCE.apply
+
+
+def _no_decay(name):
+    return name.endswith(".bias") or ".ln_" in name
+
+
+def _recipe_train(torch, model, batches, decorate=True, events=None):
+    """GPT-3 Small's recipe (Brown et al. 2020, Table 2.1 and Appendix B)
+    over ``batches`` fed through ``DeviceLoader``, with
+    ``FLAGS_enable_flash_ce``: ``amp.decorate(O2, bf16)`` after the model
+    is built in fp32, AdamW(0.9, 0.95, 1e-8, weight decay 0.1 except biases
+    and LayerNorms), a 5-step linear warm-up into a cosine decay from 6e-4
+    to 6e-5 (``sched.step()`` after each step), global-norm clipping at 1.0
+    and a dynamic GradScaler from 2^15. Returns the loss tensors and the
+    scaler. ``events`` (a list) gets five CUDA events a step: start, after
+    the loss, after backward, after unscale + finite check + clip, after
+    the optimizer."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.io import DeviceLoader
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    class TimedClip(nn.ClipGradByGlobalNorm):
+        event = None
+
+        def _dygraph_clip(self, params_grads):
+            out = super()._dygraph_clip(params_grads)
+            if self.event is not None:
+                self.event.record()
+            return out
+
+    decay = {f"param_{i}" for i, (n, _) in enumerate(model.named_parameters())
+             if not _no_decay(n)}
+    sched = lr.LinearWarmup(
+        lr.CosineAnnealingDecay(6e-4, T_max=8, eta_min=6e-5),
+        warmup_steps=5, start_lr=0.0, end_lr=6e-4)
+    clip = TimedClip(1.0)
+    opt = AdamW(learning_rate=sched, beta1=0.9, beta2=0.95, epsilon=1e-8,
+                weight_decay=0.1, parameters=model.parameters(),
+                apply_decay_param_fun=decay.__contains__, grad_clip=clip)
+    if decorate:
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    model.train()
+    losses = []
+    with _port_flags(enable_flash_ce=True):
+        for ids, labels in DeviceLoader(batches, buffer_size=2,
+                                        device=model.device):
+            ev = ([torch.cuda.Event(enable_timing=True) for _ in range(5)]
+                  if events is not None else None)
+            clip.event = None if ev is None else ev[3]
+
+            def mark(i):
+                if ev is not None:
+                    ev[i].record()
+
+            mark(0)
+            loss = model.loss(ids, labels)
+            mark(1)
+            scaler.scale(loss).backward()
+            mark(2)
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            sched.step()
+            mark(4)
+            losses.append(loss.detach())
+            if ev is not None:
+                events.append(ev)
+    return losses, scaler
+
+
+def _gpt124m_fp32(torch, seed):
+    """GPT-2 124M on the card in fp32 from ``torch.manual_seed(seed)``,
+    dropout 0: the recipe decorates it."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                    num_heads=12, max_position_embeddings=1024,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    torch.manual_seed(seed)
+    return GPTForCausalLM(cfg, device="cuda")
+
+
+def recipe_phase(torch, np):
+    """The pretraining recipe at GPT-2 124M, batch 24 x 1024: 3 warm-up
+    and 10 timed steps, launch counts zeroed just before and read just
+    after; K9, K10 and K11 once a step each and no chunked-loop call."""
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    batch, seq, warm, timed = 24, 1024, 3, 10
+    steps = warm + timed
+    model = _gpt124m_fp32(torch, 0)
+    rng = np.random.RandomState(0)
+    batches = []
+    for _ in range(steps):
+        a = rng.randint(0, model.cfg.vocab_size, (batch, seq)).astype(np.int64)
+        batches.append((a, a.copy()))
+    events = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _counting_chunked_loop() as loop_calls:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses, scaler = _recipe_train(torch, model, batches, events=events)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    _require(all(np.isfinite(losses)), "recipe losses are finite")
+    _require(losses[0] < np.log(model.cfg.vocab_size) + 0.5
+             and losses[-1] < losses[0], f"the recipe lowers the loss: {losses}")
+    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
+        _require(counts[name] == steps,
+                 f"kernel {name} launched once a step ({counts[name]} in "
+                 f"{steps} steps)")
+    for name in ("flash_attention_packed_fwd", "flash_attention_packed_bwd",
+                 "layer_norm", "layer_norm_bwd"):
+        _require(counts[name] > 0, f"kernel {name} launched in the recipe")
+    _require(loop_calls[0] == 0, "the flag never reaches the chunked loop")
+    _require(scaler.state_dict()["bad_steps"] == 0, "no step was skipped")
+    tev = events[warm:]
+
+    def span(i, j):
+        return sum(e[i].elapsed_time(e[j]) for e in tev) / timed
+
+    window = tev[0][0].elapsed_time(tev[-1][4]) / 1e3
+    del model
+    torch.cuda.empty_cache()
+    return {
+        "batch": batch, "seq": seq, "warmup_steps": warm,
+        "timed_steps": timed, "losses": losses,
+        "tokens_per_s": batch * seq * timed / window,
+        "step_ms": span(0, 4), "forward_ms": span(0, 1),
+        "backward_ms": span(1, 2), "scaler_clip_ms": span(2, 3),
+        "optimizer_ms": span(3, 4), "wall_s_all_steps": wall,
+        "peak_memory_gib": peak / 2 ** 30, "launches": counts,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "chunked_loop_calls": loop_calls[0], "scaler": scaler.state_dict()}
+
+
+def recipe_vs_plain(torch, np):
+    """3 recipe steps at batch 8 on the kernels against the same 3 steps on
+    the plain versions (K9-K11 included), from one init and one set of
+    batches."""
+    rng = np.random.RandomState(6)
+    batches = []
+    for _ in range(3):
+        a = rng.randint(0, 50304, (8, 1024)).astype(np.int64)
+        batches.append((a, a.copy()))
+    runs = []
+    for plain in (False, True):
+        model = _gpt124m_fp32(torch, 7)
+        ctx = plain_versions() if plain else contextlib.nullcontext()
+        with ctx:
+            losses, _ = _recipe_train(torch, model, batches)
+            runs.append([float(x) for x in losses])
+        del model
+        torch.cuda.empty_cache()
+    err = max(abs(a - b) for a, b in zip(*runs))
+    _require(all(np.isfinite(runs[0])), "kernel-run recipe losses are finite")
+    _require(err <= TRAIN_LOSS_TOL, f"recipe losses within {TRAIN_LOSS_TOL} "
+             f"of the plain run: {runs[0]} vs {runs[1]}")
+    return {"kernel_losses": runs[0], "plain_losses": runs[1],
+            "max_abs_diff": err}
+
+
+def small_recipe_reference(torch, np):
+    """A small fp32 model (2 heads of 64, seq 1024, vocab 1024, hidden 128:
+    K5-K8 and the fp32 K9-K11 run on the card) trained 3 recipe steps,
+    without decorate, on the card against the CPU port."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    cfg = GPTConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                    num_heads=2, max_position_embeddings=1024,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    rng = np.random.RandomState(8)
+    batches = []
+    for _ in range(3):
+        a = rng.randint(0, cfg.vocab_size, (2, 1024)).astype(np.int64)
+        batches.append((a, a.copy()))
+    losses = []
+    kernels.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        model = GPTForCausalLM(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(3))
+        out, _ = _recipe_train(torch, model, batches, decorate=False)
+        losses.append([float(x) for x in out])
+    counts = kernels.launch_counts()
+    _require(all(counts[k] == 3 for k in
+                 ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")),
+             "the small model's loss runs the fp32 K9-K11 on the card")
+    err = max(abs(a - b) for a, b in zip(*losses))
+    _require(err <= SMALL_LOSS_TOL, f"small recipe losses within "
+             f"{SMALL_LOSS_TOL} of the CPU: {losses[0]} vs {losses[1]}")
+    return {"card_losses": losses[0], "cpu_losses": losses[1],
+            "max_abs_diff": err}
+
+
 def main():
     import numpy as np
     import torch
@@ -686,11 +1055,17 @@ def main():
     k5_cases, k6_cases, ln_train, k8_cases = training_kernel_phase(torch,
                                                                    timer)
     ln_cases += ln_train
-    for c in ln_cases + fa_cases + k5_cases + k6_cases + k8_cases:
+    k9_cases, k10_cases, k11_cases, chunked = fused_ce_kernel_phase(torch,
+                                                                    timer)
+    for c in (ln_cases + fa_cases + k5_cases + k6_cases + k8_cases
+              + k9_cases + k10_cases + k11_cases):
+        lib = ("none" if c["library_ms"] is None
+               else f"{c['library_ms']:.4f}")
         print(f"kernel {c['case']}: {c['ms']:.4f} ms (plain "
-              f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
+              f"{c['plain_ms']:.4f}, library {lib}, bound "
               f"{c['bound_ms']:.4f} by {c['bound_by']}) err "
               f"{c['max_abs_err']:.3g}")
+    print(f"chunked loss loop at the train shape: {json.dumps(chunked)}")
     serve = serving_phase(torch, np)
     print(f"serving: {json.dumps(serve)}")
     print(f"serving: {serve['tokens_per_s']:.1f} tokens/s on {card}")
@@ -717,6 +1092,19 @@ def main():
     print(f"training vs plain: {json.dumps(vs_plain)}")
     small_train = small_training_reference(torch, np)
     print(f"small training reference: {json.dumps(small_train)}")
+    recipe = recipe_phase(torch, np)
+    recipe["chunked_loop_at_train_shape"] = chunked
+    print(f"recipe: {json.dumps(recipe)}")
+    print(f"recipe: {recipe['tokens_per_s']:.1f} tokens/s, step "
+          f"{recipe['step_ms']:.1f} ms (forward {recipe['forward_ms']:.1f}, "
+          f"backward {recipe['backward_ms']:.1f}, scaler+clip "
+          f"{recipe['scaler_clip_ms']:.1f}, optimizer "
+          f"{recipe['optimizer_ms']:.1f}), peak "
+          f"{recipe['peak_memory_gib']:.2f} GiB on {card}")
+    recipe_plain = recipe_vs_plain(torch, np)
+    print(f"recipe vs plain: {json.dumps(recipe_plain)}")
+    small_recipe = small_recipe_reference(torch, np)
+    print(f"small recipe reference: {json.dumps(small_recipe)}")
 
     def entry(name, source, replaces, cases, main_case, launches):
         top = next(c for c in cases if c["case"] == main_case)
@@ -732,10 +1120,12 @@ def main():
 
     def paths(name):
         return {"serving": serve["launches"][name],
-                "training": train["launches"][name]}
+                "training": train["launches"][name],
+                "recipe": recipe["launches"][name]}
 
     packed = "paddle_tpu_torch/csrc/flash_attention_packed.cu"
     ln_src = "paddle_tpu_torch/csrc/layer_norm.cu"
+    ce_src = "paddle_tpu_torch/csrc/fused_ce.cu"
     kernels = [
         entry("flash_attention_cached",
               "paddle_tpu_torch/csrc/flash_attention_cached.cu",
@@ -752,7 +1142,17 @@ def main():
         entry("layer_norm_bwd", ln_src,
               "paddle_tpu/ops/pallas/layer_norm.py:41", k8_cases,
               "rows=24576", paths("layer_norm_bwd")),
+        entry("fused_ce_fwd", ce_src, "paddle_tpu/ops/pallas/fused_ce.py:71",
+              k9_cases, "train", {"recipe": recipe["launches"]["fused_ce_fwd"]}),
+        entry("fused_ce_dx", ce_src, "paddle_tpu/ops/pallas/fused_ce.py:107",
+              k10_cases, "train", {"recipe": recipe["launches"]["fused_ce_dx"]}),
+        entry("fused_ce_dw", ce_src, "paddle_tpu/ops/pallas/fused_ce.py:128",
+              k11_cases, "train", {"recipe": recipe["launches"]["fused_ce_dw"]}),
     ]
+    # the loop the flag replaces (cuBLAS products), at the train shape
+    kernels[-3]["chunked_loop_ms"] = chunked["forward_ms"]
+    kernels[-2]["chunked_loop_ms"] = chunked["backward_ms"]
+    kernels[-1]["chunked_loop_ms"] = chunked["backward_ms"]
     for k in kernels:
         _require(k["launches"] > 0, f"kernel {k['name']} launched on its path")
     print(json.dumps({"kernels": kernels}))

@@ -6,10 +6,15 @@ Hopper (``csrc/``, built at first use by ``ops/cuda/_build.py``). Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 The port covers GPT serving (``models.GPTForCausalLM``,
-``serving.GenerationEngine`` and ``serving.Scheduler``) and the GPT train
-step (``GPTForCausalLM.loss``, ``optimizer.AdamW`` with multi_precision,
-``io.DeviceLoader``). It imports neither ``jax`` nor ``paddle_tpu``.
+``serving.GenerationEngine`` and ``serving.Scheduler``) and GPT training:
+``GPTForCausalLM.loss`` (the chunked fused loss, or the flash-CE kernels
+under ``FLAGS_enable_flash_ce``), the optimizers with LR schedulers,
+gradient clipping and regularizers, ``amp`` (``auto_cast``, ``decorate``,
+``GradScaler``) and ``io.DeviceLoader``. It imports neither ``jax`` nor
+``paddle_tpu``.
 """
-from . import framework, io, models, nn, ops, optimizer, serving  # noqa: F401
+from . import (amp, framework, io, models, nn, ops, optimizer,  # noqa: F401
+               regularizer, serving)
 
-__all__ = ["framework", "io", "models", "nn", "ops", "optimizer", "serving"]
+__all__ = ["amp", "framework", "io", "models", "nn", "ops", "optimizer",
+           "regularizer", "serving"]

@@ -84,9 +84,9 @@ register_flag("flash_attention_bwd_block", 0,
                    "accepted so FLAGS_ settings carry over, the CUDA "
                    "kernels' tiles are fixed")
 register_flag("enable_flash_ce", False,
-              help="the JAX package's opt-in Pallas flash-CE route (kernels "
-                   "K9-K11); on CUDA it raises until those kernels are "
-                   "ported, on the CPU the chunked loop runs")
+              help="route fused_linear_cross_entropy to the flash-CE "
+                   "kernels K9-K11 (their plain versions on the CPU) when "
+                   "the hidden size is a multiple of 128")
 register_flag("flash_attention_min_seq_prod", 1024 * 1024,
               help="uncached sdpa takes the dense path below this sq*sk")
 register_flag("disable_blockwise_attention", False,

@@ -7,8 +7,10 @@ mirrors the JAX module tree). paddle's ``Linear.weight`` is ``[in, out]``
 ``[out, in]``, so every Linear weight is transposed on the way in.
 
 ``load_jax_optimizer_state(opt, state, model, jax_names)`` does the same for
-an optimizer's ``state_dict()`` (moments, beta powers, fp32 master weights
-and ``@step``), so a JAX training run can be resumed by the port.
+an optimizer's ``state_dict()`` (the accumulators of every ported optimizer,
+fp32 master weights, ``@step`` and ``LR_Scheduler``), so a JAX training run
+can be resumed by the port. A JAX ``GradScaler.state_dict()`` loads as it
+is (``amp.GradScaler.load_state_dict``).
 """
 from __future__ import annotations
 
@@ -48,8 +50,10 @@ def load_jax_state(model, state):
 
 
 #: accumulator names of the ported optimizers
-_ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow",
-                 "master_weight")
+_ACCUMULATORS = ("avg_squared_update", "avg_squared_grad", "master_weight",
+                 "mean_square", "mean_grad", "beta1_pow", "beta2_pow",
+                 "inf_norm", "velocity", "momentum", "moment1", "moment2",
+                 "moment")
 
 
 def load_jax_optimizer_state(opt, state, model, jax_names):
@@ -70,6 +74,9 @@ def load_jax_optimizer_state(opt, state, model, jax_names):
     for k, v in state.items():
         if k == "@step":
             out[k] = int(np.asarray(v))
+            continue
+        if k == "LR_Scheduler":
+            out[k] = dict(v)
             continue
         acc = next((a for a in _ACCUMULATORS if k.endswith("_" + a)), None)
         name = None if acc is None else by_jax.get(k[:-len(acc) - 1])

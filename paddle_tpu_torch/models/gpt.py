@@ -60,6 +60,13 @@ def _linear(n_in, n_out, std, generator):
     return lin
 
 
+def _apply(lin, x):
+    """``lin`` through the port's ``linear`` functional (its ``amp`` hook
+    and JAX's dtype promotion), as the JAX model's Linear layers call
+    ``F.linear``."""
+    return F.linear(x, lin.weight, lin.bias)
+
+
 class GPTEmbeddings(nn.Module):
     def __init__(self, cfg: GPTConfig, generator=None):
         super().__init__()
@@ -108,7 +115,8 @@ class GPTDecoderLayer(nn.Module):
         b, s, h = x.shape
         residual = x
         y = self.ln_1(x)
-        qkv = self.qkv_proj(y).view(b, s, 3, self.num_heads, self.head_dim)
+        qkv = _apply(self.qkv_proj, y).view(b, s, 3, self.num_heads,
+                                            self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is not None:
             # serving.KVCache view: writes the new rows into the cache in
@@ -120,10 +128,11 @@ class GPTDecoderLayer(nn.Module):
             dropout_p=self.attn_dropout if self.training else 0.0,
             is_causal=cache is None, training=self.training)
         attn = attn.reshape(b, s, h)
-        x = residual + self.resid_dropout(self.out_proj(attn))
+        x = residual + self.resid_dropout(_apply(self.out_proj, attn))
         residual = x
         y = self.ln_2(x)
-        y = self.down_proj(F.gelu(self.up_proj(y), approximate=True))
+        y = _apply(self.down_proj,
+                   F.gelu(_apply(self.up_proj, y), approximate=True))
         out = residual + self.resid_dropout(y)
         return out if cache is None else (out, cache)
 
@@ -186,9 +195,9 @@ class GPTForCausalLM(nn.Module):
         if cache is not None:
             h, new_cache = self.gpt(input_ids, position_ids, attn_mask,
                                     cache=cache)
-            return torch.matmul(h, w.t()), new_cache
+            return F.matmul(h, w.t()), new_cache
         h = self.gpt(input_ids, position_ids, attn_mask)
-        return torch.matmul(h, w.t())
+        return F.matmul(h, w.t())
 
     def loss(self, input_ids, labels):
         """Fused LM loss: the tied head's matmul and softmax cross-entropy

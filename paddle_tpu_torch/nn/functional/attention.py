@@ -44,6 +44,7 @@ import math
 
 import torch
 
+from ...amp.auto_cast import cast_inputs as _amp_cast
 from ...framework.flags import flag_value
 from ...ops.cuda import flash_attention as _fa
 from ...ops.cuda import flash_attention_packed as _fp
@@ -272,6 +273,7 @@ def _sdpa_flash(q, k, v, mask=None, causal=False, scale=None,
     the ``(b, s, h·d)`` reshape of the qkv projection's views (strides
     ``(s·3hd, 3hd, 1)``: no copy) when the mask is absent or a constant
     shared 2-D one; see the module docstring for the rest."""
+    q, k, v, mask = _amp_cast("flash_sdpa", q, k, v, mask)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     on_cuda = q.device.type == "cuda"
@@ -293,6 +295,7 @@ def _sdpa_flash(q, k, v, mask=None, causal=False, scale=None,
 
 def _sdpa_raw(q, k, v, mask=None, causal=False, scale=None):
     """Dense path: matmul + softmax in the input dtype (small shapes)."""
+    q, k, v, mask = _amp_cast("sdpa", q, k, v, mask)
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * s

@@ -1,19 +1,42 @@
 """Common functionals — port of ``paddle_tpu/nn/functional/common.py``
-(``linear`` and ``embedding``), in plain PyTorch.
+(``linear`` and ``embedding``) and of ``paddle_tpu/ops/math.py::matmul``, in
+plain PyTorch.
 
 The weight layouts are PyTorch's: ``linear`` takes ``[out, in]`` (paddle
 keeps ``[in, out]``; :func:`paddle_tpu_torch.models.convert.load_jax_state`
-transposes on the way in).
+transposes on the way in). Operands of two float dtypes promote as in JAX
+(bf16 against fp32 computes in fp32), where torch's own products would
+refuse them; ``amp.auto_cast`` casts the inputs first by the JAX op names
+``linear`` and ``matmul``.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["linear", "embedding"]
+from ...amp.auto_cast import cast_inputs as _amp_cast
+
+__all__ = ["linear", "matmul", "embedding"]
+
+
+def _promoted(a, b):
+    if a.dtype == b.dtype:
+        return a, b
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
 
 
 def linear(x, weight, bias=None):
-    return torch.nn.functional.linear(x, weight, bias)
+    x, weight, bias = _amp_cast("linear", x, weight, bias)
+    x, weight = _promoted(x, weight)
+    if bias is None or bias.dtype == x.dtype:
+        return torch.nn.functional.linear(x, weight, bias)
+    # JAX adds the bias to the product in the promoted dtype of the two
+    return torch.nn.functional.linear(x, weight) + bias
+
+
+def matmul(x, y):
+    x, y = _amp_cast("matmul", x, y)
+    return torch.matmul(*_promoted(x, y))
 
 
 def embedding(x, weight):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp.auto_cast import cast_inputs as _amp_cast
 from ...ops.cuda import layer_norm as _ln
 
 __all__ = ["layer_norm"]
@@ -43,5 +44,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     if _kernel_ln_ok(normalized_shape, weight, bias):
+        x, weight, bias = _amp_cast("fused_layer_norm", x, weight, bias)
         return _ln.layer_norm(x, weight, bias, epsilon)
+    x, weight, bias = _amp_cast("layer_norm_op", x, weight, bias)
     return _layer_norm_raw(x, normalized_shape, weight, bias, epsilon)

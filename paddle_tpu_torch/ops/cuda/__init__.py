@@ -10,13 +10,15 @@ Each wrapper keeps a launch count as a plain integer attribute
 by one where the kernel is launched and nowhere else, so a run can show that
 its main path went through the kernels. The wrappers that return a kernel's
 output directly raise when autograd is asked to record them; the
-differentiable entry points (``layer_norm``, ``flash_attention_packed``)
-are ``autograd.Function``s over a forward and a backward kernel.
+differentiable entry points (``layer_norm``, ``flash_attention_packed``,
+``flash_linear_cross_entropy``) are ``autograd.Function``s over a forward
+and a backward kernel.
 """
 from __future__ import annotations
 
 from . import flash_attention as _fa
 from . import flash_attention_packed as _fp
+from . import fused_ce as _ce
 from . import layer_norm as _ln
 from ._build import build_info, library
 
@@ -28,7 +30,10 @@ def _wrappers():
             "flash_attention_packed_fwd": _fp.flash_attention_packed_fwd,
             "flash_attention_packed_bwd": _fp.flash_attention_packed_bwd,
             "layer_norm": _ln.layer_norm,
-            "layer_norm_bwd": _ln.layer_norm_bwd}
+            "layer_norm_bwd": _ln.layer_norm_bwd,
+            "fused_ce_fwd": _ce.ce_forward,
+            "fused_ce_dx": _ce.ce_backward_dx,
+            "fused_ce_dw": _ce.ce_backward_dw}
 
 
 def launch_counts():

@@ -61,6 +61,11 @@ _SIGNATURES = {
     # b, sq, sk, h, d, q/k/v strides (b, s), scale, causal, dtype, stream
     "ptt_flash_attention_packed_bwd": (
         [p] * 12 + [i32] * 5 + [i64] * 6 + [f32, i32, i32, p]),
+    # x, w, bias, label, loss, lse, tokens, vocab, hidden, dtype, stream
+    "ptt_fused_ce_fwd": [p] * 6 + [i32] * 4 + [p],
+    # x, w, bias, label, g, lse, out, db, tokens, vocab, hidden, mode,
+    # round_dl, dtype, stream
+    "ptt_fused_ce_bwd": [p] * 8 + [i32] * 6 + [p],
 }
 
 

@@ -11,20 +11,27 @@ products run outside any Pallas kernel, so here they are ``torch`` matrix
 products. The casts are JAX's: logits and the dw accumulator are fp32
 (``preferred_element_type``), the label logit is a row gather of ``w`` plus
 a row dot, ``dl`` is cast to ``w.dtype`` before ``dh = dl @ w``, and
-``ignore_index`` zeroes both the loss and the gradient. The opt-in Pallas
-route (``FLAGS_enable_flash_ce``, kernels K9–K11) is not ported yet: on CUDA
-the flag raises, on the CPU the chunked loop runs.
+``ignore_index`` zeroes both the loss and the gradient.
+
+``FLAGS_enable_flash_ce`` with a hidden size the kernels take
+(``fused_ce.supports``: a multiple of 128) routes the loss to the flash-CE
+kernels K9–K11 (``ops/cuda/fused_ce.py``) on both devices: the kernels on
+CUDA, their plain versions on the CPU, as the JAX package's
+``_use_pallas`` does under interpret mode. Safe labels (``ignore_index``
+replaced by 0) go into the kernels; the losses of ignored rows are zeroed
+after the forward and their ``g`` before the backward. Each route is its
+own ``autograd.Function``, so the backward follows the forward that ran,
+whatever the flag says by then. With the flag on and another hidden size
+the chunked loop runs, as in JAX.
 """
 from __future__ import annotations
 
 import torch
 
 from ..framework.flags import flag_value
+from .cuda import fused_ce as _fce
 
 __all__ = ["fused_linear_cross_entropy"]
-
-_FLASH_CE = ("FLAGS_enable_flash_ce routes the loss to the Pallas flash-CE "
-             "kernels K9-K11, which belong to the next slice of the port")
 
 
 def _pick_chunk(tokens):
@@ -36,19 +43,8 @@ def _pick_chunk(tokens):
     return tokens
 
 
-def _mm_f32(a, b):
-    """``a @ b`` with an fp32 result, as ``jnp.dot(...,
-    preferred_element_type=float32)``: low-precision operands keep their type
-    (fp32 accumulation) on the card and are widened on the CPU."""
-    if a.dtype == torch.float32 and b.dtype == torch.float32:
-        return torch.mm(a, b)
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.mm(a.float(), b.float())
-
-
 def _chunk_logits(h_c, w, b):
-    logits = _mm_f32(h_c, w.t())
+    logits = _fce.mm_f32(h_c, w.t())
     return logits if b is None else logits + b
 
 
@@ -92,7 +88,7 @@ class _FusedLinearCE(torch.autograd.Function):
             dl[torch.arange(n, device=h.device), safe[c0:c0 + n]] -= 1.0
             dl = (dl * g[c0:c0 + n, None]).to(w.dtype)          # [C, V]
             dh[c0:c0 + n] = torch.mm(dl, w).to(h.dtype)
-            dw += _mm_f32(dl.t(), h_c)
+            dw += _fce.mm_f32(dl.t(), h_c)
             if db is not None:
                 db += dl.float().sum(0)
         return dh, dw.to(w.dtype), db, None, None, None
@@ -114,8 +110,6 @@ def fused_linear_cross_entropy(hidden, weight, labels, bias=None,
     """
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be mean, sum or none: {reduction!r}")
-    if flag_value("enable_flash_ce") and hidden.device.type == "cuda":
-        raise NotImplementedError(_FLASH_CE)
     labels = torch.as_tensor(labels, device=hidden.device)
     h2 = hidden.reshape(-1, hidden.shape[-1])
     y = labels.reshape(-1).long()
@@ -123,8 +117,13 @@ def fused_linear_cross_entropy(hidden, weight, labels, bias=None,
         raise ValueError(f"labels {tuple(labels.shape)} do not match hidden "
                          f"{tuple(hidden.shape)}")
     b = None if bias is None else bias.float()
-    losses = _FusedLinearCE.apply(h2, weight, b, y, int(ignore_index),
-                                  int(chunk))
+    if flag_value("enable_flash_ce") and _fce.supports(h2.shape[-1]):
+        ignored = y == ignore_index
+        safe = torch.where(ignored, 0, y)
+        losses = _fce.flash_linear_cross_entropy(h2, weight, b, safe, ignored)
+    else:
+        losses = _FusedLinearCE.apply(h2, weight, b, y, int(ignore_index),
+                                      int(chunk))
     if reduction == "none":
         return losses.reshape(labels.shape)
     total = losses.sum()

@@ -14,7 +14,9 @@ fp16. The one exception is K8's fp32 dgamma and dbeta: sums of one term a
 row, taken in another order than the plain version's, where each addition
 rounds by up to 2^-24 of the running sum, so they are held to
 1e-4 · max(1, |ref|) + 1e-7 · rows (about 3e-4 apart at 24576 rows on an
-H100).
+H100). K9-K11 at bf16 hold their fp32 loss and logsumexp to
+one bf16 step of the largest value (the tile products are exact products
+summed in fp32 in another order) and their bf16 gradients to one bf16 step.
 """
 import math
 
@@ -25,6 +27,7 @@ from paddle_tpu_torch.nn import LayerNorm
 from paddle_tpu_torch.nn import functional as PF
 from paddle_tpu_torch.ops.cuda import flash_attention as k4
 from paddle_tpu_torch.ops.cuda import flash_attention_packed as k5
+from paddle_tpu_torch.ops.cuda import fused_ce as k9
 from paddle_tpu_torch.ops.cuda import layer_norm as k7
 
 pytestmark = pytest.mark.cuda
@@ -310,3 +313,126 @@ def test_router_sends_training_attention_to_k5_k6_on_the_card(dev):
     with pytest.raises(NotImplementedError, match="dropout"):
         PF.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
                                         is_causal=True, training=True)
+
+
+# (tokens, vocab, hidden, x dtype, w dtype, bias): the odd shape of the CPU
+# parity test (tokens and vocab not multiples of the 32-row blocks), both
+# buffer counts of the fp32 path (768: one buffer), the widest hidden size,
+# a head-dim count of 6 n8 tiles a warp, and a mixed pair that is widened
+_FCE = [
+    (300, 1000, 128, torch.float32, torch.float32, True),
+    (300, 1000, 128, torch.bfloat16, torch.bfloat16, True),
+    (70, 77, 256, torch.bfloat16, torch.bfloat16, False),
+    (64, 130, 768, torch.float32, torch.float32, False),
+    (100, 300, 1024, torch.bfloat16, torch.bfloat16, True),
+    (33, 200, 384, torch.bfloat16, torch.bfloat16, False),
+    (90, 150, 128, torch.float32, torch.bfloat16, True),
+]
+
+
+def _fce_inputs(dev, n, v, h, xdt, wdt, use_bias, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(n, h, generator=g).to(dev, xdt)
+    w = (0.05 * torch.randn(v, h, generator=g)).to(dev, wdt)
+    b = (0.1 * torch.randn(v, generator=g)).to(dev) if use_bias else None
+    y = torch.randint(0, v, (n,), generator=g).to(dev)
+    go = torch.randn(n, generator=g).to(dev)
+    go[:2] = 0.0                          # two ignored labels
+    return x, w, b, y, go
+
+
+def _close_to_max(got, want):
+    """One bf16 step of the largest reference value (fp32 outputs of bf16
+    tile products), or 5e-5 absolute for fp32 operands."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("n,v,h,xdt,wdt,use_bias", _FCE)
+def test_fused_ce_kernels_match_plain(dev, n, v, h, xdt, wdt, use_bias):
+    x, w, b, y, go = _fce_inputs(dev, n, v, h, xdt, wdt, use_bias, n + v + h)
+    c0 = k9.ce_forward.launches
+    loss, lse = k9.ce_forward(x, w, b, y)
+    torch.cuda.synchronize()
+    assert k9.ce_forward.launches == c0 + 1
+    want = k9.ce_forward_plain(x, w, b, y)
+    low = torch.bfloat16 in (xdt, wdt)
+    for got, ref in zip((loss, lse), want):
+        if low:
+            _close_to_max(got, ref)
+        else:
+            _assert_close(got, ref)
+    c1, c2 = k9.ce_backward_dx.launches, k9.ce_backward_dw.launches
+    dx = k9.ce_backward_dx(x, w, b, y, go, lse)
+    dw, db = k9.ce_backward_dw(x, w, b, y, go, lse)
+    torch.cuda.synchronize()
+    assert (k9.ce_backward_dx.launches, k9.ce_backward_dw.launches) == (
+        c1 + 1, c2 + 1)
+    assert bool((dx[:2] == 0).all())
+    want_dx = k9.ce_backward_dx_plain(x, w, b, y, go, lse)
+    want_dw, want_db = k9.ce_backward_dw_plain(x, w, b, y, go, lse)
+    _assert_close(dx, want_dx)
+    _assert_close(dw, want_dw)
+    if use_bias:
+        _assert_close(db, want_db)
+    else:
+        assert db is None
+
+
+def test_fused_ce_autograd_through_the_router(dev):
+    """With the flag on a CUDA tensor the loss runs K9 forward and K10/K11
+    backward, never the chunked loop, and equals the plain versions'."""
+    from paddle_tpu_torch.framework import get_flags, set_flags
+    from paddle_tpu_torch.ops import fused
+
+    x, w, b, y, _ = _fce_inputs(dev, 200, 500, 128, torch.float32,
+                                torch.float32, True, 5)
+    y[::7] = -100
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+    prev = get_flags("enable_flash_ce")
+    set_flags({"enable_flash_ce": True})
+    real = fused._FusedLinearCE.apply
+
+    def no_loop(*a):
+        raise AssertionError("the chunked loop ran with the flag on")
+
+    fused._FusedLinearCE.apply = no_loop
+    try:
+        counts = (k9.ce_forward.launches, k9.ce_backward_dx.launches,
+                  k9.ce_backward_dw.launches)
+        loss = PF.fused_linear_cross_entropy(leaves[0], leaves[1], y,
+                                             leaves[2])
+        got = torch.autograd.grad(loss, leaves)
+    finally:
+        fused._FusedLinearCE.apply = real
+        set_flags(prev)
+    assert (k9.ce_forward.launches, k9.ce_backward_dx.launches,
+            k9.ce_backward_dw.launches) == tuple(c + 1 for c in counts)
+    ref = PF.fused_linear_cross_entropy(*leaves[:2], y, leaves[2])
+    want = torch.autograd.grad(ref, leaves)
+    _assert_close(loss.detach(), ref.detach())
+    for a, r in zip(got, want):
+        _assert_close(a, r)
+
+
+def test_fused_ce_launchers_refuse_what_they_do_not_take(dev):
+    x, w, b, y, go = _fce_inputs(dev, 16, 40, 128, torch.float32,
+                                 torch.float32, False, 1)
+    xg = x.detach().requires_grad_()
+    with pytest.raises(RuntimeError, match="autograd"):
+        k9.ce_forward(xg, w, None, y)
+    lse = k9.ce_forward(x, w, None, y)[1]
+    with pytest.raises(RuntimeError, match="autograd"):
+        k9.ce_backward_dx(xg, w, None, y, go, lse)
+    with pytest.raises(RuntimeError, match="autograd"):
+        k9.ce_backward_dw(xg, w, None, y, go, lse)
+    with pytest.raises(TypeError, match="bf16"):
+        k9.ce_forward(x.half(), w.half(), None, y)
+    wide = torch.zeros(16, 1152, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1024"):
+        k9.ce_forward(wide, wide, None, y)
+    x32 = torch.zeros(16, 1024, device=dev)
+    with pytest.raises(ValueError, match="768"):
+        k9.ce_backward_dx(x32, x32, None, y, go, go)

@@ -8,6 +8,14 @@ always runs its chunked loop.
 
 Tolerance: values to 1e-5 relative, gradients to 2e-5 absolute
 (``tests/test_fused_ce.py``'s: the same fp32 arithmetic in another order).
+
+The flash-CE route (``FLAGS_enable_flash_ce``): the plain versions of K9-K11
+against the Pallas kernels in interpret mode at tokens 300, hidden 128,
+vocab 1000 (padded on the TPU side in both tokens and vocab), with and
+without bias, two labels ignored, at ``tests/test_fused_ce_pallas.py``'s
+tolerances (loss 1e-5; dh, dw, db 1e-4 of the largest); and the port's
+``fused_linear_cross_entropy`` under the flag against JAX's ``_flce``
+under ``interpret_mode()``.
 """
 import contextlib
 
@@ -20,7 +28,12 @@ from paddle_tpu.framework.tensor import Tensor
 from paddle_tpu.ops import fused as jax_fused
 from paddle_tpu.ops.pallas import interpret_mode
 
+import jax.numpy as jnp
+from paddle_tpu.ops.pallas import fused_ce as jax_fce
+
 import paddle_tpu_torch.nn.functional as PF
+from paddle_tpu_torch.ops import fused as port_fused
+from paddle_tpu_torch.ops.cuda import fused_ce as k9
 from tests.torch_port_util import no_persistent_compile_cache, port_flags  # noqa: F401
 
 VALUE_RTOL = 1e-5
@@ -94,12 +107,113 @@ def test_all_ignored_mean_is_zero():
     assert float(loss) == 0.0
 
 
-def test_flash_ce_flag_takes_the_loop_on_the_cpu():
-    """``FLAGS_enable_flash_ce`` is accepted; K9-K11 are not ported, so the
-    CPU runs the chunked loop (a CUDA tensor would raise)."""
+def test_flash_ce_flag_takes_the_loop_on_the_cpu(monkeypatch):
+    """``FLAGS_enable_flash_ce`` with a hidden size of 128 sends the loss
+    through the plain K9-K11 on the CPU (the chunked loop is never called);
+    with a hidden size the kernels do not take (96), the chunked loop runs,
+    as in JAX. Without the flag the chunked loop runs."""
+    calls = {"loop": 0, "flash": 0}
+    real_loop = port_fused._FusedLinearCE.apply
+    real_flash = k9.flash_linear_cross_entropy
+
+    def loop(*a):
+        calls["loop"] += 1
+        return real_loop(*a)
+
+    def flash(*a):
+        calls["flash"] += 1
+        return real_flash(*a)
+
+    monkeypatch.setattr(port_fused._FusedLinearCE, "apply", loop)
+    monkeypatch.setattr(k9, "flash_linear_cross_entropy", flash)
     h, w, _, y, _ = _inputs(40, 16, False)
     args = (torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(y))
     want = PF.fused_linear_cross_entropy(*args)
+    assert calls == {"loop": 1, "flash": 0}
     with port_flags(enable_flash_ce=True):
         got = PF.fused_linear_cross_entropy(*args)
-    assert float(got) == float(want)
+        assert calls == {"loop": 1, "flash": 1}
+        PF.fused_linear_cross_entropy(args[0][:, :96], args[1][:, :96],
+                                      args[2])
+        assert calls == {"loop": 2, "flash": 1}
+    np.testing.assert_allclose(float(got), float(want), rtol=VALUE_RTOL)
+
+
+_N, _V = 300, 1000
+
+
+def _flash_inputs():
+    rng = np.random.RandomState(7)
+    h = rng.randn(_N, HIDDEN).astype(np.float32)
+    w = (rng.randn(_V, HIDDEN) * 0.05).astype(np.float32)
+    b = (rng.randn(_V) * 0.1).astype(np.float32)
+    y = rng.randint(0, _V, (_N,)).astype(np.int64)
+    y[[5, 17]] = -100
+    return h, w, b, y
+
+
+def _rel(got, want):
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).max()
+                 / (np.abs(want).max() + 1e-12))
+
+
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_plain_flash_ce_matches_pallas_interpret(use_bias,
+                                                 no_persistent_compile_cache):
+    h, w, b, y = _flash_inputs()
+    ignored = y == -100
+    safe = np.where(ignored, 0, y).astype(np.int32)
+    g = np.where(ignored, 0.0, 1.0 / (~ignored).sum()).astype(np.float32)
+    jb = jnp.asarray(b) if use_bias else None
+    jl, jlse = jax_fce.ce_forward(jnp.asarray(h), jnp.asarray(w), jb,
+                                  jnp.asarray(safe), interpret=True)
+    jdh, jdw, jdb = jax_fce.ce_backward(jnp.asarray(h), jnp.asarray(w), jb,
+                                        jnp.asarray(safe), jnp.asarray(g),
+                                        jlse, interpret=True)
+    th, tw = torch.from_numpy(h), torch.from_numpy(w)
+    tb = torch.from_numpy(b) if use_bias else None
+    ty, tg = torch.from_numpy(safe), torch.from_numpy(g)
+    loss, lse = k9.ce_forward(th, tw, tb, ty)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jl), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-5)
+    dh = k9.ce_backward_dx(th, tw, tb, ty, tg, lse)
+    dw, db = k9.ce_backward_dw(th, tw, tb, ty, tg, lse)
+    assert _rel(dh, jdh) < 1e-4 and _rel(dw, jdw) < 1e-4
+    assert np.all(dh.numpy()[ignored] == 0.0)
+    if use_bias:
+        assert db.dtype == torch.float32 and _rel(db, jdb) < 1e-4
+    else:
+        assert db is None and jdb is None
+
+
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_flash_ce_route_matches_jax_flce(use_bias,
+                                         no_persistent_compile_cache):
+    """The port's loss under the flag (plain K9-K11, autograd through the
+    ``_FlashCE`` function) against JAX's ``_flce`` in interpret mode (its
+    Pallas kernels): mean loss and dh, dw, db."""
+    import jax
+
+    h, w, b, y = _flash_inputs()
+
+    def f(hh, ww, bb):
+        bb = bb if use_bias else jnp.zeros((), jnp.float32)
+        losses = jax_fused._flce(hh, ww, bb, jnp.asarray(y), -100, 0)
+        return losses.sum() / float((y != -100).sum())
+
+    with interpret_mode():
+        jloss = float(f(jnp.asarray(h), jnp.asarray(w), jnp.asarray(b)))
+        jgrads = jax.grad(f, (0, 1, 2))(jnp.asarray(h), jnp.asarray(w),
+                                        jnp.asarray(b))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (h, w, b)]
+    with port_flags(enable_flash_ce=True):
+        loss = PF.fused_linear_cross_entropy(
+            leaves[0], leaves[1], torch.from_numpy(y),
+            leaves[2] if use_bias else None)
+    loss.backward()
+    assert abs(float(loss) - jloss) < 1e-5
+    for t, want in zip(leaves[:3 if use_bias else 2], jgrads):
+        assert _rel(t.grad, want) < 1e-4

@@ -1,12 +1,16 @@
 """The port's AdamW against the JAX package's, on the CPU, given the same
-gradients: fp32, and bf16 parameters under ``multi_precision`` (fp32 master
-weights and moments), over 3 steps; then ``load_jax_optimizer_state``
-resuming a JAX run of a GPT's optimizer mid-way.
+gradients: fp32, bf16 parameters under ``multi_precision`` (fp32 master
+weights and moments), and bf16 parameters without it, over 3 steps; then
+``load_jax_optimizer_state`` resuming a JAX run of a GPT's optimizer
+mid-way (AdamW, AdamW under an LR scheduler, Momentum).
 
 Tolerance: both run the same elementwise fp32 update (an fp32 0-d learning
 rate, beta-power accumulators), so masters, moments and fp32 parameters
 agree to 1e-6 relative (one or two roundings apart at most); bf16
-parameters are the master rounded once and agree to one bf16 step.
+parameters under multi_precision are the master rounded once and agree to
+one bf16 step. Without multi_precision a bf16 update promotes through the
+fp32 learning rate exactly as JAX's does, so parameters, accumulators and
+their dtypes are equal.
 """
 import numpy as np
 import pytest
@@ -49,11 +53,16 @@ def _close_param(got, want, dtype):
 @pytest.mark.parametrize("dtype,multi_precision,kw", [
     (torch.float32, False, {}),
     (torch.bfloat16, True, {}),
+    # JAX's promotion: the decayed base is fp32, so are the moments born
+    # from it; the parameter that does not decay keeps bf16 moments
+    (torch.bfloat16, False, {"apply_decay_param_fun":
+                             lambda n: n != "param_1"}),
     # a non-float weight_decay means 0.01; one parameter does not decay
     (torch.float32, False, {"weight_decay": None,
                             "apply_decay_param_fun": lambda n: n != "param_1"}),
 ])
 def test_adamw_matches_jax_over_three_steps(dtype, multi_precision, kw):
+    exact = dtype == torch.bfloat16 and not multi_precision
     rng = np.random.RandomState(0)
     shapes = [(8, 16), (16,), (3, 5)]
     values = [rng.randn(*s).astype(np.float32) * 0.5 for s in shapes]
@@ -77,14 +86,26 @@ def test_adamw_matches_jax_over_three_steps(dtype, multi_precision, kw):
         topt.clear_grad()
         for jp, tp in zip(jps, tps):
             assert tp.grad is None and tp.dtype == dtype
-            _close_param(tp, _np(jp), dtype)
+            if exact:
+                np.testing.assert_array_equal(tp.detach().float().numpy(),
+                                              _np(jp))
+            else:
+                _close_param(tp, _np(jp), dtype)
     jsd, tsd = jopt.state_dict(), topt.state_dict()
     assert sorted(tsd) == sorted(jsd)
     assert tsd["@step"] == jsd["@step"] == 3
     for k, v in tsd.items():
         if k != "@step":
-            assert v.dtype == (torch.float32 if multi_precision else dtype), k
-            _close(v, _np(jsd[k]))
+            assert str(v.dtype) == "torch." + str(jsd[k]._value.dtype), k
+            if exact:
+                np.testing.assert_array_equal(v.float().numpy(),
+                                              _np(jsd[k]))
+            else:
+                _close(v, _np(jsd[k]))
+    if exact:
+        dtypes = {k: v.dtype for k, v in tsd.items() if k != "@step"}
+        assert dtypes["param_0_moment1"] == torch.float32
+        assert dtypes["param_1_moment1"] == torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -141,6 +162,77 @@ def test_load_jax_optimizer_state_rejects_an_unknown_entry():
     jm, tm = gpt_pair(layers=1)
     topt = pt.optimizer.AdamW(parameters=tm.parameters())
     names = {n: p.name for n, p in jm.named_parameters()}
-    with pytest.raises(KeyError, match="velocity"):
-        load_jax_optimizer_state(topt, {"param_0_velocity": np.zeros(3)}, tm,
-                                 names)
+    with pytest.raises(KeyError, match="lookahead"):
+        load_jax_optimizer_state(topt, {"param_0_lookahead": np.zeros(3)},
+                                 tm, names)
+
+
+def _jax_port_opts(kind, jm, tm):
+    if kind == "momentum":
+        return (paddle.optimizer.Momentum(learning_rate=0.05, momentum=0.9,
+                                          use_nesterov=True,
+                                          parameters=jm.parameters()),
+                pt.optimizer.Momentum(learning_rate=0.05, momentum=0.9,
+                                      use_nesterov=True,
+                                      parameters=tm.parameters()))
+
+    # a scheduler whose whole state is in its state_dict (LinearWarmup's
+    # inner scheduler is not, in the JAX package either)
+    def sched(lr):
+        return lr.CosineAnnealingDecay(1e-3, T_max=4, eta_min=1e-4)
+
+    return (paddle.optimizer.AdamW(learning_rate=sched(paddle.optimizer.lr),
+                                   parameters=jm.parameters()),
+            pt.optimizer.AdamW(learning_rate=sched(pt.optimizer.lr),
+                               parameters=tm.parameters()))
+
+
+@pytest.mark.parametrize("kind", ["momentum", "adamw_scheduled"])
+def test_load_jax_optimizer_state_resumes_momentum_and_a_schedule(kind):
+    """Three JAX steps (the scheduler stepped after each), then the port
+    takes over weights, accumulators (``velocity``; or moments and the
+    ``LR_Scheduler`` state) and both run two more steps in step."""
+    jm, tm = gpt_pair(layers=1)
+    jparams = dict(jm.named_parameters())
+    linear = {n for n, mod in tm.named_modules()
+              if isinstance(mod, torch.nn.Linear)}
+
+    def is_lin_w(n):
+        return n.endswith(".weight") and n[:-len(".weight")] in linear
+
+    rng = np.random.RandomState(2)
+    grads = [{n: rng.randn(*p.shape).astype(np.float32) * 1e-2
+              for n, p in jparams.items()} for _ in range(5)]
+    jopt, topt = _jax_port_opts(kind, jm, tm)
+    jsched = jopt._learning_rate if kind != "momentum" else None
+    for gs in grads[:3]:
+        for n, p in jparams.items():
+            p.grad = jnp.asarray(gs[n])
+        jopt.step()
+        jopt.clear_grad()
+        if jsched is not None:
+            jsched.step()
+    load_jax_state(tm, {k: _np(v) for k, v in jm.state_dict().items()})
+    state = {k: (v if k in ("@step", "LR_Scheduler") else _np(v))
+             for k, v in jopt.state_dict().items()}
+    load_jax_optimizer_state(topt, state, tm,
+                             {n: p.name for n, p in jparams.items()})
+    assert topt._step_count == 3
+    assert topt.get_lr() == jopt.get_lr()
+    for gs in grads[3:]:
+        for n, p in jparams.items():
+            p.grad = jnp.asarray(gs[n])
+        jopt.step()
+        jopt.clear_grad()
+        for n, p in tm.named_parameters():
+            p.grad = torch.from_numpy(gs[n].T.copy() if is_lin_w(n)
+                                      else gs[n])
+        topt.step()
+        topt.clear_grad()
+        if jsched is not None:
+            jsched.step()
+            topt._learning_rate.step()
+        assert topt.get_lr() == jopt.get_lr()
+    for n, p in tm.named_parameters():
+        want = _np(jparams[n])
+        _close(p, want.T if is_lin_w(n) else want)

@@ -177,8 +177,11 @@ def test_engine_without_cpu_request_raises_when_there_is_no_card():
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
-    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.models; "
+    # every module of the port, walked with pkgutil
+    code = ("import importlib, pkgutil, sys, paddle_tpu_torch as pt; "
+            "mods = [importlib.import_module(m.name) for m in "
+            "pkgutil.walk_packages(pt.__path__, 'paddle_tpu_torch.')]; "
+            "assert len(mods) > 40, len(mods); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad); "

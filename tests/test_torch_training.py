@@ -12,6 +12,15 @@
   the packed-attention and LayerNorm kernel wrappers (their plain versions
   on the CPU), which a spy asserts.
 
+* the GPT-3 Small recipe (Brown et al. 2020, Table 2.1 and Appendix B) on
+  the smoke config, fp32, 5 steps: AdamW(beta2 0.95, epsilon 1e-8, weight
+  decay 0.1 on all but biases and LayerNorms), a linear warm-up into a
+  cosine schedule (``sched.step()`` after each step), global-norm clipping
+  at 1.0, a dynamic ``GradScaler`` and ``FLAGS_enable_flash_ce`` (the port
+  runs the plain K9-K11 on the CPU; JAX, without a TPU, its scan: the same
+  math). ``amp.decorate`` is left out: bf16 matmuls on the CPU round
+  differently in the two frameworks (``tests/test_torch_amp.py`` holds it).
+
 Tolerance: losses within 1e-5 relative and parameters within 1e-4
 absolute after the run (fp32 in another order; AdamW's normalised step
 keeps the difference near the rounding noise of the gradients).
@@ -28,8 +37,10 @@ from paddle_tpu.utils import unique_name
 
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.models as pm
+from paddle_tpu_torch.ops.cuda import fused_ce as k9
 from paddle_tpu_torch.ops.cuda import flash_attention_packed as k5
 from paddle_tpu_torch.ops.cuda import layer_norm as k7
+from tests.torch_port_util import both_flags
 
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 1e-4
@@ -143,3 +154,71 @@ def test_device_loader_keeps_structure_and_order():
             pt.io.DeviceLoader(batches)
         else:
             raise RuntimeError("device='cpu'")
+
+
+def _recipe(pkg, model, decays):
+    """GPT-3 Small's optimizer recipe over ``model`` in package ``pkg``
+    (the JAX package or the port); ``decays(name)`` is the AdamW decay
+    filter on the package's own parameter keys."""
+    lr = pkg.optimizer.lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(6e-4, T_max=8,
+                                                    eta_min=6e-5),
+                            warmup_steps=5, start_lr=0.0, end_lr=6e-4)
+    opt = pkg.optimizer.AdamW(
+        learning_rate=sched, beta1=0.9, beta2=0.95, epsilon=1e-8,
+        weight_decay=0.1, parameters=model.parameters(),
+        apply_decay_param_fun=decays,
+        grad_clip=pkg.nn.ClipGradByGlobalNorm(1.0))
+    return sched, opt, pkg.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+
+
+def _no_decay(name):
+    return name.endswith(".bias") or ".ln_" in name
+
+
+def test_recipe_loss_curve_matches_jax(monkeypatch):
+    cfg = _cfg()
+    batches = _batches(cfg, 4, 64, 5, seed=2)
+    with unique_name.guard():
+        paddle.seed(0)
+        jm = JGPT(JConfig(**cfg))
+    state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    tm = pm.GPTForCausalLM(pm.GPTConfig(**cfg), device="cpu")
+    pm.load_jax_state(tm, state)
+    jdecay = {p.name for n, p in jm.named_parameters() if not _no_decay(n)}
+    tdecay = {f"param_{i}" for i, (n, _) in enumerate(tm.named_parameters())
+              if not _no_decay(n)}
+    jsched, jopt, jscaler = _recipe(paddle, jm, lambda k: k in jdecay)
+    tsched, topt, tscaler = _recipe(pt, tm, lambda k: k in tdecay)
+    calls = {"flash": 0}
+    real = k9.flash_linear_cross_entropy
+
+    def flash(*a):
+        calls["flash"] += 1
+        return real(*a)
+
+    monkeypatch.setattr(k9, "flash_linear_cross_entropy", flash)
+    want, got, lrs = [], [], []
+    with both_flags(enable_flash_ce=True):
+        for ids, labels in batches:
+            loss = jm.loss(paddle.to_tensor(ids), paddle.to_tensor(labels))
+            jscaler.scale(loss).backward()
+            jscaler.step(jopt)
+            jscaler.update()
+            jopt.clear_grad()
+            jsched.step()
+            want.append(float(loss))
+        for ids, labels in pt.io.DeviceLoader(batches, device="cpu"):
+            lrs.append(topt.get_lr())
+            loss = tm.loss(ids, labels)
+            tscaler.scale(loss).backward()
+            tscaler.step(topt)
+            tscaler.update()
+            topt.clear_grad()
+            tsched.step()
+            got.append(float(loss.detach()))
+    assert calls["flash"] == 5
+    assert lrs[0] == 0.0 and lrs[1] > 0.0
+    assert tscaler.state_dict() == jscaler.state_dict()
+    final = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    _check(tm, got, want, final)
