@@ -9,13 +9,15 @@
    ``sm_90a`` (timed).
 3. Kernel phase: every kernel of the serving and training paths against its
    plain PyTorch version at the shapes GPT-2 124M gives it (serving: K4,
-   K7; training at batch 24 x 1024: K5, K6, K7, K8; K9-K11 in 6), in bf16, with the
+   K7, K4 also at GPT-3 Large's head dim 96; training at batch 24 x 1024:
+   K5, K6, K7, K8; K9-K11 in 6; K1-K3, and K7/K8 at width 1536, in 8),
+   in bf16, with the
    kernel's, the plain version's and one library call's time (CUDA events,
    L2 flushed before every launch) beside the kernel's bound.
    Tolerance: kernel and plain version compute in fp32 and round once to
    bf16, so they agree to one bf16 step, |Δ| <= 2^-7 · max(1, |ref|) (K6's
-   dq is summed with atomics, K8's dgamma/dbeta over 24576 rows, both in
-   fp32: orders that differ far below a bf16 step).
+   dq is summed with atomics, K8's dgamma/dbeta over 24576 or 16384 rows,
+   both in fp32: orders that differ far below a bf16 step).
 4. Serving phase (a main path): GPT-2 124M (vocab 50304, hidden 768, 12
    layers, 12 heads, 1024 positions) with random weights from
    ``torch.manual_seed(0)``, bf16 with fp32 LayerNorms, behind
@@ -67,7 +69,32 @@
    plain versions (losses within 2e-3, as in 5) and a small fp32 model
    trained 3 recipe steps on the card (fp32 K9-K11) against the CPU port
    (losses within 1e-4).
-8. Prints the ``kernels`` JSON line (K4-K11), then the result line last.
+8. K1-K3 (in the kernel phase): the layout-swapping flash forward, dq and
+   dk/dv against their plain versions at GPT-3 Large's train shape (b 8,
+   s 2048, 16 heads of 96, bf16, causal, q/k/v views of one fused qkv
+   buffer), at b 2, sq 300 > sk 200 causal with a (2, 1, sq, sk) bias, at
+   a (1, 16, sq, sk) bias, and in fp32: within one bf16 step per element
+   and a quarter of one in relative L2 norm, 5e-5 in fp32; rows with no
+   visible key exactly 0 in out and dq, a key no row sees exactly 0 in dk
+   and dv. Beside them SDPA's forward and backward at the train shape.
+   K7 and K8 at GPT-3 Large's LayerNorm shape (16384 rows of 1536, bf16 x,
+   fp32 gamma and beta) within one bf16 step, beside ``F.layer_norm`` and
+   ``native_layer_norm_backward``.
+9. GPT-3 Large phase (the main path of this slice): GPT-3 Large (Brown et
+   al. 2020, Table 2.1: 24 layers, d_model 1536, 16 heads of 96, context
+   2048; vocab 50304) built in fp32 from ``torch.manual_seed(0)``, the
+   recipe of 7 with its peak learning rate 2.5e-4 (cosine to 2.5e-5) and
+   the chunked loss (``FLAGS_enable_flash_ce`` off, the default), batch
+   8 x 2048 through ``DeviceLoader``, 2 warm-up and 5 timed steps: K1, K2
+   and K3 24 times a step, K7 and K8 49 times, K5/K6 never; losses finite
+   and falling, no skipped step; tokens/s, the step split, peak memory.
+   Then one 64-token greedy ``generate`` of the trained model (300-token
+   prompt, ``max_len`` 2048: K4 at head dim 96) with its prefill and
+   decode logits within 0.125 of the plain run; 3 recipe steps at batch
+   2 x 2048 against the plain versions (losses within 2e-3); a small fp32
+   model with 2 heads of 96 (2 layers, seq 1024) trained 3 recipe steps
+   on the card against the CPU port (losses within 1e-4).
+10. Prints the ``kernels`` JSON line (K1-K11), then the result line last.
 
 Any failure raises and exits non-zero; nothing is printed as a result then.
 """
@@ -139,6 +166,18 @@ def _bf16_err(got, want):
     return float(err.max())
 
 
+def _rel_l2_err(got, want):
+    """||got - want|| / ||want||, held to a quarter of a bf16 step: one
+    bf16 rounding of each output gives far less, while a dropped tile or a
+    wrong scale gives percents even where every value is below 1 (there
+    ``_bf16_err``'s per-element limit is an absolute 2^-7)."""
+    g, w = got.float(), want.float()
+    err = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    _require(err <= BF16_STEP / 4, f"kernel within {BF16_STEP / 4:.3g} of "
+             f"its plain version in relative L2 norm ({err:.3g})")
+    return err
+
+
 def _bound(nbytes, flops, peak):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -199,10 +238,25 @@ def kernel_phase(torch, timer):
                    torch.tensor([5, 105, 305, 516, 705, 905, 1023, 0],
                                 dtype=torch.int32)),
     }
+    # GPT-3 Large's head dim (16 heads of 96): a 300-token prompt in its
+    # 512-row prefill bucket, and a decode tick over 2048-row caches
+    h96, d96 = 16, 96
+
+    def rand96(*shape):
+        return torch.randn(*shape, h96, d96, generator=gen).to(
+            dev, torch.bfloat16)
+
+    cases["prefill_d96"] = (rand96(1, 512), rand96(1, 512), rand96(1, 512),
+                            torch.arange(512, dtype=torch.int32)[None],
+                            torch.tensor([300], dtype=torch.int32))
+    cases["decode_d96"] = (rand96(8, 1), rand96(8, 2048), rand96(8, 2048),
+                           torch.tensor([[0], [299], [511], [900], [1200],
+                                         [1700], [2047], [64]],
+                                        dtype=torch.int32), None)
     for name, (q, k, v, qp, kl) in cases.items():
+        b, sq, h, d = q.shape
         qp = qp.to(dev)
         kl = None if kl is None else kl.to(dev)
-        b, sq, _, _ = q.shape
         sk = k.shape[1]
         err = _bf16_err(k4.flash_attention_cached(q, k, v, qp, kl),
                         k4.flash_attention_cached_plain(q, k, v, qp, kl))
@@ -243,15 +297,54 @@ def _packed_inputs(torch, gen, b, sq, sk, h, d):
             qkv_k[:, :, 2].reshape(b, sk, h * d))
 
 
+def _layer_norm_train_cases(torch, timer, gen, rows, feat, name):
+    """K7 and K8 against their plain versions at a train step's shape (bf16
+    x and dy, fp32 gamma and beta), beside ``F.layer_norm`` and
+    ``native_layer_norm_backward`` on bf16 copies of gamma and beta."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.cuda import layer_norm as k7
+
+    x = (torch.randn(rows, feat, generator=gen) * 2).to("cuda", torch.bfloat16)
+    g = (1 + 0.1 * torch.randn(feat, generator=gen)).to("cuda")
+    bt = (0.1 * torch.randn(feat, generator=gen)).to("cuda")
+    dy = torch.randn(rows, feat, generator=gen).to("cuda", torch.bfloat16)
+    gl, bl = g.to(x.dtype), bt.to(x.dtype)
+    err = _bf16_err(k7.layer_norm(x, g, bt), k7.layer_norm_plain(x, g, bt))
+    bound, by = _bound(rows * feat * 2 * 2 + 2 * feat * 4, rows * feat * 8,
+                       H100_FP32_FLOPS)
+    fwd = {
+        "case": name, "shape": [rows, feat], "max_abs_err": err,
+        "ms": timer(lambda: k7.layer_norm(x, g, bt)),
+        "plain_ms": timer(lambda: k7.layer_norm_plain(x, g, bt)),
+        "library_ms": timer(lambda: TF.layer_norm(x, (feat,), gl, bl)),
+        "bound_ms": bound, "bound_by": by}
+    got = k7.layer_norm_bwd(x, g, dy)
+    want = k7.layer_norm_bwd_plain(x, g, dy)
+    err = max(_bf16_err(a, w) for a, w in zip(got, want))
+    # x and dy read, dx written, gamma read, dgamma and dbeta written
+    bound, by = _bound(rows * feat * 2 * 3 + 3 * feat * 4, rows * feat * 20,
+                       H100_FP32_FLOPS)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [feat], gl, bl, 1e-5)
+    bwd = {
+        "case": name, "shape": [rows, feat], "max_abs_err": err,
+        "ms": timer(lambda: k7.layer_norm_bwd(x, g, dy)),
+        "plain_ms": timer(lambda: k7.layer_norm_bwd_plain(x, g, dy)),
+        "library_ms": timer(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [feat], mean, rstd, gl, bl, [True, True, True])),
+        "bound_ms": bound, "bound_by": by}
+    return fwd, bwd
+
+
 def training_kernel_phase(torch, timer):
-    """K5, K6 and K8 (and K7 at the training shape) against their plain
+    """K5, K6 and K8 (and K7 at the training shapes) against their plain
     versions at GPT-2 124M's train-step shapes (batch 24 x 1024: 24576
     rows, 12 heads of 64), bf16, plus one small packed-attention case with
-    sq > sk and a bias that masks a row (zero output and gradients)."""
+    sq > sk and a bias that masks a row (zero output and gradients); K7
+    and K8 also at GPT-3 Large's (16384 rows of 1536)."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.cuda import flash_attention_packed as k5
-    from paddle_tpu_torch.ops.cuda import layer_norm as k7
 
     gen = torch.Generator(device="cpu").manual_seed(1)
     fwd_cases, bwd_cases, ln_fwd, ln_bwd = [], [], [], []
@@ -332,36 +425,139 @@ def training_kernel_phase(torch, timer):
             "bound_ms": bb_, "bound_by": bby})
         del ql, kl, vl, lib_out
 
-    rows, feat = 24 * 1024, 768
-    x = (torch.randn(rows, feat, generator=gen) * 2).to("cuda", torch.bfloat16)
-    g = (1 + 0.1 * torch.randn(feat, generator=gen)).to("cuda")
-    bt = (0.1 * torch.randn(feat, generator=gen)).to("cuda")
-    dy = torch.randn(rows, feat, generator=gen).to("cuda", torch.bfloat16)
-    gl, bl = g.to(x.dtype), bt.to(x.dtype)
-    err = _bf16_err(k7.layer_norm(x, g, bt), k7.layer_norm_plain(x, g, bt))
-    bound, by = _bound(rows * feat * 2 * 2 + 2 * feat * 4, rows * feat * 8,
-                       H100_FP32_FLOPS)
-    ln_fwd.append({
-        "case": f"rows={rows}", "shape": [rows, feat], "max_abs_err": err,
-        "ms": timer(lambda: k7.layer_norm(x, g, bt)),
-        "plain_ms": timer(lambda: k7.layer_norm_plain(x, g, bt)),
-        "library_ms": timer(lambda: TF.layer_norm(x, (feat,), gl, bl)),
-        "bound_ms": bound, "bound_by": by})
-    got = k7.layer_norm_bwd(x, g, dy)
-    want = k7.layer_norm_bwd_plain(x, g, dy)
-    err = max(_bf16_err(a, w) for a, w in zip(got, want))
-    # x and dy read, dx written, gamma read, dgamma and dbeta written
-    bound, by = _bound(rows * feat * 2 * 3 + 3 * feat * 4, rows * feat * 20,
-                       H100_FP32_FLOPS)
-    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [feat], gl, bl, 1e-5)
-    ln_bwd.append({
-        "case": f"rows={rows}", "shape": [rows, feat], "max_abs_err": err,
-        "ms": timer(lambda: k7.layer_norm_bwd(x, g, dy)),
-        "plain_ms": timer(lambda: k7.layer_norm_bwd_plain(x, g, dy)),
-        "library_ms": timer(lambda: torch.ops.aten.native_layer_norm_backward(
-            dy, x, [feat], mean, rstd, gl, bl, [True, True, True])),
-        "bound_ms": bound, "bound_by": by})
+    # GPT-2 124M's train shape, and GPT-3 Large's (batch 8 x 2048, width
+    # 1536): 49 launches each a step on its path
+    for rows, feat, name in ((24 * 1024, 768, "rows=24576"),
+                             (8 * 2048, 1536, "rows=16384x1536")):
+        f, b = _layer_norm_train_cases(torch, timer, gen, rows, feat, name)
+        ln_fwd.append(f)
+        ln_bwd.append(b)
     return fwd_cases, bwd_cases, ln_fwd, ln_bwd
+
+
+def flash_kernel_phase(torch, timer):
+    """K1, K2 and K3 against their plain versions: GPT-3 Large's train
+    shape (b 8, s 2048, 16 heads of 96, bf16, causal; q, k, v as views of
+    one fused qkv buffer), an odd causal shape with sq > sk (rows 0..99 see
+    no key) and a (2, 1, sq, sk) bias that also masks row 3 and key 5, a
+    (1, 16, sq, sk) bias, and fp32 cases (the odd one, and the small d = 96
+    model's shape). Tolerance: one bf16 step per element and a quarter of
+    one in relative L2 norm, 5e-5 in fp32; the rows that see no key are
+    exactly 0 in out and dq, the key no row sees exactly 0 in dk and dv."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as k1
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    k1_cases, k2_cases, k3_cases = [], [], []
+    # name: (b, sq, sk, h, d, dtype, causal, bias (B, H) or None)
+    shapes = [("train", 8, 2048, 2048, 16, 96, "bf16", True, None),
+              ("odd", 2, 300, 200, 16, 96, "bf16", True, (2, 1)),
+              ("head_bias", 2, 384, 384, 16, 96, "bf16", False, (1, 16)),
+              ("odd_fp32", 2, 300, 200, 16, 96, "fp32", True, (2, 1)),
+              ("small_fp32", 2, 1024, 1024, 2, 96, "fp32", True, None)]
+    for name, b, sq, sk, h, d, dt, causal, bias_bh in shapes:
+        tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+        esz = 2 if dt == "bf16" else 4
+        peak = H100_BF16_FLOPS if dt == "bf16" else H100_FP32_FLOPS
+        qkv = torch.randn(b, sq, 3, h, d, generator=gen).to("cuda", tdt)
+        kv = qkv if sq == sk else torch.randn(
+            b, sk, 3, h, d, generator=gen).to("cuda", tdt)
+        q, k, v = qkv[:, :, 0], kv[:, :, 1], kv[:, :, 2]
+        bias = None
+        if bias_bh is not None:
+            bias = 0.5 * torch.randn(*bias_bh, sq, sk, generator=gen)
+            bias[:, :, 3] = k1.NEG_INF
+            bias[:, :, :, 5] = k1.NEG_INF
+            bias = bias.to("cuda")
+        dout = torch.randn(b, sq, h, d, generator=gen).to("cuda", tdt)
+        rel = [0.0, 0.0, 0.0]
+
+        def check(i, got, want):
+            if dt == "fp32":
+                return _max_rel_err(got, want, "fp32")
+            rel[i] = max(rel[i], _rel_l2_err(got, want))
+            return _bf16_err(got, want)
+
+        out, lse = k1.flash_attention_fwd(q, k, v, bias, causal)
+        want_out, want_lse = k1.flash_attention_fwd_plain(q, k, v, bias,
+                                                          causal)
+        err1 = max(check(0, out, want_out), check(0, lse, want_lse))
+        del want_out, want_lse
+        args = (q, k, v, out, lse, dout, bias, causal)
+        dq = k1.flash_attention_bwd_dq(*args)
+        err2 = check(1, dq, k1.flash_attention_bwd_dq_plain(*args))
+        dk, dv = k1.flash_attention_bwd_dkv(*args)
+        want_dk, want_dv = k1.flash_attention_bwd_dkv_plain(*args)
+        err3 = max(check(2, dk, want_dk), check(2, dv, want_dv))
+        del want_dk, want_dv
+        rows = torch.zeros(sq, dtype=torch.bool, device="cuda")
+        if causal and sq > sk:
+            rows[:sq - sk] = True
+        if bias is not None:
+            rows[3] = True
+            _require(bool((dk[:, 5] == 0).all()) and bool((dv[:, 5] == 0).all()),
+                     f"{name}: the key no row sees gives 0 dk and dv")
+        _require(bool((out[:, rows] == 0).all())
+                 and bool((dq[:, rows] == 0).all()),
+                 f"{name}: rows with no visible key give 0 output and dq")
+        # (query, key) pairs this data needs: causal i sees 0 .. i + sk - sq
+        if causal:
+            pairs = b * h * sum(max(0, min(sk, i + sk - sq + 1))
+                                for i in range(sq))
+        else:
+            pairs = b * h * sq * sk
+        qb, kb = b * sq * h * d * esz, b * sk * h * d * esz
+        lse_b = b * h * sq * 4
+        bias_b = 0 if bias is None else bias.numel() * 4
+        # K1 reads q, k, v (and the bias), writes out and lse: 2 products;
+        # K2 reads q, k, v, out, dout, lse, writes dq: 3 products; K3 reads
+        # the same, writes dk and dv: 4 products
+        b1 = _bound(qb + 2 * kb + bias_b + qb + lse_b, 4 * d * pairs, peak)
+        b2 = _bound(3 * qb + 2 * kb + lse_b + bias_b + qb, 6 * d * pairs, peak)
+        b3 = _bound(3 * qb + 2 * kb + lse_b + bias_b + 2 * kb, 8 * d * pairs,
+                    peak)
+        lib_f = lib_b = None
+        if name == "train":
+            # SDPA computes the same function here (sq = sk, causal, no
+            # bias); its backward gives dq, dk and dv in one call
+            ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_()
+                          for t in (q, k, v))
+            lib_f = timer(lambda: TF.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True))
+            lib_out = TF.scaled_dot_product_attention(ql, kl, vl,
+                                                      is_causal=True)
+            gl = dout.transpose(1, 2)
+            lib_b = timer(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), gl, retain_graph=True))
+            del ql, kl, vl, lib_out
+        shape = {"b": b, "sq": sq, "sk": sk, "heads": h, "head_dim": d,
+                 "dtype": dt, "causal": causal,
+                 "bias": None if bias_bh is None else [*bias_bh, sq, sk]}
+        plain_iters = 5
+        for cases, err, r, fn, plain, bound, lib in (
+                (k1_cases, err1, rel[0],
+                 lambda: k1.flash_attention_fwd(q, k, v, bias, causal),
+                 lambda: k1.flash_attention_fwd_plain(q, k, v, bias, causal),
+                 b1, lib_f),
+                (k2_cases, err2, rel[1],
+                 lambda: k1.flash_attention_bwd_dq(*args),
+                 lambda: k1.flash_attention_bwd_dq_plain(*args), b2, lib_b),
+                (k3_cases, err3, rel[2],
+                 lambda: k1.flash_attention_bwd_dkv(*args),
+                 lambda: k1.flash_attention_bwd_dkv_plain(*args), b3, lib_b)):
+            cases.append({
+                "case": name, "shape": shape, "max_abs_err": err,
+                "rel_l2_err": r,
+                "ms": timer(fn), "plain_ms": timer(plain, plain_iters),
+                "library_ms": lib, "bound_ms": bound[0],
+                "bound_by": bound[1]})
+        if lib_b is not None:
+            k2_cases[-1]["library_computes"] = "dq, dk and dv in one call"
+            k3_cases[-1]["library_computes"] = "dq, dk and dv in one call"
+        del qkv, kv, q, k, v, bias, dout, out, lse, dq, dk, dv, args
+        torch.cuda.empty_cache()
+    return k1_cases, k2_cases, k3_cases
 
 
 def _max_rel_err(got, want, dtype):
@@ -485,22 +681,28 @@ def plain_versions():
     from paddle_tpu_torch.ops.cuda import fused_ce as k9
     from paddle_tpu_torch.ops.cuda import layer_norm as k7
 
-    saved = (k4.flash_attention_cached, k5.flash_attention_packed,
-             k7.layer_norm, k9.ce_forward, k9.ce_backward_dx,
-             k9.ce_backward_dw)
+    saved = (k4.flash_attention_fwd, k4.flash_attention_bwd_dq,
+             k4.flash_attention_bwd_dkv, k4.flash_attention_cached,
+             k5.flash_attention_packed, k7.layer_norm, k9.ce_forward,
+             k9.ce_backward_dx, k9.ce_backward_dw)
+    # K1-K3's and the flash-CE autograd functions call their launchers by
+    # their module names: the plain versions keep their custom backwards
+    k4.flash_attention_fwd = k4.flash_attention_fwd_plain
+    k4.flash_attention_bwd_dq = k4.flash_attention_bwd_dq_plain
+    k4.flash_attention_bwd_dkv = k4.flash_attention_bwd_dkv_plain
     k4.flash_attention_cached = k4.flash_attention_cached_plain
     k5.flash_attention_packed = k5.flash_attention_packed_plain
     k7.layer_norm = k7.layer_norm_plain
-    # the flash-CE autograd function calls these by their module names
     k9.ce_forward = k9.ce_forward_plain
     k9.ce_backward_dx = k9.ce_backward_dx_plain
     k9.ce_backward_dw = k9.ce_backward_dw_plain
     try:
         yield
     finally:
-        (k4.flash_attention_cached, k5.flash_attention_packed,
-         k7.layer_norm, k9.ce_forward, k9.ce_backward_dx,
-         k9.ce_backward_dw) = saved
+        (k4.flash_attention_fwd, k4.flash_attention_bwd_dq,
+         k4.flash_attention_bwd_dkv, k4.flash_attention_cached,
+         k5.flash_attention_packed, k7.layer_norm, k9.ce_forward,
+         k9.ce_backward_dx, k9.ce_backward_dw) = saved
 
 
 def _prefill_decode_logits(torch, model, prompt, max_batch, max_len):
@@ -652,6 +854,18 @@ def small_reference(torch, np):
     return {"tokens": len(got), "logit_max_abs_err": err}
 
 
+def _token_batches(np, seed, steps, batch, seq, vocab):
+    """``steps`` batches of random token ids from ``RandomState(seed)``,
+    each ``(ids, labels)`` with the labels a copy of the ids (as in
+    ``bench.py``)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        a = rng.randint(0, vocab, (batch, seq)).astype(np.int64)
+        out.append((a, a.copy()))
+    return out
+
+
 def _train(torch, model, batches, lr=1e-4, multi_precision=True, events=None):
     """``bench.py``'s train step over ``batches`` fed through
     ``DeviceLoader``; returns the loss tensors. ``events`` (a list) gets
@@ -694,11 +908,8 @@ def training_phase(torch, np):
 
     batch, seq, warm, timed = 24, 1024, 3, 10
     model = _gpt124m(torch, 0)
-    rng = np.random.RandomState(0)
-    batches = []
-    for _ in range(warm + timed):
-        a = rng.randint(0, model.cfg.vocab_size, (batch, seq)).astype(np.int64)
-        batches.append((a, a.copy()))
+    batches = _token_batches(np, 0, warm + timed, batch, seq,
+                             model.cfg.vocab_size)
     events = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -744,11 +955,7 @@ def training_phase(torch, np):
 def training_vs_plain(torch, np):
     """3 steps at batch 8 on the kernels against the same 3 steps on the
     plain versions, from one init and one set of batches."""
-    rng = np.random.RandomState(3)
-    batches = []
-    for _ in range(3):
-        a = rng.randint(0, 50304, (8, 1024)).astype(np.int64)
-        batches.append((a, a.copy()))
+    batches = _token_batches(np, 3, 3, 8, 1024, 50304)
     runs = []
     for plain in (False, True):
         model = _gpt124m(torch, 5)
@@ -774,11 +981,7 @@ def small_training_reference(torch, np):
     cfg = GPTConfig(vocab_size=1024, hidden_size=128, num_layers=2,
                     num_heads=2, max_position_embeddings=1024,
                     hidden_dropout=0.0, attention_dropout=0.0)
-    rng = np.random.RandomState(4)
-    batches = []
-    for _ in range(3):
-        a = rng.randint(0, cfg.vocab_size, (2, 1024)).astype(np.int64)
-        batches.append((a, a.copy()))
+    batches = _token_batches(np, 4, 3, 2, 1024, cfg.vocab_size)
     losses = []
     kernels.reset_launch_counts()
     for dev in ("cuda", "cpu"):
@@ -833,15 +1036,16 @@ def _no_decay(name):
     return name.endswith(".bias") or ".ln_" in name
 
 
-def _recipe_train(torch, model, batches, decorate=True, events=None):
-    """GPT-3 Small's recipe (Brown et al. 2020, Table 2.1 and Appendix B)
-    over ``batches`` fed through ``DeviceLoader``, with
-    ``FLAGS_enable_flash_ce``: ``amp.decorate(O2, bf16)`` after the model
-    is built in fp32, AdamW(0.9, 0.95, 1e-8, weight decay 0.1 except biases
-    and LayerNorms), a 5-step linear warm-up into a cosine decay from 6e-4
-    to 6e-5 (``sched.step()`` after each step), global-norm clipping at 1.0
-    and a dynamic GradScaler from 2^15. Returns the loss tensors and the
-    scaler. ``events`` (a list) gets five CUDA events a step: start, after
+def _recipe_train(torch, model, batches, decorate=True, events=None,
+                  peak_lr=6e-4, flash_ce=True):
+    """GPT-3's recipe (Brown et al. 2020, Table 2.1 and Appendix B) over
+    ``batches`` fed through ``DeviceLoader``, with ``FLAGS_enable_flash_ce``
+    set to ``flash_ce``: ``amp.decorate(O2, bf16)`` after the model is
+    built in fp32, AdamW(0.9, 0.95, 1e-8, weight decay 0.1 except biases
+    and LayerNorms), a 5-step linear warm-up into a cosine decay from
+    ``peak_lr`` to a tenth of it (GPT-3 Small's 6e-4 by default;
+    ``sched.step()`` after each step), global-norm clipping at 1.0 and a
+    dynamic GradScaler from 2^15. Returns the loss tensors and the scaler. ``events`` (a list) gets five CUDA events a step: start, after
     the loss, after backward, after unscale + finite check + clip, after
     the optimizer."""
     from paddle_tpu_torch import amp, nn
@@ -860,8 +1064,8 @@ def _recipe_train(torch, model, batches, decorate=True, events=None):
     decay = {f"param_{i}" for i, (n, _) in enumerate(model.named_parameters())
              if not _no_decay(n)}
     sched = lr.LinearWarmup(
-        lr.CosineAnnealingDecay(6e-4, T_max=8, eta_min=6e-5),
-        warmup_steps=5, start_lr=0.0, end_lr=6e-4)
+        lr.CosineAnnealingDecay(peak_lr, T_max=8, eta_min=peak_lr / 10),
+        warmup_steps=5, start_lr=0.0, end_lr=peak_lr)
     clip = TimedClip(1.0)
     opt = AdamW(learning_rate=sched, beta1=0.9, beta2=0.95, epsilon=1e-8,
                 weight_decay=0.1, parameters=model.parameters(),
@@ -871,7 +1075,7 @@ def _recipe_train(torch, model, batches, decorate=True, events=None):
     scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
     model.train()
     losses = []
-    with _port_flags(enable_flash_ce=True):
+    with _port_flags(enable_flash_ce=flash_ce):
         for ids, labels in DeviceLoader(batches, buffer_size=2,
                                         device=model.device):
             ev = ([torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -919,11 +1123,7 @@ def recipe_phase(torch, np):
     batch, seq, warm, timed = 24, 1024, 3, 10
     steps = warm + timed
     model = _gpt124m_fp32(torch, 0)
-    rng = np.random.RandomState(0)
-    batches = []
-    for _ in range(steps):
-        a = rng.randint(0, model.cfg.vocab_size, (batch, seq)).astype(np.int64)
-        batches.append((a, a.copy()))
+    batches = _token_batches(np, 0, steps, batch, seq, model.cfg.vocab_size)
     events = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -972,11 +1172,7 @@ def recipe_vs_plain(torch, np):
     """3 recipe steps at batch 8 on the kernels against the same 3 steps on
     the plain versions (K9-K11 included), from one init and one set of
     batches."""
-    rng = np.random.RandomState(6)
-    batches = []
-    for _ in range(3):
-        a = rng.randint(0, 50304, (8, 1024)).astype(np.int64)
-        batches.append((a, a.copy()))
+    batches = _token_batches(np, 6, 3, 8, 1024, 50304)
     runs = []
     for plain in (False, True):
         model = _gpt124m_fp32(torch, 7)
@@ -1004,11 +1200,7 @@ def small_recipe_reference(torch, np):
     cfg = GPTConfig(vocab_size=1024, hidden_size=128, num_layers=2,
                     num_heads=2, max_position_embeddings=1024,
                     hidden_dropout=0.0, attention_dropout=0.0)
-    rng = np.random.RandomState(8)
-    batches = []
-    for _ in range(3):
-        a = rng.randint(0, cfg.vocab_size, (2, 1024)).astype(np.int64)
-        batches.append((a, a.copy()))
+    batches = _token_batches(np, 8, 3, 2, 1024, cfg.vocab_size)
     losses = []
     kernels.reset_launch_counts()
     for dev in ("cuda", "cpu"):
@@ -1022,6 +1214,184 @@ def small_recipe_reference(torch, np):
              "the small model's loss runs the fp32 K9-K11 on the card")
     err = max(abs(a - b) for a, b in zip(*losses))
     _require(err <= SMALL_LOSS_TOL, f"small recipe losses within "
+             f"{SMALL_LOSS_TOL} of the CPU: {losses[0]} vs {losses[1]}")
+    return {"card_losses": losses[0], "cpu_losses": losses[1],
+            "max_abs_diff": err}
+
+
+#: GPT-3 Large (Brown et al. 2020, Table 2.1): 760M parameters, 24 layers,
+#: d_model 1536, 16 heads of 96, context 2048, learning rate 2.5e-4; the
+#: vocabulary is the repo's padded GPT-2 one (bench.py:97-102)
+GPT3_LARGE = dict(vocab_size=50304, hidden_size=1536, num_layers=24,
+                  num_heads=16, max_position_embeddings=2048,
+                  hidden_dropout=0.0, attention_dropout=0.0)
+GPT3_LARGE_LR = 2.5e-4
+_K1_K3 = ("flash_attention_fwd", "flash_attention_bwd_dq",
+          "flash_attention_bwd_dkv")
+
+
+def _gpt3_large_fp32(torch, seed):
+    """GPT-3 Large on the card in fp32 from ``torch.manual_seed(seed)``:
+    the recipe decorates it."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    torch.manual_seed(seed)
+    return GPTForCausalLM(GPTConfig(**GPT3_LARGE), device="cuda")
+
+
+def gpt3_large_phase(torch, np):
+    """GPT-3 Large's pretraining step on the card: the recipe with its peak
+    learning rate 2.5e-4 (cosine to 2.5e-5), the chunked loss
+    (``FLAGS_enable_flash_ce`` off, the default), batch 8 x 2048 through
+    ``DeviceLoader``, 2 warm-up and 5 timed steps; launch counts zeroed
+    just before and read just after. Head dim 96 does not pack, so every
+    attention call takes K1, K2 and K3 (24 a step each) and none K5/K6;
+    K7 and K8 run 49 times a step (two LayerNorms a layer and the final
+    one). Returns the report and the trained (decorated) model."""
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    batch, seq, warm, timed = 8, 2048, 2, 5
+    steps = warm + timed
+    model = _gpt3_large_fp32(torch, 0)
+    cfg = model.cfg
+    batches = _token_batches(np, 10, steps, batch, seq, cfg.vocab_size)
+    events = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses, scaler = _recipe_train(torch, model, batches, events=events,
+                                   peak_lr=GPT3_LARGE_LR, flash_ce=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    _require(all(np.isfinite(losses)), "GPT-3 Large losses are finite")
+    _require(losses[0] < np.log(cfg.vocab_size) + 0.5
+             and losses[-1] < losses[0],
+             f"GPT-3 Large's recipe lowers the loss: {losses}")
+    want = {name: cfg.num_layers * steps for name in _K1_K3}
+    want.update(layer_norm=(2 * cfg.num_layers + 1) * steps,
+                layer_norm_bwd=(2 * cfg.num_layers + 1) * steps,
+                flash_attention_packed_fwd=0, flash_attention_packed_bwd=0,
+                flash_attention_cached=0, fused_ce_fwd=0, fused_ce_dx=0,
+                fused_ce_dw=0)
+    for name, n in want.items():
+        _require(counts[name] == n, f"kernel {name} launched {n} times in "
+                 f"{steps} GPT-3 Large steps ({counts[name]})")
+    _require(scaler.state_dict()["bad_steps"] == 0, "no step was skipped")
+    tev = events[warm:]
+
+    def span(i, j):
+        return sum(e[i].elapsed_time(e[j]) for e in tev) / timed
+
+    window = tev[0][0].elapsed_time(tev[-1][4]) / 1e3
+    params = sum(p.numel() for p in model.parameters())
+    return {
+        "config": GPT3_LARGE, "parameters": params, "batch": batch,
+        "seq": seq, "warmup_steps": warm, "timed_steps": timed,
+        "peak_lr": GPT3_LARGE_LR, "losses": losses,
+        "tokens_per_s": batch * seq * timed / window,
+        "step_ms": span(0, 4), "forward_ms": span(0, 1),
+        "backward_ms": span(1, 2), "scaler_clip_ms": span(2, 3),
+        "optimizer_ms": span(3, 4), "wall_s_all_steps": wall,
+        "peak_memory_gib": peak / 2 ** 30, "launches": counts,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "scaler": scaler.state_dict()}, model
+
+
+def gpt3_large_generate(torch, np, model):
+    """One 64-token greedy ``generate`` of the trained GPT-3 Large model (a
+    300-token prompt, ``max_len`` 2048) with launch counts zeroed just
+    before and read just after (K4 at head dim 96, K7; no K1-K3); then one
+    prefill's and one decode tick's logits against the plain versions."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model.eval()
+    prompt = np.random.RandomState(11).randint(
+        0, model.cfg.vocab_size, 300).tolist()
+    eng = GenerationEngine(model, max_batch=2, max_len=2048)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompt, max_new_tokens=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    _require(len(out) == 64 and all(0 <= t < model.cfg.vocab_size
+                                    for t in out),
+             "generate returned 64 in-vocabulary tokens")
+    _require(counts["flash_attention_cached"] > 0 and counts["layer_norm"] > 0,
+             "GPT-3 Large generates through K4 and K7")
+    _require(all(counts[k] == 0 for k in _K1_K3),
+             "generation runs no uncached attention")
+    del eng
+    torch.cuda.empty_cache()
+    kp, kd = _prefill_decode_logits(torch, model, prompt, 2, 2048)
+    with plain_versions():
+        pp, pd = _prefill_decode_logits(torch, model, prompt, 2, 2048)
+    err = {}
+    for got, want, what in ((kp, pp, "prefill"), (kd, pd, "decode")):
+        _require(bool(got.isfinite().all()), f"{what} logits finite")
+        err[what] = float((got - want).abs().max())
+        _require(err[what] <= LOGIT_TOL, f"GPT-3 Large {what} logits within "
+                 f"{LOGIT_TOL} of the plain run (max err {err[what]:.4g})")
+    return {"prompt_tokens": len(prompt), "generated_tokens": len(out),
+            "wall_s": wall, "tokens_per_s": len(out) / wall,
+            "launches": counts, "logit_max_abs_err_vs_plain": err,
+            "logit_abs_max": float(kp.abs().max())}
+
+
+def gpt3_large_vs_plain(torch, np):
+    """3 GPT-3 Large recipe steps at batch 2 x 2048 on the kernels against
+    the same 3 steps on the plain versions, from one init and one set of
+    batches."""
+    batches = _token_batches(np, 12, 3, 2, 2048, GPT3_LARGE["vocab_size"])
+    runs = []
+    for plain in (False, True):
+        model = _gpt3_large_fp32(torch, 13)
+        ctx = plain_versions() if plain else contextlib.nullcontext()
+        with ctx:
+            losses, _ = _recipe_train(torch, model, batches,
+                                      peak_lr=GPT3_LARGE_LR, flash_ce=False)
+            runs.append([float(x) for x in losses])
+        del model
+        torch.cuda.empty_cache()
+    err = max(abs(a - b) for a, b in zip(*runs))
+    _require(all(np.isfinite(runs[0])), "kernel-run losses are finite")
+    _require(err <= TRAIN_LOSS_TOL, f"GPT-3 Large losses within "
+             f"{TRAIN_LOSS_TOL} of the plain run: {runs[0]} vs {runs[1]}")
+    return {"kernel_losses": runs[0], "plain_losses": runs[1],
+            "max_abs_diff": err}
+
+
+def small_d96_reference(torch, np):
+    """A small fp32 model with GPT-3 Large's head dim (2 heads of 96, 2
+    layers, seq 1024, vocab 1024: K1-K3 and K7/K8 run on the card) trained
+    3 recipe steps, without decorate and with the chunked loss, on the card
+    against the CPU port."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    cfg = GPTConfig(vocab_size=1024, hidden_size=192, num_layers=2,
+                    num_heads=2, max_position_embeddings=1024,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    batches = _token_batches(np, 14, 3, 2, 1024, cfg.vocab_size)
+    losses = []
+    kernels.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        model = GPTForCausalLM(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(15))
+        out, _ = _recipe_train(torch, model, batches, decorate=False,
+                               peak_lr=GPT3_LARGE_LR, flash_ce=False)
+        losses.append([float(x) for x in out])
+    counts = kernels.launch_counts()
+    _require(all(counts[k] == 2 * 3 for k in _K1_K3),
+             "the small d = 96 model trains through K1-K3 on the card")
+    err = max(abs(a - b) for a, b in zip(*losses))
+    _require(err <= SMALL_LOSS_TOL, f"small d = 96 losses within "
              f"{SMALL_LOSS_TOL} of the CPU: {losses[0]} vs {losses[1]}")
     return {"card_losses": losses[0], "cpu_losses": losses[1],
             "max_abs_diff": err}
@@ -1057,14 +1427,18 @@ def main():
     ln_cases += ln_train
     k9_cases, k10_cases, k11_cases, chunked = fused_ce_kernel_phase(torch,
                                                                     timer)
+    k1_cases, k2_cases, k3_cases = flash_kernel_phase(torch, timer)
     for c in (ln_cases + fa_cases + k5_cases + k6_cases + k8_cases
-              + k9_cases + k10_cases + k11_cases):
+              + k9_cases + k10_cases + k11_cases + k1_cases + k2_cases
+              + k3_cases):
         lib = ("none" if c["library_ms"] is None
                else f"{c['library_ms']:.4f}")
+        rel = (f", relative L2 {c['rel_l2_err']:.3g}" if "rel_l2_err" in c
+               else "")
         print(f"kernel {c['case']}: {c['ms']:.4f} ms (plain "
               f"{c['plain_ms']:.4f}, library {lib}, bound "
               f"{c['bound_ms']:.4f} by {c['bound_by']}) err "
-              f"{c['max_abs_err']:.3g}")
+              f"{c['max_abs_err']:.3g}{rel}")
     print(f"chunked loss loop at the train shape: {json.dumps(chunked)}")
     serve = serving_phase(torch, np)
     print(f"serving: {json.dumps(serve)}")
@@ -1105,6 +1479,31 @@ def main():
     print(f"recipe vs plain: {json.dumps(recipe_plain)}")
     small_recipe = small_recipe_reference(torch, np)
     print(f"small recipe reference: {json.dumps(small_recipe)}")
+    large, model = gpt3_large_phase(torch, np)
+    per_step = large["launches_per_step"]
+    large["kernel_share_of_step"] = {
+        name: per_step[name] * next(c["ms"] for c in cases
+                                    if c["case"] == case) / large["step_ms"]
+        for name, cases, case in (
+            *((n, c, "train") for n, c in zip(
+                _K1_K3, (k1_cases, k2_cases, k3_cases))),
+            ("layer_norm", ln_cases, "rows=16384x1536"),
+            ("layer_norm_bwd", k8_cases, "rows=16384x1536"))}
+    print(f"gpt3_large: {json.dumps(large)}")
+    print(f"gpt3_large: {large['tokens_per_s']:.1f} tokens/s, step "
+          f"{large['step_ms']:.1f} ms (forward {large['forward_ms']:.1f}, "
+          f"backward {large['backward_ms']:.1f}, scaler+clip "
+          f"{large['scaler_clip_ms']:.1f}, optimizer "
+          f"{large['optimizer_ms']:.1f}), peak "
+          f"{large['peak_memory_gib']:.2f} GiB on {card}")
+    large_gen = gpt3_large_generate(torch, np, model)
+    print(f"gpt3_large generate: {json.dumps(large_gen)}")
+    del model
+    torch.cuda.empty_cache()
+    large_plain = gpt3_large_vs_plain(torch, np)
+    print(f"gpt3_large vs plain: {json.dumps(large_plain)}")
+    small_d96 = small_d96_reference(torch, np)
+    print(f"small d96 reference: {json.dumps(small_d96)}")
 
     def entry(name, source, replaces, cases, main_case, launches):
         top = next(c for c in cases if c["case"] == main_case)
@@ -1121,33 +1520,52 @@ def main():
     def paths(name):
         return {"serving": serve["launches"][name],
                 "training": train["launches"][name],
-                "recipe": recipe["launches"][name]}
+                "recipe": recipe["launches"][name],
+                "gpt3_large": large["launches"][name],
+                "gpt3_large_generate": large_gen["launches"][name]}
+
+    def only(name, *keys):
+        return {k: v for k, v in paths(name).items() if k in keys}
 
     packed = "paddle_tpu_torch/csrc/flash_attention_packed.cu"
     ln_src = "paddle_tpu_torch/csrc/layer_norm.cu"
     ce_src = "paddle_tpu_torch/csrc/fused_ce.cu"
+    flash = "paddle_tpu_torch/csrc/flash_attention.cu"
+    k1_paths = ("gpt3_large",)
     kernels = [
+        entry("flash_attention_fwd", flash,
+              "paddle_tpu/ops/pallas/flash_attention.py:127", k1_cases,
+              "train", only("flash_attention_fwd", *k1_paths)),
+        entry("flash_attention_bwd_dq", flash,
+              "paddle_tpu/ops/pallas/flash_attention.py:173", k2_cases,
+              "train", only("flash_attention_bwd_dq", *k1_paths)),
+        entry("flash_attention_bwd_dkv", flash,
+              "paddle_tpu/ops/pallas/flash_attention.py:218", k3_cases,
+              "train", only("flash_attention_bwd_dkv", *k1_paths)),
         entry("flash_attention_cached",
               "paddle_tpu_torch/csrc/flash_attention_cached.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:547", fa_cases,
-              "decode", {"serving": serve["launches"]["flash_attention_cached"]}),
+              "decode", only("flash_attention_cached", "serving",
+                             "gpt3_large_generate")),
         entry("flash_attention_packed_fwd", packed,
               "paddle_tpu/ops/pallas/flash_attention_packed.py:127", k5_cases,
-              "train", paths("flash_attention_packed_fwd")),
+              "train", only("flash_attention_packed_fwd", "serving",
+                            "training", "recipe")),
         entry("flash_attention_packed_bwd", packed,
               "paddle_tpu/ops/pallas/flash_attention_packed.py:236", k6_cases,
-              "train", paths("flash_attention_packed_bwd")),
+              "train", only("flash_attention_packed_bwd", "serving",
+                            "training", "recipe")),
         entry("layer_norm", ln_src, "paddle_tpu/ops/pallas/layer_norm.py:34",
               ln_cases, "rows=8", paths("layer_norm")),
         entry("layer_norm_bwd", ln_src,
               "paddle_tpu/ops/pallas/layer_norm.py:41", k8_cases,
               "rows=24576", paths("layer_norm_bwd")),
         entry("fused_ce_fwd", ce_src, "paddle_tpu/ops/pallas/fused_ce.py:71",
-              k9_cases, "train", {"recipe": recipe["launches"]["fused_ce_fwd"]}),
+              k9_cases, "train", only("fused_ce_fwd", "recipe")),
         entry("fused_ce_dx", ce_src, "paddle_tpu/ops/pallas/fused_ce.py:107",
-              k10_cases, "train", {"recipe": recipe["launches"]["fused_ce_dx"]}),
+              k10_cases, "train", only("fused_ce_dx", "recipe")),
         entry("fused_ce_dw", ce_src, "paddle_tpu/ops/pallas/fused_ce.py:128",
-              k11_cases, "train", {"recipe": recipe["launches"]["fused_ce_dw"]}),
+              k11_cases, "train", only("fused_ce_dw", "recipe")),
     ]
     # the loop the flag replaces (cuBLAS products), at the train shape
     kernels[-3]["chunked_loop_ms"] = chunked["forward_ms"]

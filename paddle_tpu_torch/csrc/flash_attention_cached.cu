@@ -282,6 +282,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   switch (d) {
     case 32: return launch_split<T, 32>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, st, scale, ksplit, stream);
     case 64: return launch_split<T, 64>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, st, scale, ksplit, stream);
+    case 96: return launch_split<T, 96>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, st, scale, ksplit, stream);
     case 128: return launch_split<T, 128>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, st, scale, ksplit, stream);
   }
   return cudaErrorInvalidValue;

@@ -33,8 +33,9 @@
 //    rescale and the row reductions (16-lane shuffles) stay in registers.
 //  * Tiles live in shared memory as fp32; k and v tiles are stored
 //    transposed with a padded stride (65), so both the score product
-//    (lanes along keys) and dq = ds k (lanes along head_dim) read them
-//    without bank conflicts.
+//    (lanes along keys) and p v or ds k (lanes along head_dim) read them
+//    without bank conflicts. The tile loads, products and softmax steps
+//    are shared with K1-K3 (csrc/flash_tile.cuh).
 //  * K5: one CTA per (64-row q tile, head, batch); it streams the 64-key
 //    k/v tiles up to the last key its rows can see (causal tiles above the
 //    diagonal are skipped), keeping (m, l, acc) per row.
@@ -44,44 +45,12 @@
 //    to run), and a cast pass writes dq in the input dtype. delta comes from
 //    a pre-pass (one warp a row). The TPU kernel's resident dq slab and its
 //    block sizes are VMEM tuning and have no counterpart here.
-#include "common.cuh"
+#include "flash_tile.cuh"
 
 namespace ptt {
 namespace {
 
-constexpr int kBQ = 64;        // query rows a tile
-constexpr int kBK = 64;        // keys a tile
-constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 micro-tile each
-constexpr int kPad = kBK + 1;  // padded row of a transposed tile
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// key `col` is visible to query `row`
-__device__ __forceinline__ bool visible(int row, int col, int sq, int sk,
-                                        int offset, int causal) {
-  return row < sq && col < sk && (!causal || col <= row + offset);
-}
-
-template <int D>
-__host__ __device__ constexpr int fwd_smem_floats() {
-  return kBQ * (D + 1) + D * kPad + kBK * D + kBQ * kPad;
-}
-
-template <int D>
-__host__ __device__ constexpr int bwd_smem_floats() {
-  return 2 * D * kPad + 2 * kBQ * (D + 1) + kBQ * kPad + 2 * kBQ;
-}
+using namespace flash;
 
 // ---------------------------------------------------------------------------
 // K5: forward
@@ -94,127 +63,42 @@ packed_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   int h, long long qsb, long long qss, long long ksb,
                   long long kss, long long vsb, long long vss, float scale,
                   int causal) {
-  constexpr int DJ = D / 16;   // output columns a thread
-  constexpr int QS = D + 1;    // padded q row
   extern __shared__ float smem[];
-  float* qs = smem;                 // [kBQ][QS]  q rows, pre-scaled
-  float* kt = qs + kBQ * QS;        // [D][kPad]  k tile, transposed
-  float* vs = kt + D * kPad;        // [kBK][D]   v tile
-  float* ps = vs + kBK * D;         // [kBQ][kPad] probabilities
+  float* qs = smem;                 // [kBQ][D + 1] q rows, pre-scaled
+  float* kt = qs + kBQ * (D + 1);   // [D][kPad]  k tile, transposed
+  float* vt = kt + D * kPad;        // [D][kPad]  v tile, transposed
+  float* ps = vt + D * kPad;        // [kBQ][kPad] probabilities
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int bb = blockIdx.z, hh = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int offset = sk - sq;
-  const T* qb = q + bb * qsb + hh * D;
   const T* kb = k + bb * ksb + hh * D;
   const T* vb = v + bb * vsb + hh * D;
+  // q is pre-scaled, so the logits take the scores as they are
+  const Logits lg{sq, sk, causal, 1.f, bias, sk};
+  load_rows<T, D>(q + bb * qsb + hh * D, qss, q0, sq, scale, qs);
+  const int kend = lg.key_end(q0);
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D, row = q0 + r;
-    qs[r * QS + c] = row < sq ? to_f32(qb[row * qss + c]) * scale : 0.f;
-  }
-  // keys any row of this tile can see
-  int kend = sk;
-  if (causal) kend = max(0, min(sk, min(q0 + kBQ, sq) + offset));
-
-  float m[4], l[4], acc[4][DJ];
+  float m[4], l[4], acc[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DJ; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
   }
 
   for (int k0 = 0; k0 < kend; k0 += kBK) {
     __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int key = idx / D, c = idx % D, j = k0 + key;
-      float kv = 0.f, vv = 0.f;
-      if (j < sk) {
-        kv = to_f32(kb[j * kss + c]);
-        vv = to_f32(vb[j * vss + c]);
-      }
-      kt[c * kPad + key] = kv;
-      vs[key * D + c] = vv;
-    }
+    load_kv_t<T, D>(kb, vb, kss, vss, k0, sk, kt, vt);
     __syncthreads();
-
     float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * QS + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = kt[c * kPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = visible(row, col, sq, sk, offset, causal);
-        float sc = s[i][j];
-        if (ok && bias != nullptr) sc += bias[static_cast<long long>(row) * sk + col];
-        s[i][j] = ok ? sc : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], max16(mx));
-      // rows fully masked so far keep l = 0 (exp(s - m_new) would be 1)
-      const bool live = m_new > 0.5f * kNegInf;
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = live ? expf(s[i][j] - m_new) : 0.f;
-        ps[(ty * 4 + i) * kPad + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DJ; ++c) acc[i][c] *= alpha;
-    }
+    score_tile<D>(qs, kt, ty, tx, s);
+    lg.mask(s, q0, k0, ty, tx);
+    softmax_step<D>(s, m, l, acc, ps, ty, tx);
     __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float vv[DJ];
-#pragma unroll
-      for (int c = 0; c < DJ; ++c) vv[c] = vs[kk * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ps[(ty * 4 + i) * kPad + kk];
-#pragma unroll
-        for (int c = 0; c < DJ; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
+    acc_rows<D>(ps, vt, ty, tx, acc);
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= sq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* orow = out + ((static_cast<long long>(bb) * sq + row) * h + hh) * D;
-#pragma unroll
-    for (int c = 0; c < DJ; ++c) orow[tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
-    if (tx == 0)
-      lse[(static_cast<long long>(bb) * h + hh) * sq + row] =
-          m[i] + logf(l[i] > 0.f ? l[i] : 1.f);
-  }
+  store_out<T, D>(acc, m, l, out, lse, bb, hh, h, q0, sq, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
@@ -254,182 +138,71 @@ packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h,
                   long long qsb, long long qss, long long ksb, long long kss,
                   long long vsb, long long vss, float scale, int causal) {
-  constexpr int DJ = D / 16;
-  constexpr int QS = D + 1;
   extern __shared__ float smem[];
   float* kt = smem;                 // [D][kPad]  k block, transposed
   float* vt = kt + D * kPad;        // [D][kPad]  v block, transposed
-  float* qs = vt + D * kPad;        // [kBQ][QS]  q tile
-  float* gs = qs + kBQ * QS;        // [kBQ][QS]  dout tile
-  float* ps = gs + kBQ * QS;        // [kBQ][kPad] p, then ds
+  float* qs = vt + D * kPad;        // [kBQ][D + 1] q tile
+  float* gs = qs + kBQ * (D + 1);   // [kBQ][D + 1] dout tile
+  float* ps = gs + kBQ * (D + 1);   // [kBQ][kPad] p, then ds
   float* ls = ps + kBQ * kPad;      // [kBQ] lse
-  float* ds_ = ls + kBQ;            // [kBQ] delta
+  float* dl = ls + kBQ;             // [kBQ] delta
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int bb = blockIdx.z, hh = blockIdx.y, k0 = blockIdx.x * kBK;
-  const int offset = sk - sq;
   const long long hd = static_cast<long long>(h) * D;  // contiguous row
   const T* qb = q + bb * qsb + hh * D;
-  const T* kb = k + bb * ksb + hh * D;
-  const T* vb = v + bb * vsb + hh * D;
   const T* gb = dout + static_cast<long long>(bb) * sq * hd + hh * D;
   const float* lb = lse + (static_cast<long long>(bb) * h + hh) * sq;
   const float* db = delta + (static_cast<long long>(bb) * h + hh) * sq;
   float* dqb = dq_ws + static_cast<long long>(bb) * sq * hd + hh * D;
+  const Logits lg{sq, sk, causal, scale, bias, sk};
 
-  for (int idx = tid; idx < kBK * D; idx += kThreads) {
-    const int key = idx / D, c = idx % D, j = k0 + key;
-    float kv = 0.f, vv = 0.f;
-    if (j < sk) {
-      kv = to_f32(kb[j * kss + c]);
-      vv = to_f32(vb[j * vss + c]);
-    }
-    kt[c * kPad + key] = kv;
-    vt[c * kPad + key] = vv;
-  }
+  load_kv_t<T, D>(k + bb * ksb + hh * D, v + bb * vsb + hh * D, kss, vss, k0, sk,
+                  kt, vt);
 
-  float dka[4][DJ], dva[4][DJ];
+  float dka[4][D / 16], dva[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < DJ; ++c) dka[i][c] = dva[i][c] = 0.f;
+    for (int c = 0; c < D / 16; ++c) dka[i][c] = dva[i][c] = 0.f;
 
-  // the first query row that can see key k0
-  const int qstart = causal ? max(0, k0 - offset) : 0;
-  for (int q0 = (qstart / kBQ) * kBQ; q0 < sq; q0 += kBQ) {
+  for (int q0 = lg.first_q_tile(k0); q0 < sq; q0 += kBQ) {
     __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D, row = q0 + r;
-      const bool live = row < sq;
-      qs[r * QS + c] = live ? to_f32(qb[row * qss + c]) : 0.f;
-      gs[r * QS + c] = live ? to_f32(gb[row * hd + c]) : 0.f;
-    }
+    load_rows<T, D>(qb, qss, q0, sq, 1.f, qs);
+    load_rows<T, D>(gb, hd, q0, sq, 1.f, gs);
     if (tid < kBQ) {
       const int row = q0 + tid;
       ls[tid] = row < sq ? lb[row] : kNegInf;
-      ds_[tid] = row < sq ? db[row] : 0.f;
+      dl[tid] = row < sq ? db[row] : 0.f;
     }
     __syncthreads();
-
-    // s = q k^T and dp = dout v^T for rows ty*4+i, keys tx+16*j
     float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float a[4], g[4], kc[4], vc[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[(ty * 4 + i) * QS + c];
-        g[i] = gs[(ty * 4 + i) * QS + c];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kc[j] = kt[c * kPad + tx + 16 * j];
-        vc[j] = vt[c * kPad + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], kc[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], vc[j], dp[i][j]);
-        }
-    }
-    // p = exp(s - lse) (0 where masked or the row has no visible key), then
-    // ds = p (dp - delta); p goes to shared memory for dv first
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, row = q0 + r;
-      const float lr = ls[r];
-      const bool live = lr > 0.5f * kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float p = 0.f;
-        if (live && visible(row, col, sq, sk, offset, causal)) {
-          float sc = s[i][j] * scale;
-          if (bias != nullptr) sc += bias[static_cast<long long>(row) * sk + col];
-          p = expf(sc - lr);
-        }
-        ps[r * kPad + tx + 16 * j] = p;
-        s[i][j] = p * (dp[i][j] - ds_[r]);  // ds, kept until p is consumed
-      }
-    }
+    score_tiles<D>(qs, gs, kt, vt, ty, tx, s, dp);
+    // p to shared memory for dv first; ds kept in s until p is consumed
+    probs_ds(lg, q0, k0, ls, dl, s, dp, ps, true, ty, tx);
     __syncthreads();
-    // dv[key] += sum_q p[q][key] dout[q]  (keys ty*4+i, columns tx+16*c)
-#pragma unroll 4
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float g[DJ];
-#pragma unroll
-      for (int c = 0; c < DJ; ++c) g[c] = gs[qq * QS + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ps[qq * kPad + ty * 4 + i];
-#pragma unroll
-        for (int c = 0; c < DJ; ++c) dva[i][c] = fmaf(p, g[c], dva[i][c]);
-      }
-    }
+    acc_keys<D>(ps, gs, ty, tx, dva);  // dv[key] += sum_q p[q][key] dout[q]
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty * 4 + i) * kPad + tx + 16 * j] = s[i][j];
+    store_tile(s, ps, ty, tx);
     __syncthreads();
-    // dk[key] += sum_q ds[q][key] q[q]
-#pragma unroll 4
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float a[DJ];
-#pragma unroll
-      for (int c = 0; c < DJ; ++c) a[c] = qs[qq * QS + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float d = ps[qq * kPad + ty * 4 + i];
-#pragma unroll
-        for (int c = 0; c < DJ; ++c) dka[i][c] = fmaf(d, a[c], dka[i][c]);
-      }
-    }
+    acc_keys<D>(ps, qs, ty, tx, dka);  // dk[key] += sum_q ds[q][key] q[q]
     // dq[q] += sum_key ds[q][key] k[key] * scale, into the fp32 workspace
-    float dqa[4][DJ];
+    float dqa[4][D / 16];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < DJ; ++c) dqa[i][c] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float kc[DJ];
-#pragma unroll
-      for (int c = 0; c < DJ; ++c) kc[c] = kt[(tx + 16 * c) * kPad + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float d = ps[(ty * 4 + i) * kPad + kk];
-#pragma unroll
-        for (int c = 0; c < DJ; ++c) dqa[i][c] = fmaf(d, kc[c], dqa[i][c]);
-      }
-    }
+      for (int c = 0; c < D / 16; ++c) dqa[i][c] = 0.f;
+    acc_rows<D>(ps, kt, ty, tx, dqa);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
       if (row >= sq) continue;
 #pragma unroll
-      for (int c = 0; c < DJ; ++c)
+      for (int c = 0; c < D / 16; ++c)
         atomicAdd(dqb + row * hd + tx + 16 * c, dqa[i][c] * scale);
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= sk) continue;
-    const long long o = (static_cast<long long>(bb) * sk + key) * hd + hh * D;
-#pragma unroll
-    for (int c = 0; c < DJ; ++c) {
-      dk[o + tx + 16 * c] = from_f32<T>(dka[i][c] * scale);
-      dv[o + tx + 16 * c] = from_f32<T>(dva[i][c]);
-    }
-  }
+  store_dkv<T, D>(dka, dva, dk, dv, bb, hh, h, k0, sk, scale, ty, tx);
 }
 
 template <typename T>
@@ -437,12 +210,6 @@ __global__ void cast_kernel(const float* __restrict__ src, T* __restrict__ dst,
                             long long n) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < n) dst[i] = from_f32<T>(src[i]);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 struct Args {
@@ -459,11 +226,8 @@ cudaError_t fwd(const Args& a, void* out, float* lse, cudaStream_t stream) {
   const size_t smem = sizeof(float) * fwd_smem_floats<D>();
   auto kern = packed_fwd_kernel<T, D>;
   static bool configured = false;
-  if (!configured) {
-    cudaError_t e = allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  cudaError_t e = allow_smem(kern, smem, configured);
+  if (e != cudaSuccess) return e;
   dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, a.b);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
@@ -492,10 +256,7 @@ cudaError_t bwd(const Args& a, const void* out, const void* dout,
     const size_t smem = sizeof(float) * bwd_smem_floats<D>();
     auto kern = packed_bwd_kernel<T, D>;
     static bool configured = false;
-    if (!configured) {
-      if ((e = allow_smem(kern, smem)) != cudaSuccess) return e;
-      configured = true;
-    }
+    if ((e = allow_smem(kern, smem, configured)) != cudaSuccess) return e;
     dim3 grid((a.sk + kBK - 1) / kBK, a.h, a.b);
     kern<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),

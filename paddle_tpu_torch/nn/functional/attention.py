@@ -1,11 +1,14 @@
 """Attention functionals — port of ``paddle_tpu/nn/functional/attention.py``.
 
-Four paths, as in the JAX package:
+Five paths, as in the JAX package:
 
 * the cached-attention kernel K4 (``ops/cuda/flash_attention.py``) for
   :class:`LengthMask` calls (forward only);
 * the packed flash kernels K5/K6 (``ops/cuda/flash_attention_packed.py``)
   for uncached attention, differentiable;
+* the layout-swapping flash kernels K1-K3 (``ops/cuda/flash_attention.py``)
+  for the uncached calls the packed kernels do not take, differentiable
+  (a trainable mask too);
 * a blockwise online-softmax loop over KV blocks (``_sdpa_blockwise``) that
   never builds the ``[b, h, q, sk]`` score matrix, with a custom backward
   that recomputes tiles from the saved logsumexp;
@@ -26,17 +29,23 @@ Routing of a LengthMask call:
 
 Routing of an uncached call (``_flash_ok`` / ``_sdpa_flash``):
 
-* **CUDA** — at ``sq * sk >= flash_attention_min_seq_prod`` with no mask or
-  a constant shared 2-D ``(sq, sk)`` mask, K5/K6 for head dims in
-  ``HEAD_DIMS``: every call JAX sends to its packed kernel, without the
-  Mosaic constraints (128-aligned blocks, 128-lane head groups, the dq
-  slab cap). A call JAX sends to its layout-swapping kernel (a 4-D or
-  trainable mask, another head dim) raises ``NotImplementedError`` naming
-  the K1–K3 slice. Attention dropout in training raises too.
+* **CUDA** — at ``sq * sk >= flash_attention_min_seq_prod`` with a mask
+  the kernels stream exactly (none, ``(sq, sk)`` or ``(B|1, H|1, sq, sk)``),
+  any sequence length: K5/K6 when the mask is absent or a constant shared
+  2-D one and the head dim is in K5's ``HEAD_DIMS`` — every call JAX sends
+  to its packed kernel, without the Mosaic constraints (128-aligned blocks,
+  128-lane head groups, the dq slab cap); every other call (a 4-D or
+  trainable mask, another head dim such as GPT-3 Large's 96) K1-K3, as JAX
+  sends it to its layout-swapping kernel, without the 128 alignment.
+  Attention dropout in training raises.
 * **CPU** — JAX's route under interpret mode (which skips the min-seq-prod
   crossover): 128-aligned sequence dims take the packed wrapper when
-  ``flash_attention_packed.supports`` holds (its plain versions on a CPU
-  tensor), and the dense path where JAX would take K1–K3.
+  ``flash_attention_packed.supports`` holds and the K1-K3 wrapper
+  otherwise (their plain versions on a CPU tensor, which zero a row with no
+  visible key as the JAX kernels do).
+* Anything else (a ``(b, 1, 1, s)`` padding bias, a short or unaligned
+  call) runs the blockwise loop (long causal calls without a mask) or the
+  dense path, as in JAX.
 """
 from __future__ import annotations
 
@@ -56,9 +65,6 @@ NEG_INF = -1e30
 
 _DROPOUT = ("attention dropout in training needs an in-kernel counter-based "
             "generator (ROADMAP B note 6); the training slice runs dropout 0")
-_K1_K3 = ("this attention call takes the JAX package's layout-swapping "
-          "flash kernel (K1-K3: a 4-D or trainable mask, or a head dim the "
-          "packed kernel does not take), which the port has not ported yet")
 
 
 class LengthMask:
@@ -272,13 +278,13 @@ def _sdpa_flash(q, k, v, mask=None, causal=False, scale=None,
     """q, k, v: ``(batch, seq, heads, head_dim)``. The packed kernels take
     the ``(b, s, h·d)`` reshape of the qkv projection's views (strides
     ``(s·3hd, 3hd, 1)``: no copy) when the mask is absent or a constant
-    shared 2-D one; see the module docstring for the rest."""
+    shared 2-D one; every other call takes K1-K3, which read the views
+    through their strides. See the module docstring."""
     q, k, v, mask = _amp_cast("flash_sdpa", q, k, v, mask)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    on_cuda = q.device.type == "cuda"
     packed = mask is None or (mask.ndim == 2 and not mask_trainable)
-    if on_cuda:
+    if q.device.type == "cuda":
         packed = packed and d in _fp.HEAD_DIMS
     else:
         packed = packed and _fp.supports(sq, sk, h, h * d)
@@ -288,9 +294,8 @@ def _sdpa_flash(q, k, v, mask=None, causal=False, scale=None,
             v.reshape(b, sk, h * d), h, bias=mask, causal=causal,
             scale=scale)
         return out.reshape(b, sq, h, d)
-    if on_cuda:
-        raise NotImplementedError(_K1_K3)
-    return _sdpa_raw(q, k, v, mask, causal=causal, scale=scale)
+    return _fa.flash_attention(q, k, v, bias=mask, causal=causal,
+                               scale=scale, bias_grad=mask_trainable)
 
 
 def _sdpa_raw(q, k, v, mask=None, causal=False, scale=None):

@@ -6,13 +6,13 @@ for tensors on the CPU; for a CUDA tensor it launches its kernel (built at
 first use, see :mod:`._build`) or raises — there is no fallback.
 
 Each wrapper keeps a launch count as a plain integer attribute
-(``flash_attention_cached.launches``, ``layer_norm.launches``, ...), raised
+(``flash_attention_fwd.launches``, ``layer_norm.launches``, ...), raised
 by one where the kernel is launched and nowhere else, so a run can show that
 its main path went through the kernels. The wrappers that return a kernel's
 output directly raise when autograd is asked to record them; the
-differentiable entry points (``layer_norm``, ``flash_attention_packed``,
-``flash_linear_cross_entropy``) are ``autograd.Function``s over a forward
-and a backward kernel.
+differentiable entry points (``layer_norm``, ``flash_attention``,
+``flash_attention_packed``, ``flash_linear_cross_entropy``) are
+``autograd.Function``s over a forward and a backward kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +26,10 @@ __all__ = ["build_info", "library", "launch_counts", "reset_launch_counts"]
 
 
 def _wrappers():
-    return {"flash_attention_cached": _fa.flash_attention_cached,
+    return {"flash_attention_fwd": _fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": _fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": _fa.flash_attention_bwd_dkv,
+            "flash_attention_cached": _fa.flash_attention_cached,
             "flash_attention_packed_fwd": _fp.flash_attention_packed_fwd,
             "flash_attention_packed_bwd": _fp.flash_attention_packed_bwd,
             "layer_norm": _ln.layer_norm,

@@ -53,6 +53,18 @@ _SIGNATURES = {
     "ptt_flash_attention_cached_fwd": (
         [p, p, p, p, p, p, i32, i32, i32, i32, i32]
         + [i64] * 9 + [f32, i32, i32, p]),
+    # q, k, v, bias, out, lse, b, sq, sk, h, d, q/k/v strides (b, s, h),
+    # bias strides (b, h, row), scale, causal, dtype, stream
+    "ptt_flash_attention_fwd": [p] * 6 + [i32] * 5 + [i64] * 12 + [f32, i32,
+                                                                   i32, p],
+    # q, k, v, bias, out, dout, lse, dq, b, sq, sk, h, d, strides as above,
+    # scale, causal, dtype, stream
+    "ptt_flash_attention_bwd_dq": [p] * 8 + [i32] * 5 + [i64] * 12 + [f32, i32,
+                                                                      i32, p],
+    # q, k, v, bias, out, dout, lse, dk, dv, b, sq, sk, h, d, strides as
+    # above, scale, causal, dtype, stream
+    "ptt_flash_attention_bwd_dkv": [p] * 9 + [i32] * 5 + [i64] * 12 + [
+        f32, i32, i32, p],
     # q, k, v, bias, out, lse, b, sq, sk, h, d,
     # q strides (b, s), k strides, v strides, scale, causal, dtype, stream
     "ptt_flash_attention_packed_fwd": (

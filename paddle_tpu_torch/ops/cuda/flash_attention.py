@@ -1,16 +1,33 @@
-"""Length-masked (cached) attention forward: kernel K4 and its plain version.
+"""Flash attention kernels K1-K4 and their plain versions.
 
-Port of the cached part of ``paddle_tpu/ops/pallas/flash_attention.py``
-(``flash_attention_cached`` / ``_cached_fwd_kernel``). The kernel is
-``csrc/flash_attention_cached.cu``; it reads q, k and v in the paddle layout
-``(batch, seq, heads, head_dim)`` through their strides, so a cache row
-view goes in without a copy.
+Port of ``paddle_tpu/ops/pallas/flash_attention.py``. Both kernels read q, k
+and v in the paddle layout ``(batch, seq, heads, head_dim)`` through their
+strides, so the views of a fused qkv projection or a cache row go in
+without a copy.
 
-Key ``j`` attends to query row ``i`` of batch ``b`` iff ``j <= q_pos[b, i]``
-and, when ``kv_len`` is given, ``j < kv_len[b]``; a row with no valid key
-gives 0. Forward only: serving holds no gradients through the cache, and
-on a CUDA tensor the wrapper raises rather than return an output that
-autograd cannot see.
+* :func:`flash_attention` — the layout-swapping flash attention (K1
+  forward, K2 dq, K3 dk/dv; ``csrc/flash_attention.cu``), differentiable.
+  An optional additive bias ``(sq, sk)`` or ``(B|1, H|1, sq, sk)`` (boolean
+  masks become 0 / -1e30) is read through its strides with stride 0 on a
+  broadcast dim; causal masking is bottom-right aligned (key ``j`` is
+  visible to query ``i`` iff ``j <= i + sk - sq``). A query row with no
+  visible key gives output 0, logsumexp -1e30 and zero gradients. Under
+  autograd it saves q, k, v, the bias, the output and the fp32 logsumexp;
+  the backward recomputes the probabilities from them, dq swept over key
+  tiles (K2) and dk/dv over query tiles (K3): no atomics, the same bits
+  from run to run. A trainable bias gets its gradient from PyTorch
+  operations on the saved residuals, as the JAX package computes it with
+  XLA operations outside its kernels. The raw launchers
+  (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
+  :func:`flash_attention_bwd_dkv`) raise on a CUDA tensor that asks
+  autograd to record them. Block sizes and the interpret switch are TPU
+  matters (accepted, unused); attention dropout raises.
+* :func:`flash_attention_cached` — the length-masked cached forward (K4,
+  ``csrc/flash_attention_cached.cu``). Key ``j`` attends to query row ``i``
+  of batch ``b`` iff ``j <= q_pos[b, i]`` and, when ``kv_len`` is given,
+  ``j < kv_len[b]``; a row with no valid key gives 0. Forward only: serving
+  holds no gradients through the cache, and on a CUDA tensor the wrapper
+  raises rather than return an output that autograd cannot see.
 """
 from __future__ import annotations
 
@@ -20,14 +37,21 @@ import torch
 
 from ._build import check, dtype_code, library, needs_grad, stream_of
 
-__all__ = ["flash_attention_cached", "flash_attention_cached_plain",
-           "supports", "NEG_INF"]
+__all__ = ["flash_attention", "flash_attention_fwd",
+           "flash_attention_fwd_plain", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dkv_plain", "flash_attention_cached",
+           "flash_attention_cached_plain", "supports", "HEAD_DIMS",
+           "FLASH_HEAD_DIMS", "NEG_INF"]
 
 NEG_INF = -1e30
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128)
-#: the JAX kernel's q/k block preference and lane width, for the CPU gate
+#: head dims K4 is instantiated for
+HEAD_DIMS = (32, 64, 96, 128)
+#: head dims K1-K3 are instantiated for (csrc/flash_attention.cu)
+FLASH_HEAD_DIMS = (32, 64, 80, 96, 128)
+#: the JAX kernels' q/k block preference and lane width, for the CPU gate
 _DEFAULT_BLOCK = 1024
+DEFAULT_BLOCK_Q = DEFAULT_BLOCK_K = _DEFAULT_BLOCK
 _LANES = 128
 
 
@@ -75,15 +99,37 @@ def flash_attention_cached_plain(q, k, v, q_pos, kv_len=None, scale=None):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _check_operand(name, t, dtype):
-    if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype}, q is {dtype}")
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name} needs a contiguous head_dim")
-    per16 = 16 // t.element_size()
-    if t.data_ptr() % 16 or any(st % per16 for st in t.stride()[:3]):
-        raise ValueError(f"{name} must be 16-byte aligned in every row "
-                         f"(strides {t.stride()})")
+def _check_qkv(q, k, v, what, head_dims, aligned):
+    """``(b, sq, sk, h, d)`` of q, k and v as a kernel takes them: paddle
+    layout, one dtype and device, a contiguous head_dim, a head dim the
+    kernel is instantiated for and, with ``aligned``, every row 16-byte
+    aligned. Raises on anything else."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q, k, v must be (batch, seq, heads, head_dim); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if k.shape != (b, sk, h, d) or v.shape != k.shape:
+        raise ValueError(f"k/v must be ({b}, seq_k, {h}, {d}); got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if d not in head_dims:
+        raise ValueError(f"{what} kernel takes head_dim in {head_dims}, "
+                         f"got {d}")
+    dtype_code(q.dtype)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous head_dim "
+                             f"(strides {t.stride()})")
+        per16 = 16 // t.element_size()
+        if aligned and (t.data_ptr() % 16
+                        or any(st % per16 for st in t.stride()[:3])):
+            raise ValueError(f"{name} must be 16-byte aligned in every row "
+                             f"(strides {t.stride()})")
+    return b, sq, sk, h, d
 
 
 def flash_attention_cached(q, k, v, q_pos, kv_len=None, *, scale=None):
@@ -105,18 +151,8 @@ def flash_attention_cached(q, k, v, q_pos, kv_len=None, *, scale=None):
     if needs_grad(q, k, v):
         raise RuntimeError("flash_attention_cached is forward-only: its "
                            "kernel's output is not recorded by autograd")
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if k.shape != (b, sk, h, d) or v.shape != k.shape:
-        raise ValueError(f"k/v must be ({b}, seq_k, {h}, {d}); got "
-                         f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"cached attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        _check_operand(name, t, q.dtype)
+    b, sq, sk, h, d = _check_qkv(q, k, v, "cached attention", HEAD_DIMS,
+                                 aligned=True)
     if tuple(q_pos.shape) != (b, sq):
         raise ValueError(f"q_pos must be ({b}, {sq}), got {tuple(q_pos.shape)}")
     qp = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
@@ -139,3 +175,280 @@ def flash_attention_cached(q, k, v, q_pos, kv_len=None, *, scale=None):
 
 
 flash_attention_cached.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1-K3: the layout-swapping flash attention
+# ---------------------------------------------------------------------------
+def _scores(q, k, bias, causal, scale):
+    """fp32 ``[b, h, sq, sk]`` logits ``q.k * scale + bias`` with causal
+    entries at -1e30, and the causal visibility (None without causal)."""
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.matmul(q.float().transpose(1, 2),
+                     k.float().permute(0, 2, 3, 1)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    ok = None
+    if causal:
+        row = torch.arange(sq, device=q.device)[:, None]
+        col = torch.arange(sk, device=q.device)[None, :]
+        ok = col <= row + (sk - sq)
+        s = torch.where(ok, s, NEG_INF)
+    return s, ok
+
+
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
+def flash_attention_fwd_plain(q, k, v, bias=None, causal=False, scale=None):
+    """Plain version of K1: ``(out, lse)`` from dense fp32 scores; out in
+    q's dtype ``(b, sq, h, d)``, lse fp32 ``(b, h, sq)``. ``bias`` is None
+    or ``(B|1, H|1, sq, sk)``."""
+    s, _ = _scores(q, k, bias, causal, _scale(q, scale))
+    m = s.amax(-1, keepdim=True)
+    # rows with no visible key: output 0, lse -1e30 (_zero_masked_rows)
+    p = torch.where(m > NEG_INF * 0.5, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    out = torch.matmul(p, v.float().transpose(1, 2)) / l_safe
+    lse = (m + torch.log(l_safe)).squeeze(-1)
+    return out.transpose(1, 2).to(q.dtype), lse
+
+
+def _probs_ds(q, k, v, out, lse, dout, bias, causal, scale):
+    """fp32 ``(p, ds)`` ``[b, h, sq, sk]`` recomputed from the saved lse:
+    ``p = exp(s - lse)`` (0 where masked and on rows with no visible key),
+    ``ds = p * (dout.v - rowsum(dout * out))``."""
+    s, ok = _scores(q, k, bias, causal, scale)
+    lse_ = lse.float()[..., None]
+    live = lse_ > NEG_INF * 0.5
+    if ok is not None:
+        live = live & ok
+    p = torch.where(live, torch.exp(s - lse_), 0.0)
+    gf = dout.float().transpose(1, 2)
+    delta = (gf * out.float().transpose(1, 2)).sum(-1, keepdim=True)
+    dp = torch.matmul(gf, v.float().permute(0, 2, 3, 1))
+    return p, p * (dp - delta)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, bias=None,
+                                 causal=False, scale=None):
+    """Plain version of K2: dq ``(b, sq, h, d)`` in q's dtype, fp32 math."""
+    scale = _scale(q, scale)
+    _, ds = _probs_ds(q, k, v, out, lse, dout, bias, causal, scale)
+    dq = torch.matmul(ds, k.float().transpose(1, 2)) * scale
+    return dq.transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, bias=None,
+                                  causal=False, scale=None):
+    """Plain version of K3: ``(dk, dv)`` ``(b, sk, h, d)`` in k's and v's
+    dtypes, fp32 math."""
+    scale = _scale(q, scale)
+    p, ds = _probs_ds(q, k, v, out, lse, dout, bias, causal, scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float().transpose(1, 2)) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dout.float().transpose(1, 2))
+    return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+def _dbias(q, k, v, out, lse, dout, bias, causal, scale):
+    """The trainable bias's gradient, ``ds`` reduced onto the bias's
+    broadcast shape (``paddle_tpu/ops/pallas/flash_attention.py:492-514``):
+    PyTorch operations on the saved residuals on either device, exactly 0
+    on rows with no visible key."""
+    _, ds = _probs_ds(q, k, v, out, lse, dout, bias, causal, scale)
+    red = tuple(i for i in (0, 1) if bias.shape[i] == 1)
+    if red:
+        ds = ds.sum(red, keepdim=True)
+    return ds.to(bias.dtype)
+
+
+def _flash_check(q, k, v, bias, what, *others):
+    """``(b, sq, sk, h, d)`` of CUDA operands the kernels take; raises on
+    anything else."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} kernel needs CUDA, got {q.device}")
+    if needs_grad(q, k, v, bias, *others):
+        raise RuntimeError(
+            f"{what}: the kernel's output is not recorded by autograd; call "
+            "flash_attention, which differentiates through K1, K2 and K3")
+    b, sq, sk, h, d = _check_qkv(q, k, v, what, FLASH_HEAD_DIMS,
+                                 aligned=False)
+    if bias is not None:
+        if (bias.dim() != 4 or bias.shape[2:] != (sq, sk)
+                or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, h)
+                or bias.dtype != torch.float32 or bias.device != q.device
+                or (sk > 1 and bias.stride(3) != 1)):
+            raise ValueError(
+                f"bias must be fp32 (B|1, H|1, {sq}, {sk}) on {q.device} with "
+                f"contiguous columns; got {tuple(bias.shape)} {bias.dtype}")
+    return b, sq, sk, h, d
+
+
+def _flash_strides(q, k, v, bias):
+    """The kernels' strides: q, k, v (batch, seq, head), then the bias
+    (batch, head, row), 0 on a broadcast dim or without a bias."""
+    st = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
+    if bias is None:
+        return st + [0, 0, 0]
+    return st + [0 if bias.shape[0] == 1 else bias.stride(0),
+                 0 if bias.shape[1] == 1 else bias.stride(1), bias.stride(2)]
+
+
+def _check_saved(q, out, lse, dout):
+    b, sq, h, _ = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q {tuple(q.shape)} "
+                             f"{q.dtype}, got {tuple(t.shape)} {t.dtype}")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be fp32 ({b}, {h}, {sq}) on {q.device}")
+    return out.contiguous(), lse.contiguous(), dout.contiguous()
+
+
+def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None):
+    """``(out, lse)``: CPU tensors take the plain version; CUDA tensors
+    launch kernel K1. ``bias`` is None or fp32 ``(B|1, H|1, sq, sk)``."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, bias, causal, scale)
+    b, sq, sk, h, d = _flash_check(q, k, v, bias, "flash_attention_fwd")
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    check(library().ptt_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, sq, sk, h, d, *_flash_strides(q, k, v, bias),
+        _scale(q, scale), int(bool(causal)), dtype_code(q.dtype),
+        stream_of(q)), "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, bias=None, causal=False,
+                           scale=None):
+    """dq from the forward's ``out`` and ``lse``: CPU tensors take the plain
+    version; CUDA tensors launch kernel K2."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, bias,
+                                            causal, scale)
+    b, sq, sk, h, d = _flash_check(q, k, v, bias, "flash_attention_bwd_dq",
+                                   out, dout)
+    out, lse, dout = _check_saved(q, out, lse, dout)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    check(library().ptt_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), b, sq, sk, h, d,
+        *_flash_strides(q, k, v, bias), _scale(q, scale), int(bool(causal)),
+        dtype_code(q.dtype), stream_of(q)), "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, dout, bias=None, causal=False,
+                            scale=None):
+    """``(dk, dv)`` from the forward's ``out`` and ``lse``: CPU tensors take
+    the plain version; CUDA tensors launch kernel K3."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, bias,
+                                             causal, scale)
+    b, sq, sk, h, d = _flash_check(q, k, v, bias, "flash_attention_bwd_dkv",
+                                   out, dout)
+    out, lse, dout = _check_saved(q, out, lse, dout)
+    dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+    check(library().ptt_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
+        sk, h, d, *_flash_strides(q, k, v, bias), _scale(q, scale),
+        int(bool(causal)), dtype_code(q.dtype), stream_of(q)),
+        "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """K1 forward; K2 and K3 backward; the bias's gradient, when it is
+    trainable, from PyTorch operations. The launchers are looked up by
+    their module names at call time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, bias, causal, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.args = (causal, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        causal, scale = ctx.args
+        dout = dout.contiguous()
+        args = (q, k, v, out, lse, dout, bias, causal, scale)
+        need = ctx.needs_input_grad
+        dq = dk = dv = dbias = None
+        if need[0]:
+            dq = flash_attention_bwd_dq(*args)
+        if need[1] or need[2]:
+            dk, dv = flash_attention_bwd_dkv(*args)
+        if need[3]:
+            dbias = _dbias(*args)
+        return dq, dk, dv, dbias, None, None
+
+
+def _bias_4d(bias):
+    """The bias as the kernels take it: fp32 ``(B|1, H|1, sq, sk)``,
+    boolean masks as 0 / -1e30 (as ``flash_attention`` converts them)."""
+    if bias is None:
+        return None
+    if bias.dim() not in (2, 4):
+        raise ValueError(f"flash_attention mask must be (sq, sk) or "
+                         f"(B|1, H|1, sq, sk); got shape {tuple(bias.shape)} "
+                         "— a 3-D mask is ambiguous")
+    if bias.dtype == torch.bool:
+        bias = torch.where(bias, 0.0, NEG_INF)
+    bias = bias.to(torch.float32)
+    if bias.shape[-1] > 1 and bias.stride(-1) != 1:
+        bias = bias.contiguous()
+    return bias.reshape((1,) * (4 - bias.dim()) + tuple(bias.shape))
+
+
+def flash_attention(q, k, v, bias=None, *, causal=False, scale=None,
+                    block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K,
+                    interpret=None, bias_grad=True, dropout_p=0.0,
+                    dropout_seed=None):
+    """Blockwise flash attention (the JAX package's signature).
+
+    Args:
+      q, k, v: ``(batch, seq, heads, head_dim)`` (paddle layout).
+      bias: optional additive mask (bool masks are converted), shape
+        ``(sq, sk)`` or ``(B|1, H|1, sq, sk)``.
+      causal: bottom-right-aligned causal mask.
+      scale: softmax scale; default ``1/sqrt(head_dim)``.
+      bias_grad: whether the backward computes the bias's gradient (False:
+        the bias is a constant).
+      block_q, block_k, interpret, dropout_seed: TPU matters, unused.
+      dropout_p: must be 0 (attention dropout raises).
+
+    CPU tensors take the plain versions; CUDA tensors launch K1, and K2 and
+    K3 in the backward. Returns ``(batch, seq_q, heads, head_dim)``.
+    """
+    if float(dropout_p) > 0.0:
+        raise NotImplementedError(
+            "attention dropout needs an in-kernel counter-based generator "
+            "(ROADMAP B note 6)")
+    bias = _bias_4d(bias)
+    if bias is not None and not bias_grad:
+        bias = bias.detach()
+    scale = _scale(q, scale)
+    if needs_grad(q, k, v, bias):
+        return _Flash.apply(q, k, v, bias, bool(causal), scale)
+    return flash_attention_fwd(q, k, v, bias, bool(causal), scale)[0]
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

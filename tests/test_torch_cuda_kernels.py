@@ -10,13 +10,15 @@ outputs agree to 5e-5 absolute (other summation order, ``__expf``; K6's dq
 is summed with atomics in an order that varies from run to run); bf16 and
 fp16 outputs round the same fp32 value once, so they agree to one step of
 the type: |Δ| <= 2^-7 · max(1, |ref|) for bf16, 2^-10 · max(1, |ref|) for
-fp16. The one exception is K8's fp32 dgamma and dbeta: sums of one term a
-row, taken in another order than the plain version's, where each addition
-rounds by up to 2^-24 of the running sum, so they are held to
-1e-4 · max(1, |ref|) + 1e-7 · rows (about 3e-4 apart at 24576 rows on an
-H100). K9-K11 at bf16 hold their fp32 loss and logsumexp to
-one bf16 step of the largest value (the tile products are exact products
-summed in fp32 in another order) and their bf16 gradients to one bf16 step.
+fp16. K1-K3 (the layout-swapping flash attention) are held to the same
+limits, and their gradients, summed without atomics, must be the same bits
+from launch to launch. The one exception is K8's fp32 dgamma and dbeta:
+sums of one term a row, taken in another order than the plain version's,
+where each addition rounds by up to 2^-24 of the running sum, so they are
+held to 1e-4 · max(1, |ref|) + 1e-7 · rows (about 3e-4 apart at 24576 rows
+on an H100). K9-K11 at bf16 hold their fp32 loss and logsumexp to one bf16
+step of the largest value (the tile products are exact products summed in
+fp32 in another order) and their bf16 gradients to one bf16 step.
 """
 import math
 
@@ -25,6 +27,7 @@ import torch
 
 from paddle_tpu_torch.nn import LayerNorm
 from paddle_tpu_torch.nn import functional as PF
+from paddle_tpu_torch.ops.cuda import flash_attention as k1
 from paddle_tpu_torch.ops.cuda import flash_attention as k4
 from paddle_tpu_torch.ops.cuda import flash_attention_packed as k5
 from paddle_tpu_torch.ops.cuda import fused_ce as k9
@@ -95,6 +98,9 @@ _CASES = [
     (2, 8, 33, 3, 128, torch.float16),
     (2, 9, 65, 3, 128, torch.float32),
     (1, 70, 129, 1, 64, torch.bfloat16),
+    (1, 300, 2048, 16, 96, torch.bfloat16),    # GPT-3 Large prefill
+    (8, 1, 2048, 16, 96, torch.bfloat16),      # GPT-3 Large decode
+    (2, 9, 65, 3, 96, torch.float32),
 ]
 
 
@@ -292,9 +298,16 @@ def test_forward_only_wrappers_raise_under_grad(dev):
         k5.flash_attention_packed_fwd(p, p, p, 2)
 
 
+def _k1_counts():
+    return (k1.flash_attention_fwd.launches,
+            k1.flash_attention_bwd_dq.launches,
+            k1.flash_attention_bwd_dkv.launches)
+
+
 def test_router_sends_training_attention_to_k5_k6_on_the_card(dev):
     """At sq·sk >= 1024² a causal call takes K5 and K6; a 4-D mask or a head
-    dim the packed kernels do not take raises, naming the K1-K3 slice."""
+    dim the packed kernels do not take (GPT-3 Large's 96) takes K1, and K2
+    and K3 in the backward; dropout raises."""
     qkv = torch.randn(1, 1024, 3, 2, 64, device=dev, requires_grad=True)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     counts = (k5.flash_attention_packed_fwd.launches,
@@ -305,14 +318,131 @@ def test_router_sends_training_attention_to_k5_k6_on_the_card(dev):
             k5.flash_attention_packed_bwd.launches) == (counts[0] + 1,
                                                         counts[1] + 1)
     mask = torch.zeros(1, 2, 1024, 1024, device=dev)
-    with pytest.raises(NotImplementedError, match="K1-K3"):
-        PF.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-    odd = torch.randn(1, 1024, 2, 96, device=dev)
-    with pytest.raises(NotImplementedError, match="K1-K3"):
-        PF.scaled_dot_product_attention(odd, odd, odd, is_causal=True)
+    before = _k1_counts()
+    out = PF.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    out.sum().backward()
+    assert _k1_counts() == tuple(c + 1 for c in before)
+    odd = torch.randn(1, 1024, 3, 2, 96, device=dev, requires_grad=True)
+    before = _k1_counts()
+    out = PF.scaled_dot_product_attention(odd[:, :, 0], odd[:, :, 1],
+                                          odd[:, :, 2], is_causal=True)
+    out.sum().backward()
+    assert _k1_counts() == tuple(c + 1 for c in before)
+    assert (k5.flash_attention_packed_fwd.launches,
+            k5.flash_attention_packed_bwd.launches) == (counts[0] + 1,
+                                                        counts[1] + 1)
     with pytest.raises(NotImplementedError, match="dropout"):
         PF.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
                                         is_causal=True, training=True)
+
+
+# (b, sq, sk, h, d, dtype, causal, bias (B, H) or None): GPT-3 Large's head
+# dim; sq > sk (rows 0..99 see no key, the boundary inside a 64-row tile)
+# with a per-batch bias; ragged lengths; per-head and shared 4-D biases;
+# every other head dim and type. A bias masks row 3 and key 5 everywhere.
+_FLASH = [
+    (2, 256, 256, 4, 96, torch.bfloat16, True, None),
+    (2, 300, 200, 2, 96, torch.bfloat16, True, (2, 1)),
+    (1, 130, 70, 3, 96, torch.float32, True, (1, 3)),
+    (2, 65, 129, 2, 80, torch.float16, False, (2, 2)),
+    (1, 100, 100, 2, 32, torch.float32, True, None),
+    (2, 64, 192, 2, 64, torch.bfloat16, True, (1, 1)),
+    (1, 77, 77, 2, 128, torch.float32, False, (1, 2)),
+]
+
+
+def _flash_inputs(dev, dtype, b, sq, sk, h, d, bias_bh, seed):
+    """q, k, v as strided views of fused qkv buffers (b, s, 3, h, d), as the
+    GPT layer hands them over, and an fp32 (B|1, H|1, sq, sk) bias."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qkv_q = torch.randn(b, sq, 3, h, d, generator=g).to(dev, dtype)
+    qkv_k = torch.randn(b, sk, 3, h, d, generator=g).to(dev, dtype)
+    bias = None
+    if bias_bh is not None:
+        bias = 0.5 * torch.randn(*bias_bh, sq, sk, generator=g)
+        bias[:, :, 3] = k1.NEG_INF
+        bias[:, :, :, 5] = k1.NEG_INF
+        bias = bias.to(dev)
+    return qkv_q[:, :, 0], qkv_k[:, :, 1], qkv_k[:, :, 2], bias
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,dtype,causal,bias_bh", _FLASH)
+def test_flash_attention_kernels_match_plain(dev, b, sq, sk, h, d, dtype,
+                                             causal, bias_bh):
+    q, k, v, bias = _flash_inputs(dev, dtype, b, sq, sk, h, d, bias_bh,
+                                  seed=sq + sk + d)
+    before = _k1_counts()
+    out, lse = k1.flash_attention_fwd(q, k, v, bias, causal)
+    torch.cuda.synchronize()
+    want_out, want_lse = k1.flash_attention_fwd_plain(q, k, v, bias, causal)
+    _assert_close(out, want_out)
+    _assert_close(lse, want_lse)
+    rows = torch.zeros(sq, dtype=torch.bool)
+    if causal and sq > sk:
+        rows[:sq - sk] = True
+    if bias is not None:
+        rows[3] = True
+    rows = rows.to(dev)
+    assert bool((out[:, rows] == 0).all())
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    dout = torch.randn(b, sq, h, d, generator=g).to(dev, dtype)
+    dq = k1.flash_attention_bwd_dq(q, k, v, out, lse, dout, bias, causal)
+    dk, dv = k1.flash_attention_bwd_dkv(q, k, v, out, lse, dout, bias, causal)
+    torch.cuda.synchronize()
+    assert _k1_counts() == tuple(c + 1 for c in before)
+    args = (q, k, v, out, lse, dout, bias, causal)
+    _assert_close(dq, k1.flash_attention_bwd_dq_plain(*args))
+    for got, ref in zip((dk, dv), k1.flash_attention_bwd_dkv_plain(*args)):
+        _assert_close(got, ref)
+    assert bool((dq[:, rows] == 0).all())
+    if bias is not None:           # key 5 is seen by no row
+        assert bool((dk[:, 5] == 0).all()) and bool((dv[:, 5] == 0).all())
+    # no atomics: the same bits from run to run
+    assert torch.equal(dq, k1.flash_attention_bwd_dq(*args))
+    again = k1.flash_attention_bwd_dkv(*args)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+def test_flash_attention_autograd_matches_plain(dev, monkeypatch):
+    """The differentiable wrapper on the card (K1-K3, and PyTorch operations
+    for a trainable per-head bias's gradient) against the same wrapper over
+    the plain versions of the three launchers."""
+    b, s, h, d = 2, 160, 2, 96
+    q, k, v, bias = _flash_inputs(dev, torch.float32, b, s, s, h, d, (1, h),
+                                  seed=9)
+    q, k, v, bias = (t.detach().requires_grad_() for t in (q, k, v, bias))
+    g = torch.Generator(device="cpu").manual_seed(4)
+    dout = torch.randn(b, s, h, d, generator=g).to(dev)
+    before = _k1_counts()
+    out = k1.flash_attention(q, k, v, bias=bias, causal=True)
+    got = torch.autograd.grad(out, (q, k, v, bias), dout)
+    assert _k1_counts() == tuple(c + 1 for c in before)
+    after = _k1_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        monkeypatch.setattr(k1, name, getattr(k1, name + "_plain"))
+    ref = k1.flash_attention(q, k, v, bias=bias, causal=True)
+    want = torch.autograd.grad(ref, (q, k, v, bias), dout)
+    monkeypatch.undo()
+    assert _k1_counts() == after
+    _assert_close(out.detach(), ref.detach())
+    for a, w in zip(got, want):
+        _assert_close(a, w)
+    assert bool((got[3][:, :, 3] == 0).all())
+
+
+def test_flash_attention_refuses_what_it_does_not_take(dev):
+    x = torch.randn(1, 64, 2, 48, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        k1.flash_attention_fwd(x, x, x)
+    y = torch.randn(1, 64, 2, 96, device=dev)
+    with pytest.raises(ValueError, match="bias"):
+        k1.flash_attention_fwd(y, y, y, torch.zeros(1, 1, 64, 64, device=dev,
+                                                    dtype=torch.bfloat16))
+    y.requires_grad_()
+    with pytest.raises(RuntimeError, match="autograd"):
+        k1.flash_attention_fwd(y, y, y)
 
 
 # (tokens, vocab, hidden, x dtype, w dtype, bias): the odd shape of the CPU

@@ -10,7 +10,11 @@
   layer and 3 steps (interpreted Pallas costs seconds a step): JAX runs its
   packed flash and LayerNorm Pallas kernels, and the port routes through
   the packed-attention and LayerNorm kernel wrappers (their plain versions
-  on the CPU), which a spy asserts.
+  on the CPU), which a spy asserts;
+* hidden 192 with 2 heads of 96 (GPT-3 Large's head dim), 2 layers, seq
+  256, 5 steps under JAX ``interpret_mode()``: head dim 96 does not pack
+  into 128 lanes, so JAX runs its layout-swapping flash kernels (K1-K3)
+  and the port routes through the K1-K3 wrapper, which a spy asserts.
 
 * the GPT-3 Small recipe (Brown et al. 2020, Table 2.1 and Appendix B) on
   the smoke config, fp32, 5 steps: AdamW(beta2 0.95, epsilon 1e-8, weight
@@ -37,6 +41,7 @@ from paddle_tpu.utils import unique_name
 
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.models as pm
+from paddle_tpu_torch.ops.cuda import flash_attention as k1
 from paddle_tpu_torch.ops.cuda import fused_ce as k9
 from paddle_tpu_torch.ops.cuda import flash_attention_packed as k5
 from paddle_tpu_torch.ops.cuda import layer_norm as k7
@@ -135,6 +140,24 @@ def test_packed_attention_and_layer_norm_route_matches_jax(monkeypatch):
     tm, got = _port_run(cfg, state, batches)
     # one attention call a step; 2 LayerNorms a layer plus ln_f
     assert calls == {"packed": 3, "ln_bwd": 3 * 3}
+    _check(tm, got, want, final)
+
+
+def test_head_dim_96_loss_curve_matches_jax(monkeypatch):
+    cfg = _cfg(hidden_size=192, num_heads=2, max_position_embeddings=256)
+    batches = _batches(cfg, 1, 256, 5, seed=3)
+    with interpret_mode():
+        state, want, final = _jax_run(cfg, batches)
+    calls = []
+    real = k1.flash_attention
+
+    def flash(q, *a, **kw):
+        calls.append(q.shape[-1])
+        return real(q, *a, **kw)
+
+    monkeypatch.setattr(k1, "flash_attention", flash)
+    tm, got = _port_run(cfg, state, batches)
+    assert calls == [96] * (5 * 2)   # every layer of every step
     _check(tm, got, want, final)
 
 
