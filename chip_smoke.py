@@ -71,12 +71,17 @@
    (losses within 1e-4).
 8. K1-K3 (in the kernel phase): the layout-swapping flash forward, dq and
    dk/dv against their plain versions at GPT-3 Large's train shape (b 8,
-   s 2048, 16 heads of 96, bf16, causal, q/k/v views of one fused qkv
-   buffer), at b 2, sq 300 > sk 200 causal with a (2, 1, sq, sk) bias, at
-   a (1, 16, sq, sk) bias, and in fp32: within one bf16 step per element
-   and a quarter of one in relative L2 norm, 5e-5 in fp32; rows with no
-   visible key exactly 0 in out and dq, a key no row sees exactly 0 in dk
-   and dv. Beside them SDPA's forward and backward at the train shape.
+   s 2048, 16 heads of 96, bf16 and fp16, causal, q/k/v views of one fused
+   qkv buffer), at b 2, sq 300 > sk 200 causal with a (2, 1, sq, sk) bias,
+   at a (1, 16, sq, sk) bias, and in fp32: within one step of the type per
+   element (bf16 2^-7, fp16 2^-10) and a quarter of one in relative L2
+   norm, 5e-5 in fp32; rows with no visible key exactly 0 in out and dq, a
+   key no row sees exactly 0 in dk and dv. Each case gives its route (K1
+   and K3: ``mma.sync`` tensor cores at bf16/fp16, ``fma`` at fp32; K2
+   ``fma``), achieved TFLOP/s and share of its bound. Beside them SDPA's
+   forward and backward at the train shape. Right after the build,
+   ``cuobjdump -sass`` of the library must show tensor-core instructions
+   (HMMA, or HGMMA) in every bf16 K1 and K3 function.
    K7 and K8 at GPT-3 Large's LayerNorm shape (16384 rows of 1536, bf16 x,
    fp32 gamma and beta) within one bf16 step, beside ``F.layer_norm`` and
    ``native_layer_norm_backward``.
@@ -94,7 +99,9 @@
    2 x 2048 against the plain versions (losses within 2e-3); a small fp32
    model with 2 heads of 96 (2 layers, seq 1024) trained 3 recipe steps
    on the card against the CPU port (losses within 1e-4).
-10. Prints the ``kernels`` JSON line (K1-K11), then the result line last.
+10. Prints the ``kernels`` JSON line (K1-K11; K1-K3 with their route by
+    dtype, K1 and K3 with their bf16 HMMA counts), then the result line
+    last.
 
 Any failure raises and exits non-zero; nothing is printed as a result then.
 """
@@ -110,6 +117,7 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # dense tensor-core bf16
 H100_FP32_FLOPS = 67e12        # fp32 outside the tensor cores
 BF16_STEP = 2.0 ** -7
+FP16_STEP = 2.0 ** -10
 LOGIT_TOL = 0.125
 SMALL_LOGIT_TOL = 1e-3
 TRAIN_LOSS_TOL = 2e-3
@@ -156,24 +164,27 @@ class _Timer:
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def _bf16_err(got, want):
+def _bf16_err(got, want, step=BF16_STEP):
+    """Max |got - want|, held to one step of the type (bf16 by default):
+    |Δ| <= step · max(1, |want|)."""
     g, w = got.float(), want.float()
     _require(bool(g.isfinite().all()), "kernel output is finite")
     err = (g - w).abs()
-    _require(bool((err <= BF16_STEP * w.abs().clamp_min(1.0)).all()),
-             f"kernel within one bf16 step of its plain version "
+    _require(bool((err <= step * w.abs().clamp_min(1.0)).all()),
+             f"kernel within one step ({step:.3g}) of its plain version "
              f"(max err {err.max().item():.3g})")
     return float(err.max())
 
 
-def _rel_l2_err(got, want):
-    """||got - want|| / ||want||, held to a quarter of a bf16 step: one
-    bf16 rounding of each output gives far less, while a dropped tile or a
-    wrong scale gives percents even where every value is below 1 (there
-    ``_bf16_err``'s per-element limit is an absolute 2^-7)."""
+def _rel_l2_err(got, want, step=BF16_STEP):
+    """||got - want|| / ||want||, held to a quarter of a step of the type
+    (bf16 by default): one rounding of each output gives far less, while a
+    dropped tile or a wrong scale gives percents even where every value is
+    below 1 (there ``_bf16_err``'s per-element limit is an absolute
+    step)."""
     g, w = got.float(), want.float()
     err = float((g - w).norm() / w.norm().clamp_min(1e-30))
-    _require(err <= BF16_STEP / 4, f"kernel within {BF16_STEP / 4:.3g} of "
+    _require(err <= step / 4, f"kernel within {step / 4:.3g} of "
              f"its plain version in relative L2 norm ({err:.3g})")
     return err
 
@@ -440,10 +451,15 @@ def flash_kernel_phase(torch, timer):
     shape (b 8, s 2048, 16 heads of 96, bf16, causal; q, k, v as views of
     one fused qkv buffer), an odd causal shape with sq > sk (rows 0..99 see
     no key) and a (2, 1, sq, sk) bias that also masks row 3 and key 5, a
-    (1, 16, sq, sk) bias, and fp32 cases (the odd one, and the small d = 96
-    model's shape). Tolerance: one bf16 step per element and a quarter of
-    one in relative L2 norm, 5e-5 in fp32; the rows that see no key are
-    exactly 0 in out and dq, the key no row sees exactly 0 in dk and dv."""
+    (1, 16, sq, sk) bias, the train shape in fp16, and fp32 cases (the odd
+    one, and the small d = 96 model's shape). Tolerance: one step of the
+    type per element (bf16 2^-7, fp16 2^-10) and a quarter of one in
+    relative L2 norm, 5e-5 in fp32; the rows that see no key are exactly 0
+    in out and dq, the key no row sees exactly 0 in dk and dv. Each case
+    reports the route it ran (K1 and K3: ``mma.sync`` tensor cores at
+    bf16/fp16, ``fma`` at fp32; K2 ``fma``), its achieved TFLOP/s (the
+    causal work this data needs over the kernel's time) and its share of
+    its bound (bound ms over ms)."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.cuda import flash_attention as k1
@@ -452,14 +468,18 @@ def flash_kernel_phase(torch, timer):
     k1_cases, k2_cases, k3_cases = [], [], []
     # name: (b, sq, sk, h, d, dtype, causal, bias (B, H) or None)
     shapes = [("train", 8, 2048, 2048, 16, 96, "bf16", True, None),
+              ("train_fp16", 8, 2048, 2048, 16, 96, "fp16", True, None),
               ("odd", 2, 300, 200, 16, 96, "bf16", True, (2, 1)),
               ("head_bias", 2, 384, 384, 16, 96, "bf16", False, (1, 16)),
               ("odd_fp32", 2, 300, 200, 16, 96, "fp32", True, (2, 1)),
               ("small_fp32", 2, 1024, 1024, 2, 96, "fp32", True, None)]
+    types = {"bf16": (torch.bfloat16, BF16_STEP),
+             "fp16": (torch.float16, FP16_STEP), "fp32": (torch.float32, None)}
     for name, b, sq, sk, h, d, dt, causal, bias_bh in shapes:
-        tdt = torch.bfloat16 if dt == "bf16" else torch.float32
-        esz = 2 if dt == "bf16" else 4
-        peak = H100_BF16_FLOPS if dt == "bf16" else H100_FP32_FLOPS
+        tdt, step = types[dt]
+        esz = 4 if dt == "fp32" else 2
+        # fp16 has the bf16 tensor-core peak (H100 data sheet)
+        peak = H100_FP32_FLOPS if dt == "fp32" else H100_BF16_FLOPS
         qkv = torch.randn(b, sq, 3, h, d, generator=gen).to("cuda", tdt)
         kv = qkv if sq == sk else torch.randn(
             b, sk, 3, h, d, generator=gen).to("cuda", tdt)
@@ -476,8 +496,8 @@ def flash_kernel_phase(torch, timer):
         def check(i, got, want):
             if dt == "fp32":
                 return _max_rel_err(got, want, "fp32")
-            rel[i] = max(rel[i], _rel_l2_err(got, want))
-            return _bf16_err(got, want)
+            rel[i] = max(rel[i], _rel_l2_err(got, want, step))
+            return _bf16_err(got, want, step)
 
         out, lse = k1.flash_attention_fwd(q, k, v, bias, causal)
         want_out, want_lse = k1.flash_attention_fwd_plain(q, k, v, bias,
@@ -513,10 +533,10 @@ def flash_kernel_phase(torch, timer):
         # K1 reads q, k, v (and the bias), writes out and lse: 2 products;
         # K2 reads q, k, v, out, dout, lse, writes dq: 3 products; K3 reads
         # the same, writes dk and dv: 4 products
-        b1 = _bound(qb + 2 * kb + bias_b + qb + lse_b, 4 * d * pairs, peak)
-        b2 = _bound(3 * qb + 2 * kb + lse_b + bias_b + qb, 6 * d * pairs, peak)
-        b3 = _bound(3 * qb + 2 * kb + lse_b + bias_b + 2 * kb, 8 * d * pairs,
-                    peak)
+        flops = (4 * d * pairs, 6 * d * pairs, 8 * d * pairs)
+        b1 = _bound(qb + 2 * kb + bias_b + qb + lse_b, flops[0], peak)
+        b2 = _bound(3 * qb + 2 * kb + lse_b + bias_b + qb, flops[1], peak)
+        b3 = _bound(3 * qb + 2 * kb + lse_b + bias_b + 2 * kb, flops[2], peak)
         lib_f = lib_b = None
         if name == "train":
             # SDPA computes the same function here (sq = sk, causal, no
@@ -535,23 +555,29 @@ def flash_kernel_phase(torch, timer):
                  "dtype": dt, "causal": causal,
                  "bias": None if bias_bh is None else [*bias_bh, sq, sk]}
         plain_iters = 5
-        for cases, err, r, fn, plain, bound, lib in (
+        # K1 and K3 take the tensor cores at bf16/fp16, K2 FMA in every type
+        route = k1.kernel_route(tdt)
+        for cases, err, r, fn, plain, bound, lib, fl, rt in (
                 (k1_cases, err1, rel[0],
                  lambda: k1.flash_attention_fwd(q, k, v, bias, causal),
                  lambda: k1.flash_attention_fwd_plain(q, k, v, bias, causal),
-                 b1, lib_f),
+                 b1, lib_f, flops[0], route),
                 (k2_cases, err2, rel[1],
                  lambda: k1.flash_attention_bwd_dq(*args),
-                 lambda: k1.flash_attention_bwd_dq_plain(*args), b2, lib_b),
+                 lambda: k1.flash_attention_bwd_dq_plain(*args), b2, lib_b,
+                 flops[1], "fma"),
                 (k3_cases, err3, rel[2],
                  lambda: k1.flash_attention_bwd_dkv(*args),
-                 lambda: k1.flash_attention_bwd_dkv_plain(*args), b3, lib_b)):
+                 lambda: k1.flash_attention_bwd_dkv_plain(*args), b3, lib_b,
+                 flops[2], route)):
+            ms = timer(fn)
             cases.append({
-                "case": name, "shape": shape, "max_abs_err": err,
-                "rel_l2_err": r,
-                "ms": timer(fn), "plain_ms": timer(plain, plain_iters),
+                "case": name, "shape": shape, "route": rt,
+                "max_abs_err": err, "rel_l2_err": r,
+                "ms": ms, "plain_ms": timer(plain, plain_iters),
                 "library_ms": lib, "bound_ms": bound[0],
-                "bound_by": bound[1]})
+                "bound_by": bound[1], "tflops": fl / ms / 1e9,
+                "share_of_bound": bound[0] / ms})
         if lib_b is not None:
             k2_cases[-1]["library_computes"] = "dq, dk and dv in one call"
             k3_cases[-1]["library_computes"] = "dq, dk and dv in one call"
@@ -1397,6 +1423,38 @@ def small_d96_reference(torch, np):
             "max_abs_diff": err}
 
 
+#: the tensor-core instantiations whose SASS must hold HMMA instructions
+_TC_KERNELS = ("fwd_tc_kernel", "dkv_tc_kernel")
+
+
+def tensor_core_sass(path):
+    """HMMA (mma.sync) or HGMMA (wgmma) instructions in each bf16 K1 and K3
+    function of the built library, from ``cuobjdump -sass``; fails if an
+    instantiation (one a head dim) has none."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            cur = (name if any(k in name for k in _TC_KERNELS)
+                   and "bfloat16" in name else None)
+            if cur is not None:
+                counts[cur] = 0
+        elif cur is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[cur] += 1
+    for kern in _TC_KERNELS:
+        found = {n: c for n, c in counts.items() if kern in n}
+        _require(len(found) == 5, f"five bf16 {kern} instantiations in the "
+                 f"SASS ({len(found)})")
+        _require(all(c > 0 for c in found.values()),
+                 f"tensor-core instructions in every bf16 {kern}: {found}")
+    return counts
+
+
 def main():
     import numpy as np
     import torch
@@ -1415,6 +1473,9 @@ def main():
     library()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {build_info()['seconds']:.1f} s)")
+    hmma = tensor_core_sass(build_info()["path"])
+    print(f"tensor-core SASS (HMMA/HGMMA a bf16 K1/K3 function): "
+          f"{json.dumps(hmma)}")
     timer = _Timer(torch)
     # bring the clocks up before the first timing: half a second of work
     t0 = time.perf_counter()
@@ -1435,10 +1496,13 @@ def main():
                else f"{c['library_ms']:.4f}")
         rel = (f", relative L2 {c['rel_l2_err']:.3g}" if "rel_l2_err" in c
                else "")
+        route = (f" [{c['route']}, {c['tflops']:.1f} TFLOP/s, "
+                 f"{100 * c['share_of_bound']:.1f} % of bound]"
+                 if "route" in c else "")
         print(f"kernel {c['case']}: {c['ms']:.4f} ms (plain "
               f"{c['plain_ms']:.4f}, library {lib}, bound "
               f"{c['bound_ms']:.4f} by {c['bound_by']}) err "
-              f"{c['max_abs_err']:.3g}{rel}")
+              f"{c['max_abs_err']:.3g}{rel}{route}")
     print(f"chunked loss loop at the train shape: {json.dumps(chunked)}")
     serve = serving_phase(torch, np)
     print(f"serving: {json.dumps(serve)}")
@@ -1567,6 +1631,18 @@ def main():
         entry("fused_ce_dw", ce_src, "paddle_tpu/ops/pallas/fused_ce.py:128",
               k11_cases, "train", only("fused_ce_dw", "recipe")),
     ]
+    # K1 and K3's routes by input type (K2: FMA in every type), and their
+    # bf16 SASS's tensor-core instructions (one function a head dim)
+    from paddle_tpu_torch.ops.cuda import flash_attention as k1
+
+    routes = {n: k1.kernel_route(t) for n, t in (
+        ("bf16", torch.bfloat16), ("fp16", torch.float16),
+        ("fp32", torch.float32))}
+    for k, kern in ((kernels[0], "fwd_tc_kernel"),
+                    (kernels[2], "dkv_tc_kernel")):
+        k["kernel_route"] = routes
+        k["hmma_bf16"] = {n: c for n, c in hmma.items() if kern in n}
+    kernels[1]["kernel_route"] = {n: "fma" for n in routes}
     # the loop the flag replaces (cuBLAS products), at the train shape
     kernels[-3]["chunked_loop_ms"] = chunked["forward_ms"]
     kernels[-2]["chunked_loop_ms"] = chunked["backward_ms"]

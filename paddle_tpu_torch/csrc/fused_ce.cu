@@ -23,7 +23,8 @@
 // 32 rows x H in shared memory and streams blocks T of 32 rows x H through
 // one or two shared buffers (cp.async; two when they fit). Each step forms
 // the 32 x 32 tile S = R . T^T with warp-level tensor-core products
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate). The warps split the
+// (mma.sync m16n8k16, bf16 in, fp32 accumulate; the cp.async, ldmatrix and
+// mma primitives are shared with K1/K3 in csrc/mma.cuh). The warps split the
 // hidden width: each forms the whole 32 x 32 tile over H / 8 of it (eight
 // independent mma chains a warp, every R and T element read from shared
 // memory once) and writes its fp32 partial tile; the consumers of S sum the
@@ -49,6 +50,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace ptt {
 namespace {
@@ -91,58 +93,13 @@ int pick_nbuf(int h, bool with_dl) {
   return 0;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Copy rows [row0, row0 + kRows) of src (rows of h elements) into dst (row
-// stride `stride`) with 16-byte cp.async; rows >= nrows are zero-filled.
-// Warp w copies rows w, w + 8, ..., its lanes neighbouring 16-byte pieces.
+// stride `stride`) with 16-byte cp.async (csrc/mma.cuh); rows >= nrows are
+// zero-filled.
 template <typename T>
 __device__ void load_rows(T* dst, const T* src, int row0, int nrows, int h,
                           int stride) {
-  const int per_row = h * static_cast<int>(sizeof(T)) / 16;
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < kRows; r += kThreads / 32) {
-    const bool ok = row0 + r < nrows;
-    const char* g = reinterpret_cast<const char*>(
-        src + static_cast<size_t>(ok ? row0 + r : 0) * h);
-    const uint32_t s = smem_addr(dst + r * stride);
-    const int n = ok ? 16 : 0;
-    for (int c = lane; c < per_row; c += 32)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s + c * 16),
-                   "l"(g + c * 16), "r"(n)
-                   : "memory");
-  }
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-// c (16x8 fp32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  copy_rows(dst, stride, src, h, row0, kRows, nrows, h, kThreads);
 }
 
 // Accumulator layout of an m16n8 tile (mma.sync): thread (g = lane / 4,

@@ -15,10 +15,13 @@ without a copy.
   autograd it saves q, k, v, the bias, the output and the fp32 logsumexp;
   the backward recomputes the probabilities from them, dq swept over key
   tiles (K2) and dk/dv over query tiles (K3): no atomics, the same bits
-  from run to run. A trainable bias gets its gradient from PyTorch
-  operations on the saved residuals, as the JAX package computes it with
-  XLA operations outside its kernels. The raw launchers
-  (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
+  from run to run. bf16 and fp16 inputs run K1 and K3 on the tensor cores
+  (``mma.sync``), rounding p (and K3's ``ds * scale``) to the input type
+  before their products as the TPU kernels do; fp32 inputs, and K2 in every
+  type, run fp32 FMA kernels (:func:`kernel_route`). A trainable bias
+  gets its gradient from PyTorch operations on the saved residuals, as the
+  JAX package computes it with XLA operations outside its kernels. The raw
+  launchers (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
   :func:`flash_attention_bwd_dkv`) raise on a CUDA tensor that asks
   autograd to record them. Block sizes and the interpret switch are TPU
   matters (accepted, unused); attention dropout raises.
@@ -41,8 +44,8 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_plain", "flash_attention_cached",
-           "flash_attention_cached_plain", "supports", "HEAD_DIMS",
-           "FLASH_HEAD_DIMS", "NEG_INF"]
+           "flash_attention_cached_plain", "supports", "kernel_route",
+           "HEAD_DIMS", "FLASH_HEAD_DIMS", "NEG_INF"]
 
 NEG_INF = -1e30
 #: head dims K4 is instantiated for
@@ -53,6 +56,8 @@ FLASH_HEAD_DIMS = (32, 64, 80, 96, 128)
 _DEFAULT_BLOCK = 1024
 DEFAULT_BLOCK_Q = DEFAULT_BLOCK_K = _DEFAULT_BLOCK
 _LANES = 128
+#: keys a tile of K1's online softmax (csrc/flash_tile.cuh kBK)
+_KEY_TILE = 64
 
 
 def _pick_block(seq, pref):
@@ -202,24 +207,39 @@ def _scale(q, scale):
 
 
 def flash_attention_fwd_plain(q, k, v, bias=None, causal=False, scale=None):
-    """Plain version of K1: ``(out, lse)`` from dense fp32 scores; out in
-    q's dtype ``(b, sq, h, d)``, lse fp32 ``(b, h, sq)``. ``bias`` is None
-    or ``(B|1, H|1, sq, sk)``."""
+    """Plain version of K1: ``(out, lse)``; out in q's dtype ``(b, sq, h,
+    d)``, lse fp32 ``(b, h, sq)``. ``bias`` is None or ``(B|1, H|1, sq,
+    sk)``. The online softmax over 64-key tiles, as K1 runs it: each tile's
+    ``p = exp(s - m)`` against the row's running max ``m`` is rounded to v's
+    dtype before ``p v`` (as the TPU kernel rounds it,
+    flash_attention.py:156), while ``l`` sums the unrounded p; in fp32 the
+    rounding changes nothing."""
     s, _ = _scores(q, k, bias, causal, _scale(q, scale))
-    m = s.amax(-1, keepdim=True)
-    # rows with no visible key: output 0, lse -1e30 (_zero_masked_rows)
-    p = torch.where(m > NEG_INF * 0.5, torch.exp(s - m), 0.0)
-    l = p.sum(-1, keepdim=True)
+    vf = v.float().transpose(1, 2)
+    m = torch.full(s.shape[:-1] + (1,), NEG_INF, device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (vf.shape[-1],), device=s.device)
+    for k0 in range(0, s.shape[-1], _KEY_TILE):
+        st = s[..., k0:k0 + _KEY_TILE]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        # rows with no visible key so far: p 0 (_zero_masked_rows)
+        p = torch.where(m_new > NEG_INF * 0.5, torch.exp(st - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(),
+                                         vf[..., k0:k0 + _KEY_TILE, :])
+        m = m_new
+    # rows with no visible key: output 0, lse -1e30
     l_safe = torch.where(l == 0.0, 1.0, l)
-    out = torch.matmul(p, v.float().transpose(1, 2)) / l_safe
     lse = (m + torch.log(l_safe)).squeeze(-1)
-    return out.transpose(1, 2).to(q.dtype), lse
+    return (acc / l_safe).transpose(1, 2).to(q.dtype), lse
 
 
 def _probs_ds(q, k, v, out, lse, dout, bias, causal, scale):
     """fp32 ``(p, ds)`` ``[b, h, sq, sk]`` recomputed from the saved lse:
     ``p = exp(s - lse)`` (0 where masked and on rows with no visible key),
-    ``ds = p * (dout.v - rowsum(dout * out))``."""
+    ``ds = p * (dout.v - rowsum(dout * out))``. K2's plain version and the
+    bias gradient use them unrounded; K3's rounds them."""
     s, ok = _scores(q, k, bias, causal, scale)
     lse_ = lse.float()[..., None]
     live = lse_ > NEG_INF * 0.5
@@ -244,10 +264,14 @@ def flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, bias=None,
 def flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, bias=None,
                                   causal=False, scale=None):
     """Plain version of K3: ``(dk, dv)`` ``(b, sk, h, d)`` in k's and v's
-    dtypes, fp32 math."""
+    dtypes, fp32 math; p and ``ds * scale`` are rounded to dout's and q's
+    types before their products, as K3 and the TPU kernel
+    (flash_attention.py:254, :257-259) do."""
     scale = _scale(q, scale)
     p, ds = _probs_ds(q, k, v, out, lse, dout, bias, causal, scale)
-    dk = torch.matmul(ds.transpose(-1, -2), q.float().transpose(1, 2)) * scale
+    p = p.to(dout.dtype).float()
+    ds = (ds * scale).to(q.dtype).float()
+    dk = torch.matmul(ds.transpose(-1, -2), q.float().transpose(1, 2))
     dv = torch.matmul(p.transpose(-1, -2), dout.float().transpose(1, 2))
     return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 
@@ -262,6 +286,15 @@ def _dbias(q, k, v, out, lse, dout, bias, causal, scale):
     if red:
         ds = ds.sum(red, keepdim=True)
     return ds.to(bias.dtype)
+
+
+def kernel_route(dtype):
+    """The route K1 and K3 take on the card for inputs of ``dtype``
+    (csrc/flash_attention.cu's dispatch): ``"mma.sync"`` tensor-core tiles
+    for bf16 and fp16, ``"fma"`` fp32 FMA for fp32. K2 is ``"fma"`` in
+    every type."""
+    dtype_code(dtype)
+    return "fma" if dtype == torch.float32 else "mma.sync"
 
 
 def _flash_check(q, k, v, bias, what, *others):

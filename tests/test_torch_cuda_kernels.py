@@ -11,8 +11,10 @@ is summed with atomics in an order that varies from run to run); bf16 and
 fp16 outputs round the same fp32 value once, so they agree to one step of
 the type: |Δ| <= 2^-7 · max(1, |ref|) for bf16, 2^-10 · max(1, |ref|) for
 fp16. K1-K3 (the layout-swapping flash attention) are held to the same
-limits, and their gradients, summed without atomics, must be the same bits
-from launch to launch. The one exception is K8's fp32 dgamma and dbeta:
+limits (at bf16 and fp16 K1 and K3 round p, and K3 ds * scale, to the input
+type before their products, as do their plain versions), and their
+gradients, summed without atomics, must be the same bits from launch to
+launch. The one exception is K8's fp32 dgamma and dbeta:
 sums of one term a row, taken in another order than the plain version's,
 where each addition rounds by up to 2^-24 of the running sum, so they are
 held to 1e-4 · max(1, |ref|) + 1e-7 · rows (about 3e-4 apart at 24576 rows
@@ -340,6 +342,9 @@ def test_router_sends_training_attention_to_k5_k6_on_the_card(dev):
 # dim; sq > sk (rows 0..99 see no key, the boundary inside a 64-row tile)
 # with a per-batch bias; ragged lengths; per-head and shared 4-D biases;
 # every other head dim and type. A bias masks row 3 and key 5 everywhere.
+# bf16 and fp16 run K1 and K3 on the tensor cores, fp32 on FMA; then the
+# tensor-core route at every head dim in both types: ragged sq = sk = 77,
+# causal sq 300 > sk 200, (2, 1) and (1, H) biases, 5 and 3 query tiles
 _FLASH = [
     (2, 256, 256, 4, 96, torch.bfloat16, True, None),
     (2, 300, 200, 2, 96, torch.bfloat16, True, (2, 1)),
@@ -348,6 +353,13 @@ _FLASH = [
     (1, 100, 100, 2, 32, torch.float32, True, None),
     (2, 64, 192, 2, 64, torch.bfloat16, True, (1, 1)),
     (1, 77, 77, 2, 128, torch.float32, False, (1, 2)),
+    (2, 77, 77, 2, 32, torch.bfloat16, True, None),
+    (1, 77, 77, 3, 32, torch.float16, False, (1, 3)),
+    (2, 320, 320, 2, 64, torch.float16, True, None),
+    (2, 300, 200, 2, 80, torch.bfloat16, True, (2, 1)),
+    (1, 300, 200, 4, 96, torch.float16, True, (1, 4)),
+    (2, 77, 77, 2, 128, torch.bfloat16, True, (2, 1)),
+    (1, 192, 130, 2, 128, torch.float16, False, (1, 2)),
 ]
 
 
@@ -402,6 +414,37 @@ def test_flash_attention_kernels_match_plain(dev, b, sq, sk, h, d, dtype,
     assert torch.equal(dq, k1.flash_attention_bwd_dq(*args))
     again = k1.flash_attention_bwd_dkv(*args)
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_reads_misaligned_views(dev, dtype):
+    """q, k and v whose base and rows are not 16-byte aligned (views one
+    element into a wider buffer) load their tiles with plain loads in the
+    same tensor-core kernels: the bits of the same inputs made contiguous."""
+    b, s, h, d = 2, 150, 2, 96
+    g = torch.Generator(device="cpu").manual_seed(12)
+    wide = torch.randn(3, b, s, h, d + 1, generator=g).to(dev, dtype)
+    q, k, v = (wide[i, ..., 1:] for i in range(3))
+    assert q.data_ptr() % 16 and q.stride(1) % 8
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    out, lse = k1.flash_attention_fwd(q, k, v, None, True)
+    want_out, want_lse = k1.flash_attention_fwd(qc, kc, vc, None, True)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    _assert_close(out, k1.flash_attention_fwd_plain(q, k, v, None, True)[0])
+    dout = torch.randn(b, s, h, d, generator=g).to(dev, dtype)
+    got = k1.flash_attention_bwd_dkv(q, k, v, out, lse, dout, None, True)
+    want = k1.flash_attention_bwd_dkv(qc, kc, vc, out, lse, dout, None, True)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    ref = k1.flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, None,
+                                           True)
+    for a, w in zip(got, ref):
+        _assert_close(a, w)
+
+
+def test_flash_attention_routes_by_dtype():
+    assert k1.kernel_route(torch.bfloat16) == "mma.sync"
+    assert k1.kernel_route(torch.float16) == "mma.sync"
+    assert k1.kernel_route(torch.float32) == "fma"
 
 
 def test_flash_attention_autograd_matches_plain(dev, monkeypatch):

@@ -182,6 +182,54 @@ def test_plain_backward_matches_autograd_of_the_plain_forward():
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
+BF16_STEP = 2.0 ** -7
+
+
+def _bf16_close(got, want, name):
+    """The card's rule for bf16 kernels: one bf16 step per element,
+    ``|d| <= 2^-7 max(1, |ref|)``, and a quarter step in relative L2 norm."""
+    g = got.detach().float().numpy()
+    w = np.asarray(want, np.float32)
+    assert g.shape == w.shape, name
+    err = np.abs(g - w)
+    assert np.all(err <= BF16_STEP * np.maximum(1.0, np.abs(w))), (
+        name, err.max())
+    rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+    assert rel <= BF16_STEP / 4, (name, rel)
+
+
+def test_bf16_plain_k1_k3_round_as_the_pallas_kernels(
+        no_persistent_compile_cache):
+    """bf16 at d = 96, causal, with a (1, H) bias: K1's plain version (p
+    rounded to bf16 before p v) and K3's (p and ds * scale rounded before
+    their products) against the Pallas kernels in interpret mode, which
+    round at the same places, on the same bf16 inputs."""
+    b, s, h, d = 2, 256, 2, 96
+    q, k, v, co, rng = _qkv(b, s, s, h, d, seed=31)
+    bias = (rng.randn(1, h, s, s) * 0.5).astype(np.float32)
+    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, co)]
+    jq, jk, jv, jco = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                       for t in ts)
+    jb = jnp.asarray(bias)
+
+    def f(q_, k_, v_):
+        out = jax_fa(q_, k_, v_, bias=jb, causal=True, block_q=128,
+                     block_k=128, interpret=True, bias_grad=False)
+        return jnp.vdot(out.astype(jnp.float32),
+                        jco.astype(jnp.float32)), out
+
+    (_, want), (_, want_dk, want_dv) = jax.value_and_grad(
+        f, (0, 1, 2), has_aux=True)(jq, jk, jv)
+    qt, kt, vt = (t.requires_grad_() for t in ts[:3])
+    out = k1.flash_attention(qt, kt, vt, bias=torch.from_numpy(bias),
+                             causal=True, bias_grad=False)
+    dk, dv = torch.autograd.grad(out, (kt, vt), ts[3])
+    assert out.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    for name, got, ref in (("out", out, want), ("dk", dk, want_dk),
+                           ("dv", dv, want_dv)):
+        _bf16_close(got, ref, name)
+
+
 def test_wrapper_refuses_dropout_and_3d_masks():
     x = torch.zeros(1, 128, 2, 96)
     with pytest.raises(NotImplementedError, match="dropout"):
