@@ -99,9 +99,31 @@
    2 x 2048 against the plain versions (losses within 2e-3); a small fp32
    model with 2 heads of 96 (2 layers, seq 1024) trained 3 recipe steps
    on the card against the CPU port (losses within 1e-4).
-10. Prints the ``kernels`` JSON line (K1-K11; K1-K3 with their route by
-    dtype, K1 and K3 with their bf16 HMMA counts), then the result line
-    last.
+10. Attention dropout and the widened shapes (in the kernel phase): K5/K6
+    at GPT-2 124M's train shape and K1-K3 at GPT-3 Large's, bf16, causal,
+    p = 0.1, against their plain versions on the same seed (the plain
+    versions draw the kernels' Philox bits: the dropout-0 limits hold),
+    each timed beside its dropout-0 time on the same inputs; the device
+    Philox (a test-only launch) against ``ops/philox.py`` bit for bit on
+    the train shape's whole mask, its keep rate within 4 sigma of 0.9.
+    K1-K3 at head dims 16, 48, 112 and 256 (b 2, s 1024, 8 heads, bf16,
+    causal), K4 at GPT-3 2.7B's head dim 80 (32 heads; prefill and
+    decode), and K9-K11 at GPT-3 Large's loss shape (16384 tokens, hidden
+    1536, vocab 50304, bf16: the hidden width streamed) and in fp16 (one
+    fp16 step of the largest value), each against its plain version.
+11. gpt2_dropout phase (the main path of the dropout slice): GPT-2 124M at
+    ``GPTConfig``'s defaults (hidden and attention dropout 0.1), the recipe
+    of 7 with ``FLAGS_enable_flash_ce``, batch 24 x 1024 through
+    ``DeviceLoader``, 2 warm-up and 5 timed steps: K5 and K6 12 times a
+    step, every launch with in-kernel dropout, K9-K11 once a step, the
+    loss falling and no skipped step; tokens/s beside the dropout-0
+    recipe's of 7. Then 3 steps at batch 8 against the plain versions from
+    one seed (both runs drop the same elements; losses within 2e-3), and a
+    second kernel run whose first forward loss must equal the first run's
+    bit for bit.
+12. Prints the ``kernels`` JSON line (K1-K11; K1-K3 with their route by
+    dtype, K1 and K3 with their bf16 HMMA counts, K1-K3 and K5/K6 with a
+    ``dropout`` entry), then the result line last.
 
 Any failure raises and exits non-zero; nothing is printed as a result then.
 """
@@ -261,6 +283,21 @@ def kernel_phase(torch, timer):
                             torch.arange(512, dtype=torch.int32)[None],
                             torch.tensor([300], dtype=torch.int32))
     cases["decode_d96"] = (rand96(8, 1), rand96(8, 2048), rand96(8, 2048),
+                           torch.tensor([[0], [299], [511], [900], [1200],
+                                         [1700], [2047], [64]],
+                                        dtype=torch.int32), None)
+    # GPT-3 2.7B's head dim (Brown et al. 2020, Table 2.1: 32 heads of 80),
+    # which K4 runs in its 96-wide instantiation: the same prefill and
+    # decode shapes
+
+    def rand80(*shape):
+        return torch.randn(*shape, 32, 80, generator=gen).to(
+            dev, torch.bfloat16)
+
+    cases["prefill_d80"] = (rand80(1, 512), rand80(1, 512), rand80(1, 512),
+                            torch.arange(512, dtype=torch.int32)[None],
+                            torch.tensor([300], dtype=torch.int32))
+    cases["decode_d80"] = (rand80(8, 1), rand80(8, 2048), rand80(8, 2048),
                            torch.tensor([[0], [299], [511], [900], [1200],
                                          [1700], [2047], [64]],
                                         dtype=torch.int32), None)
@@ -472,7 +509,13 @@ def flash_kernel_phase(torch, timer):
               ("odd", 2, 300, 200, 16, 96, "bf16", True, (2, 1)),
               ("head_bias", 2, 384, 384, 16, 96, "bf16", False, (1, 16)),
               ("odd_fp32", 2, 300, 200, 16, 96, "fp32", True, (2, 1)),
-              ("small_fp32", 2, 1024, 1024, 2, 96, "fp32", True, None)]
+              ("small_fp32", 2, 1024, 1024, 2, 96, "fp32", True, None),
+              # head dims run in the next instantiated width (16, 64, 128;
+              # 256 on FMA with 32 x 32 tiles)
+              ("d16", 2, 1024, 1024, 8, 16, "bf16", True, None),
+              ("d48", 2, 1024, 1024, 8, 48, "bf16", True, None),
+              ("d112", 2, 1024, 1024, 8, 112, "bf16", True, None),
+              ("d256", 2, 1024, 1024, 8, 256, "bf16", True, None)]
     types = {"bf16": (torch.bfloat16, BF16_STEP),
              "fp16": (torch.float16, FP16_STEP), "fp32": (torch.float32, None)}
     for name, b, sq, sk, h, d, dt, causal, bias_bh in shapes:
@@ -493,11 +536,22 @@ def flash_kernel_phase(torch, timer):
         dout = torch.randn(b, sq, h, d, generator=gen).to("cuda", tdt)
         rel = [0.0, 0.0, 0.0]
 
+        # the head-dim cases sum up to 1024 terms an output element whose p
+        # and ds * scale round to bf16 in the kernel and in the plain
+        # version from fp32 values a few last bits apart (ex2.approx against
+        # exp), so an element can end a little over one step apart (1.125
+        # steps measured on the H100 at d = 48): two steps a element, and
+        # the quarter step in relative L2 norm of every case
+        elem = 2 * step if name.startswith("d") and step else step
+
         def check(i, got, want):
-            if dt == "fp32":
-                return _max_rel_err(got, want, "fp32")
-            rel[i] = max(rel[i], _rel_l2_err(got, want, step))
-            return _bf16_err(got, want, step)
+            try:
+                if dt == "fp32":
+                    return _max_rel_err(got, want, "fp32")
+                rel[i] = max(rel[i], _rel_l2_err(got, want, step))
+                return _bf16_err(got, want, elem)
+            except RuntimeError as e:
+                raise RuntimeError(f"{('K1', 'K2', 'K3')[i]} {name}: {e}")
 
         out, lse = k1.flash_attention_fwd(q, k, v, bias, causal)
         want_out, want_lse = k1.flash_attention_fwd_plain(q, k, v, bias,
@@ -556,7 +610,7 @@ def flash_kernel_phase(torch, timer):
                  "bias": None if bias_bh is None else [*bias_bh, sq, sk]}
         plain_iters = 5
         # K1 and K3 take the tensor cores at bf16/fp16, K2 FMA in every type
-        route = k1.kernel_route(tdt)
+        route = k1.kernel_route(tdt, d)
         for cases, err, r, fn, plain, bound, lib, fl, rt in (
                 (k1_cases, err1, rel[0],
                  lambda: k1.flash_attention_fwd(q, k, v, bias, causal),
@@ -586,15 +640,138 @@ def flash_kernel_phase(torch, timer):
     return k1_cases, k2_cases, k3_cases
 
 
+DROPOUT_P = 0.1
+DROPOUT_SEED = (0x9E3779B9, 0x243F6A88)
+
+
+def dropout_kernel_phase(torch, timer):
+    """The attention kernels with in-kernel dropout against their plain
+    versions on the same seed (the plain versions draw the same Philox
+    bits): K5/K6 at GPT-2 124M's train shape (b 24, s 1024, 12 heads of 64)
+    and K1-K3 at GPT-3 Large's (b 8, s 2048, 16 heads of 96), bf16, causal,
+    p = 0.1, under the dropout-0 limits (one bf16 step a element; K1-K3 a
+    quarter of one in relative L2 norm), each timed with and without
+    dropout on the same inputs. The device Philox (``csrc/philox.cu``'s
+    test-only launch) against ``ops/philox.py`` bit for bit on the train
+    shape's mask, and the mask's keep rate within 4 sigma of 1 - p. The
+    bound is the dropout-0 bound: the mask's integer work is not counted."""
+    from paddle_tpu_torch.ops import philox
+    from paddle_tpu_torch.ops.cuda import flash_attention as k1
+    from paddle_tpu_torch.ops.cuda import flash_attention_packed as k5
+
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    p, seed = DROPOUT_P, DROPOUT_SEED
+    b, s, h, d = 24, 1024, 12, 64
+    dev_mask = philox.keep_mask_kernel(seed, b, h, s, s, p)
+    same = bool(torch.equal(dev_mask, philox.keep_mask(seed, b, h, s, s, p,
+                                                       "cuda")))
+    _require(same, "the device Philox draws the plain version's mask bit "
+             "for bit")
+    n = dev_mask.numel()
+    rate = float(dev_mask.float().mean())
+    sigma = (p * (1 - p) / n) ** 0.5
+    _require(abs(rate - (1 - p)) <= 4 * sigma,
+             f"keep rate {rate:.6f} within 4 sigma ({sigma:.2e}) of {1 - p}")
+    philox_check = {"shape": [b, h, s, s], "bit_identical": same,
+                    "keep_rate": rate, "sigma": sigma}
+    del dev_mask
+    torch.cuda.empty_cache()
+
+    out = {}
+    # K5 / K6
+    q, k, v = _packed_inputs(torch, gen, b, s, s, h, d)
+    dout = torch.randn(b, s, h * d, generator=gen).to("cuda", torch.bfloat16)
+    o, lse = k5.flash_attention_packed_fwd(q, k, v, h, None, True, None, p,
+                                           seed)
+    wo, wl = k5.flash_attention_packed_fwd_plain(q, k, v, h, None, True,
+                                                 None, p, seed)
+    err5 = max(_bf16_err(o, wo), _bf16_err(lse, wl))
+    del wo, wl
+    grads = k5.flash_attention_packed_bwd(q, k, v, o, lse, dout, h, None,
+                                          True, None, p, seed)
+    want = k5.flash_attention_packed_bwd_plain(q, k, v, o, lse, dout, h,
+                                               None, True, None, p, seed)
+    err6 = max(_bf16_err(a, w) for a, w in zip(grads, want))
+    del grads, want
+    o0, lse0 = k5.flash_attention_packed_fwd(q, k, v, h, None, True)
+    shape = {"q": [b, s, h * d], "kv": [b, s, h * d], "heads": h, "p": p}
+    out["flash_attention_packed_fwd"] = {
+        "case": "train_dropout", "shape": shape, "max_abs_err": err5,
+        "ms": timer(lambda: k5.flash_attention_packed_fwd(
+            q, k, v, h, None, True, None, p, seed)),
+        "ms_dropout_0": timer(lambda: k5.flash_attention_packed_fwd(
+            q, k, v, h, None, True)),
+        "plain_ms": timer(lambda: k5.flash_attention_packed_fwd_plain(
+            q, k, v, h, None, True, None, p, seed), 5)}
+    out["flash_attention_packed_bwd"] = {
+        "case": "train_dropout", "shape": shape, "max_abs_err": err6,
+        "ms": timer(lambda: k5.flash_attention_packed_bwd(
+            q, k, v, o, lse, dout, h, None, True, None, p, seed)),
+        "ms_dropout_0": timer(lambda: k5.flash_attention_packed_bwd(
+            q, k, v, o0, lse0, dout, h, None, True)),
+        "plain_ms": timer(lambda: k5.flash_attention_packed_bwd_plain(
+            q, k, v, o, lse, dout, h, None, True, None, p, seed), 5)}
+    del q, k, v, dout, o, lse, o0, lse0
+    torch.cuda.empty_cache()
+
+    # K1-K3
+    b, s, h, d = 8, 2048, 16, 96
+    qkv = torch.randn(b, s, 3, h, d, generator=gen).to("cuda", torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.randn(b, s, h, d, generator=gen).to("cuda", torch.bfloat16)
+    drop = (p, seed)
+    o, lse = k1.flash_attention_fwd(q, k, v, None, True, None, *drop)
+    wo, wl = k1.flash_attention_fwd_plain(q, k, v, None, True, None, *drop)
+    err1 = max(_bf16_err(o, wo), _bf16_err(lse, wl))
+    rel1 = _rel_l2_err(o, wo)
+    del wo, wl
+    args = (q, k, v, o, lse, dout, None, True, None)
+    dq = k1.flash_attention_bwd_dq(*args, *drop)
+    want = k1.flash_attention_bwd_dq_plain(*args, *drop)
+    err2, rel2 = _bf16_err(dq, want), _rel_l2_err(dq, want)
+    del dq, want
+    dk, dv = k1.flash_attention_bwd_dkv(*args, *drop)
+    wk, wv = k1.flash_attention_bwd_dkv_plain(*args, *drop)
+    err3 = max(_bf16_err(dk, wk), _bf16_err(dv, wv))
+    rel3 = max(_rel_l2_err(dk, wk), _rel_l2_err(dv, wv))
+    del dk, dv, wk, wv
+    torch.cuda.empty_cache()
+    o0, lse0 = k1.flash_attention_fwd(q, k, v, None, True)
+    args0 = (q, k, v, o0, lse0, dout, None, True, None)
+    shape = {"b": b, "sq": s, "sk": s, "heads": h, "head_dim": d,
+             "dtype": "bf16", "causal": True, "p": p}
+    for name, err, rel, fn, fn0, plain in (
+            ("flash_attention_fwd", err1, rel1,
+             lambda: k1.flash_attention_fwd(q, k, v, None, True, None, *drop),
+             lambda: k1.flash_attention_fwd(q, k, v, None, True),
+             lambda: k1.flash_attention_fwd_plain(q, k, v, None, True, None,
+                                                  *drop)),
+            ("flash_attention_bwd_dq", err2, rel2,
+             lambda: k1.flash_attention_bwd_dq(*args, *drop),
+             lambda: k1.flash_attention_bwd_dq(*args0),
+             lambda: k1.flash_attention_bwd_dq_plain(*args, *drop)),
+            ("flash_attention_bwd_dkv", err3, rel3,
+             lambda: k1.flash_attention_bwd_dkv(*args, *drop),
+             lambda: k1.flash_attention_bwd_dkv(*args0),
+             lambda: k1.flash_attention_bwd_dkv_plain(*args, *drop))):
+        out[name] = {"case": "train_dropout", "shape": shape,
+                     "max_abs_err": err, "rel_l2_err": rel, "ms": timer(fn),
+                     "ms_dropout_0": timer(fn0), "plain_ms": timer(plain, 3)}
+    del qkv, q, k, v, dout, o, lse, o0, lse0, args, args0
+    torch.cuda.empty_cache()
+    return out, philox_check
+
+
 def _max_rel_err(got, want, dtype):
-    """K9-K11 against their plain versions: one bf16 step of the largest
-    reference value for bf16 operands (their tile products are exact
-    products summed in fp32 in another order, and bf16 outputs round once),
-    5e-5 absolute for fp32 ones."""
+    """K9-K11 against their plain versions: one step of the type (bf16
+    2^-7, fp16 2^-10) of the largest reference value for 2-byte operands
+    (their tile products are exact products summed in fp32 in another
+    order, and 2-byte outputs round once), 5e-5 absolute for fp32 ones."""
     g, w = got.float(), want.float()
     _require(bool(g.isfinite().all()), "kernel output is finite")
     err = float((g - w).abs().max())
-    tol = BF16_STEP * float(w.abs().max()) if dtype == "bf16" else 5e-5
+    step = {"bf16": BF16_STEP, "fp16": FP16_STEP}.get(dtype)
+    tol = 5e-5 if step is None else step * float(w.abs().max())
     _require(err <= tol, f"kernel within {tol:.3g} of its plain version "
              f"(max err {err:.3g})")
     return err
@@ -613,11 +790,16 @@ def fused_ce_kernel_phase(torch, timer):
     gen = torch.Generator(device="cpu").manual_seed(2)
     fwd, dx_cases, dw_cases = [], [], []
     chunked = None
+    # GPT-3 Large's loss shape (batch 8 x 2048 tokens, hidden 1536): the
+    # hidden width streamed through shared memory; and fp16 operands
     for name, n, h, v, dt, use_bias in (
             ("train", 24576, 768, 50304, "bf16", False),
+            ("large", 16384, 1536, 50304, "bf16", False),
             ("odd", 300, 128, 1000, "bf16", True),
+            ("odd_fp16", 300, 128, 1000, "fp16", True),
             ("odd_fp32", 300, 128, 1000, "fp32", True)):
-        tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+        tdt = {"bf16": torch.bfloat16, "fp16": torch.float16,
+               "fp32": torch.float32}[dt]
         x = torch.randn(n, h, generator=gen).to("cuda", tdt)
         w = (0.02 * torch.randn(v, h, generator=gen)).to("cuda", tdt)
         b = ((0.1 * torch.randn(v, generator=gen)).cuda() if use_bias
@@ -626,8 +808,9 @@ def fused_ce_kernel_phase(torch, timer):
         g = torch.full((n,), 1.0 / n, device="cuda")
         if use_bias:
             g[[5, 17]] = 0.0              # ignored labels carry g = 0
-        esz = 2 if dt == "bf16" else 4
-        peak = H100_BF16_FLOPS if dt == "bf16" else H100_FP32_FLOPS
+        esz = 4 if dt == "fp32" else 2
+        # fp16 has the bf16 tensor-core peak (H100 data sheet)
+        peak = H100_FP32_FLOPS if dt == "fp32" else H100_BF16_FLOPS
         io_b = (n + v) * h * esz + n * 4 + (v * 4 if use_bias else 0)
         loss, lse = k9.ce_forward(x, w, b, y)
         want = k9.ce_forward_plain(x, w, b, y)
@@ -1245,6 +1428,114 @@ def small_recipe_reference(torch, np):
             "max_abs_diff": err}
 
 
+def _gpt124m_default(torch, seed):
+    """GPT-2 124M on the card in fp32 from ``torch.manual_seed(seed)`` at
+    ``GPTConfig``'s defaults: hidden and attention dropout 0.1."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                    num_heads=12, max_position_embeddings=1024)
+    _require(cfg.hidden_dropout == cfg.attention_dropout == 0.1,
+             "GPTConfig's defaults drop 0.1")
+    torch.manual_seed(seed)
+    return GPTForCausalLM(cfg, device="cuda")
+
+
+def gpt2_dropout_phase(torch, np):
+    """The pretraining recipe at GPT-2 124M's default config (hidden and
+    attention dropout 0.1), batch 24 x 1024 through ``DeviceLoader``, 2
+    warm-up and 5 timed steps, ``FLAGS_enable_flash_ce``; launch counts
+    zeroed just before and read just after: K5 and K6 12 times a step, each
+    with in-kernel dropout, K9-K11 once a step, no chunked-loop call, the
+    loss falling and no skipped step."""
+    from paddle_tpu_torch.framework import random as rnd
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    batch, seq, warm, timed = 24, 1024, 2, 5
+    steps = warm + timed
+    model = _gpt124m_default(torch, 0)
+    cfg = model.cfg
+    batches = _token_batches(np, 20, steps, batch, seq, cfg.vocab_size)
+    events = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _counting_chunked_loop() as loop_calls:
+        kernels.reset_launch_counts()
+        rnd.seed(21)
+        t0 = time.perf_counter()
+        losses, scaler = _recipe_train(torch, model, batches, events=events)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        drops = kernels.dropout_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    _require(all(np.isfinite(losses)), "default-config losses are finite")
+    _require(losses[0] < np.log(cfg.vocab_size) + 0.5
+             and losses[-1] < losses[0],
+             f"the default-config recipe lowers the loss: {losses}")
+    for name in ("flash_attention_packed_fwd", "flash_attention_packed_bwd"):
+        _require(counts[name] == drops[name] == cfg.num_layers * steps,
+                 f"kernel {name} launched {cfg.num_layers} times a step, "
+                 f"each with dropout ({counts[name]}, {drops[name]} in "
+                 f"{steps} steps)")
+    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
+        _require(counts[name] == steps, f"kernel {name} launched once a step")
+    _require(loop_calls[0] == 0, "the flag never reaches the chunked loop")
+    _require(scaler.state_dict()["bad_steps"] == 0, "no step was skipped")
+    tev = events[warm:]
+
+    def span(i, j):
+        return sum(e[i].elapsed_time(e[j]) for e in tev) / timed
+
+    window = tev[0][0].elapsed_time(tev[-1][4]) / 1e3
+    del model
+    torch.cuda.empty_cache()
+    return {
+        "batch": batch, "seq": seq, "warmup_steps": warm,
+        "timed_steps": timed, "hidden_dropout": cfg.hidden_dropout,
+        "attention_dropout": cfg.attention_dropout, "losses": losses,
+        "tokens_per_s": batch * seq * timed / window,
+        "step_ms": span(0, 4), "forward_ms": span(0, 1),
+        "backward_ms": span(1, 2), "scaler_clip_ms": span(2, 3),
+        "optimizer_ms": span(3, 4), "wall_s_all_steps": wall,
+        "peak_memory_gib": peak / 2 ** 30, "launches": counts,
+        "dropout_launches": drops,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "chunked_loop_calls": loop_calls[0], "scaler": scaler.state_dict()}
+
+
+def gpt2_dropout_vs_plain(torch, np):
+    """3 default-config recipe steps at batch 8 on the kernels against the
+    same 3 steps on the plain versions, from one init, one set of batches
+    and one seed (``framework.random.seed``: the plain versions draw the
+    kernels' Philox bits and ``nn.Dropout`` the same CUDA generator's, so
+    both runs drop the same elements): losses within 2e-3. A second kernel
+    run from the same seed gives the first forward loss bit for bit."""
+    from paddle_tpu_torch.framework import random as rnd
+
+    batches = _token_batches(np, 22, 3, 8, 1024, 50304)
+    runs = []
+    for plain, steps in ((False, 3), (False, 1), (True, 3)):
+        model = _gpt124m_default(torch, 23)
+        ctx = plain_versions() if plain else contextlib.nullcontext()
+        with ctx:
+            rnd.seed(24)
+            losses, _ = _recipe_train(torch, model, batches[:steps])
+            runs.append([float(x) for x in losses])
+        del model
+        torch.cuda.empty_cache()
+    kernel, replay, plain = runs
+    _require(kernel[0] == replay[0], f"the first forward loss replays bit "
+             f"for bit from one seed: {kernel[0]!r} vs {replay[0]!r}")
+    err = max(abs(a - b) for a, b in zip(kernel, plain))
+    _require(all(np.isfinite(kernel)), "kernel-run losses are finite")
+    _require(err <= TRAIN_LOSS_TOL, f"default-config losses within "
+             f"{TRAIN_LOSS_TOL} of the plain run: {kernel} vs {plain}")
+    return {"kernel_losses": kernel, "replay_first_loss": replay[0],
+            "plain_losses": plain, "max_abs_diff": err}
+
+
 #: GPT-3 Large (Brown et al. 2020, Table 2.1): 760M parameters, 24 layers,
 #: d_model 1536, 16 heads of 96, context 2048, learning rate 2.5e-4; the
 #: vocabulary is the repo's padded GPT-2 one (bench.py:97-102)
@@ -1446,10 +1737,17 @@ def tensor_core_sass(path):
                 counts[cur] = 0
         elif cur is not None and ("HMMA" in line or "HGMMA" in line):
             counts[cur] += 1
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as k1
+
+    # one a tensor-core width (16..128), with and without dropout
+    want = 2 * sum(1 for w in k1.FLASH_WIDTHS
+                   if k1.kernel_route(torch.bfloat16, w) == "mma.sync")
     for kern in _TC_KERNELS:
         found = {n: c for n, c in counts.items() if kern in n}
-        _require(len(found) == 5, f"five bf16 {kern} instantiations in the "
-                 f"SASS ({len(found)})")
+        _require(len(found) == want, f"{want} bf16 {kern} instantiations in "
+                 f"the SASS ({len(found)})")
         _require(all(c > 0 for c in found.values()),
                  f"tensor-core instructions in every bf16 {kern}: {found}")
     return counts
@@ -1489,6 +1787,7 @@ def main():
     k9_cases, k10_cases, k11_cases, chunked = fused_ce_kernel_phase(torch,
                                                                     timer)
     k1_cases, k2_cases, k3_cases = flash_kernel_phase(torch, timer)
+    dropout_cases, philox_check = dropout_kernel_phase(torch, timer)
     for c in (ln_cases + fa_cases + k5_cases + k6_cases + k8_cases
               + k9_cases + k10_cases + k11_cases + k1_cases + k2_cases
               + k3_cases):
@@ -1503,7 +1802,15 @@ def main():
               f"{c['plain_ms']:.4f}, library {lib}, bound "
               f"{c['bound_ms']:.4f} by {c['bound_by']}) err "
               f"{c['max_abs_err']:.3g}{rel}{route}")
+    for name, c in dropout_cases.items():
+        rel = (f", relative L2 {c['rel_l2_err']:.3g}" if "rel_l2_err" in c
+               else "")
+        print(f"kernel {name} p = {DROPOUT_P}: {c['ms']:.4f} ms (dropout 0 "
+              f"{c['ms_dropout_0']:.4f}, plain {c['plain_ms']:.4f}) err "
+              f"{c['max_abs_err']:.3g}{rel}")
+    print(f"philox: {json.dumps(philox_check)}")
     print(f"chunked loss loop at the train shape: {json.dumps(chunked)}")
+    print(f"build seconds a source: {json.dumps(build_info().get('per_source', {}))}")
     serve = serving_phase(torch, np)
     print(f"serving: {json.dumps(serve)}")
     print(f"serving: {serve['tokens_per_s']:.1f} tokens/s on {card}")
@@ -1543,6 +1850,17 @@ def main():
     print(f"recipe vs plain: {json.dumps(recipe_plain)}")
     small_recipe = small_recipe_reference(torch, np)
     print(f"small recipe reference: {json.dumps(small_recipe)}")
+    drop = gpt2_dropout_phase(torch, np)
+    print(f"gpt2_dropout: {json.dumps(drop)}")
+    print(f"gpt2_dropout: {drop['tokens_per_s']:.1f} tokens/s (recipe at "
+          f"dropout 0: {recipe['tokens_per_s']:.1f}), step "
+          f"{drop['step_ms']:.1f} ms (forward {drop['forward_ms']:.1f}, "
+          f"backward {drop['backward_ms']:.1f}, scaler+clip "
+          f"{drop['scaler_clip_ms']:.1f}, optimizer "
+          f"{drop['optimizer_ms']:.1f}), peak "
+          f"{drop['peak_memory_gib']:.2f} GiB on {card}")
+    drop_plain = gpt2_dropout_vs_plain(torch, np)
+    print(f"gpt2_dropout vs plain: {json.dumps(drop_plain)}")
     large, model = gpt3_large_phase(torch, np)
     per_step = large["launches_per_step"]
     large["kernel_share_of_step"] = {
@@ -1585,6 +1903,7 @@ def main():
         return {"serving": serve["launches"][name],
                 "training": train["launches"][name],
                 "recipe": recipe["launches"][name],
+                "gpt2_dropout": drop["launches"][name],
                 "gpt3_large": large["launches"][name],
                 "gpt3_large_generate": large_gen["launches"][name]}
 
@@ -1600,10 +1919,12 @@ def main():
         entry("flash_attention_fwd", flash,
               "paddle_tpu/ops/pallas/flash_attention.py:127", k1_cases,
               "train", only("flash_attention_fwd", *k1_paths)),
-        entry("flash_attention_bwd_dq", flash,
+        entry("flash_attention_bwd_dq",
+              "paddle_tpu_torch/csrc/flash_attention_dq.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:173", k2_cases,
               "train", only("flash_attention_bwd_dq", *k1_paths)),
-        entry("flash_attention_bwd_dkv", flash,
+        entry("flash_attention_bwd_dkv",
+              "paddle_tpu_torch/csrc/flash_attention_dkv.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:218", k3_cases,
               "train", only("flash_attention_bwd_dkv", *k1_paths)),
         entry("flash_attention_cached",
@@ -1614,22 +1935,25 @@ def main():
         entry("flash_attention_packed_fwd", packed,
               "paddle_tpu/ops/pallas/flash_attention_packed.py:127", k5_cases,
               "train", only("flash_attention_packed_fwd", "serving",
-                            "training", "recipe")),
+                            "training", "recipe", "gpt2_dropout")),
         entry("flash_attention_packed_bwd", packed,
               "paddle_tpu/ops/pallas/flash_attention_packed.py:236", k6_cases,
               "train", only("flash_attention_packed_bwd", "serving",
-                            "training", "recipe")),
+                            "training", "recipe", "gpt2_dropout")),
         entry("layer_norm", ln_src, "paddle_tpu/ops/pallas/layer_norm.py:34",
               ln_cases, "rows=8", paths("layer_norm")),
         entry("layer_norm_bwd", ln_src,
               "paddle_tpu/ops/pallas/layer_norm.py:41", k8_cases,
               "rows=24576", paths("layer_norm_bwd")),
         entry("fused_ce_fwd", ce_src, "paddle_tpu/ops/pallas/fused_ce.py:71",
-              k9_cases, "train", only("fused_ce_fwd", "recipe")),
+              k9_cases, "train", only("fused_ce_fwd", "recipe",
+                                       "gpt2_dropout")),
         entry("fused_ce_dx", ce_src, "paddle_tpu/ops/pallas/fused_ce.py:107",
-              k10_cases, "train", only("fused_ce_dx", "recipe")),
+              k10_cases, "train", only("fused_ce_dx", "recipe",
+                                       "gpt2_dropout")),
         entry("fused_ce_dw", ce_src, "paddle_tpu/ops/pallas/fused_ce.py:128",
-              k11_cases, "train", only("fused_ce_dw", "recipe")),
+              k11_cases, "train", only("fused_ce_dw", "recipe",
+                                       "gpt2_dropout")),
     ]
     # K1 and K3's routes by input type (K2: FMA in every type), and their
     # bf16 SASS's tensor-core instructions (one function a head dim)
@@ -1643,6 +1967,16 @@ def main():
         k["kernel_route"] = routes
         k["hmma_bf16"] = {n: c for n, c in hmma.items() if kern in n}
     kernels[1]["kernel_route"] = {n: "fma" for n in routes}
+    # with in-kernel dropout (p = 0.1): time, dropout-0 time on the same
+    # inputs, error against the plain version on the same seed, and the
+    # launches with dropout on the gpt2_dropout path (K5/K6)
+    for k in kernels:
+        c = dropout_cases.get(k["name"])
+        if c is not None:
+            k["dropout"] = dict(c, bound_ms=k["bound_ms"],
+                                bound_by=k["bound_by"],
+                                launches=drop["dropout_launches"][k["name"]])
+    kernels[4]["dropout"]["philox"] = philox_check
     # the loop the flag replaces (cuBLAS products), at the train shape
     kernels[-3]["chunked_loop_ms"] = chunked["forward_ms"]
     kernels[-2]["chunked_loop_ms"] = chunked["backward_ms"]

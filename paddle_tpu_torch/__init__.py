@@ -15,6 +15,9 @@ gradient clipping and regularizers, ``amp`` (``auto_cast``, ``decorate``,
 """
 from . import (amp, framework, io, models, nn, ops, optimizer,  # noqa: F401
                regularizer, serving)
+from .framework.random import (  # noqa: F401
+    get_cuda_rng_state, get_rng_state, seed, set_cuda_rng_state, set_rng_state)
 
 __all__ = ["amp", "framework", "io", "models", "nn", "ops", "optimizer",
-           "regularizer", "serving"]
+           "regularizer", "serving", "seed", "get_rng_state", "set_rng_state",
+           "get_cuda_rng_state", "set_cuda_rng_state"]

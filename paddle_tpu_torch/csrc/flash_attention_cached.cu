@@ -34,6 +34,15 @@
 //    hold the same 8 rows and take every fourth key tile; partial (m, l, acc)
 //    are merged through shared memory at the end. That gives each decode CTA
 //    four streams of loads in flight instead of one.
+//  * Head dims: instantiated at widths 32, 64, 96, 128 and 256; a head dim d
+//    runs in the smallest width >= d, its columns >= d zero-filled on load
+//    and skipped on store (d = 80, GPT-3 2.7B's, runs at 96). At width 256
+//    the K tile is staged 128 columns at a time (the score sums the two
+//    halves), so four warps' tiles fit a CTA's shared memory. Rows whose
+//    base or stride is not 16-byte aligned, or whose head dim is not a whole
+//    number of 16-byte pieces, load element by element.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace ptt {
@@ -66,9 +75,76 @@ __device__ __forceinline__ void load16(const T* src, float* dst) {
   for (int i = 0; i < n; ++i) dst[i] = to_f32(e[i]);
 }
 
+// the columns of K staged at once: all of them up to 128, half at 256
+template <int D>
+__host__ __device__ constexpr int k_chunk() {
+  return D > 128 ? 128 : D;
+}
+
 template <int D>
 __host__ __device__ constexpr int warp_smem_floats() {
-  return kRPW * D + kTile * (D + 1) + kTile * D;
+  return kRPW * D + kTile * (k_chunk<D>() + 1) + kTile * D;
+}
+
+// keys j0 .. j0 + kTile of a K or V row block, columns c0 .. c0 + W, into
+// dst[key][c] at stride `stride` (0 past sk and in columns >= dn): 16-byte
+// loads when `vec`, element loads otherwise
+template <typename T, int W>
+__device__ __forceinline__ void stage_rows(float* dst, int stride, const T* base,
+                                           long long rs, int j0, int sk, int c0, int dn,
+                                           bool vec) {
+  constexpr int CH = 16 / sizeof(T);  // elements in a 16-byte load
+  constexpr int CPR = W / CH;         // 16-byte pieces a row
+  const int lane = threadIdx.x & 31;
+  for (int idx = lane; idx < kTile * CPR; idx += 32) {
+    const int key = idx / CPR, c = (idx % CPR) * CH;
+    const int j = j0 + key, col = c0 + c;
+    float x[CH];
+    const T* src = base + static_cast<long long>(j) * rs + col;
+    if (j < sk && vec && col + CH <= dn) {
+      load16(src, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CH; ++e) x[e] = j < sk && col + e < dn ? to_f32(src[e]) : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < CH; ++e) dst[key * stride + c + e] = x[e];
+  }
+}
+
+// keys j0 .. j0 + kTile of K and V together (all D columns of both; the
+// loads of a key's K and V pieces in flight at once), as stage_rows does
+// for one of them
+template <typename T, int D>
+__device__ __forceinline__ void stage_kv(float* ks, float* vs, const T* kb, const T* vb,
+                                         long long kss, long long vss, int j0, int sk,
+                                         int dn, bool vec) {
+  constexpr int CH = 16 / sizeof(T);
+  constexpr int CPR = D / CH;
+  const int lane = threadIdx.x & 31;
+  for (int idx = lane; idx < kTile * CPR; idx += 32) {
+    const int key = idx / CPR, c = (idx % CPR) * CH;
+    const int j = j0 + key;
+    float kx[CH], vx[CH];
+    const T* ksrc = kb + static_cast<long long>(j) * kss + c;
+    const T* vsrc = vb + static_cast<long long>(j) * vss + c;
+    if (j < sk && vec && c + CH <= dn) {
+      load16(ksrc, kx);
+      load16(vsrc, vx);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CH; ++e) {
+        const bool ok = j < sk && c + e < dn;
+        kx[e] = ok ? to_f32(ksrc[e]) : 0.f;
+        vx[e] = ok ? to_f32(vsrc[e]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < CH; ++e) {
+      ks[key * (D + 1) + c + e] = kx[e];
+      vs[key * D + c + e] = vx[e];
+    }
+  }
 }
 
 template <typename T, int D, int KSPLIT>
@@ -76,15 +152,15 @@ __global__ void __launch_bounds__(kWarps * 32)
 cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ q_pos,
                   const int* __restrict__ kv_len, T* __restrict__ out,
-                  int sq, int sk, int h,
+                  int sq, int sk, int h, int dn,
                   long long qsb, long long qss, long long qsh,
                   long long ksb, long long kss, long long ksh,
-                  long long vsb, long long vss, long long vsh, float scale) {
-  static_assert(D % 32 == 0 && D <= 128, "head_dim must be a multiple of 32, at most 128");
+                  long long vsb, long long vss, long long vsh, float scale, int vec) {
+  static_assert(D % 32 == 0 && D <= 256, "width must be a multiple of 32, at most 256");
   static_assert(KSPLIT == 1 || KSPLIT == kWarps, "KSPLIT is 1 or 4");
   constexpr int DPL = D / 32;             // acc columns a lane
-  constexpr int CH = 16 / sizeof(T);      // elements in a 16-byte load
-  constexpr int CPR = D / CH;             // 16-byte loads a row
+  constexpr int KC = k_chunk<D>();        // K columns staged at once
+  constexpr int NKC = D / KC;             // K chunks a tile
   constexpr int kRowGroups = kWarps / KSPLIT;
   constexpr int QT = kRPW * kRowGroups;   // query rows a CTA
 
@@ -99,7 +175,9 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float* qs = smem + warp * warp_smem_floats<D>();
   float* ks = qs + kRPW * D;
-  float* vs = ks + kTile * (D + 1);
+  float* vs = ks + kTile * (KC + 1);
+  const T* kb = k + bb * ksb + hh * ksh;
+  const T* vb = v + bb * vsb + hh * vsh;
 
   // this warp's query rows, pre-scaled, into shared memory
   int qp[kRPW];
@@ -110,7 +188,7 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qp[r] = live ? q_pos[static_cast<long long>(bb) * sq + row] : -1;
     const T* qr = q + bb * qsb + static_cast<long long>(row) * qss + hh * qsh;
     for (int e = lane; e < D; e += 32)
-      qs[r * D + e] = live ? to_f32(qr[e]) * scale : 0.f;
+      qs[r * D + e] = live && e < dn ? to_f32(qr[e]) * scale : 0.f;
   }
   const int klen = kv_len == nullptr ? sk : min(kv_len[bb], sk);
   int need = 0;  // keys any row of this warp can see
@@ -130,34 +208,25 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = kpart; t < ntiles; t += KSPLIT) {
     const int j0 = t * kTile;
-    __syncwarp();  // the previous tile is no longer read
-    for (int idx = lane; idx < kTile * CPR; idx += 32) {
-      const int key = idx / CPR, c = (idx % CPR) * CH;
-      const int j = j0 + key;
-      float kb[CH], vb[CH];
-      if (j < sk) {
-        load16(k + bb * ksb + static_cast<long long>(j) * kss + hh * ksh + c, kb);
-        load16(v + bb * vsb + static_cast<long long>(j) * vss + hh * vsh + c, vb);
-      } else {
-#pragma unroll
-        for (int e = 0; e < CH; ++e) kb[e] = vb[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < CH; ++e) {
-        ks[key * (D + 1) + c + e] = kb[e];
-        vs[key * D + c + e] = vb[e];
-      }
-    }
-    __syncwarp();
-
     float s[kRPW];
 #pragma unroll
     for (int r = 0; r < kRPW; ++r) s[r] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = ks[lane * (D + 1) + d];
 #pragma unroll
-      for (int r = 0; r < kRPW; ++r)
-        if (r < nlive) s[r] = fmaf(qs[r * D + d], kd, s[r]);
+    for (int kc = 0; kc < NKC; ++kc) {
+      __syncwarp();  // the previous tile (or chunk) is no longer read
+      if constexpr (NKC == 1) {
+        stage_kv<T, D>(ks, vs, kb, vb, kss, vss, j0, sk, dn, vec);
+      } else {
+        stage_rows<T, KC>(ks, KC + 1, kb, kss, j0, sk, kc * KC, dn, vec);
+        if (kc == 0) stage_rows<T, D>(vs, D, vb, vss, j0, sk, 0, dn, vec);
+      }
+      __syncwarp();
+      for (int d = 0; d < KC; ++d) {
+        const float kd = ks[lane * (KC + 1) + d];
+#pragma unroll
+        for (int r = 0; r < kRPW; ++r)
+          if (r < nlive) s[r] = fmaf(qs[r * D + kc * KC + d], kd, s[r]);
+      }
     }
     const int j = j0 + lane;
     float p[kRPW];
@@ -192,8 +261,8 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const long long out_row = static_cast<long long>(h) * D;
-  T* ob = out + (static_cast<long long>(bb) * sq) * out_row + hh * D;
+  const long long out_row = static_cast<long long>(h) * dn;
+  T* ob = out + (static_cast<long long>(bb) * sq) * out_row + hh * dn;
   if constexpr (KSPLIT == 1) {
 #pragma unroll
     for (int r = 0; r < kRPW; ++r) {
@@ -202,7 +271,7 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
       for (int c = 0; c < DPL; ++c)
-        ob[row * out_row + lane + 32 * c] = from_f32<T>(acc[r][c] * inv);
+        if (lane + 32 * c < dn) ob[row * out_row + lane + 32 * c] = from_f32<T>(acc[r][c] * inv);
     }
   } else {
     // merge the four key partitions: each warp parks (m, l, acc) in its own
@@ -222,7 +291,7 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = threadIdx.x; idx < kRPW * D; idx += kWarps * 32) {
       const int r = idx / D, e = idx % D;
       const int row = row0 + r;  // rg == 0 for every warp here
-      if (row >= sq) continue;
+      if (row >= sq || e >= dn) continue;
       float mx = kNegInf;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, smem[w * warp_smem_floats<D>() + r]);
@@ -242,8 +311,8 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int KSPLIT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_pos, const int* kv_len, void* out, int b,
-                   int sq, int sk, int h, const long long* st, float scale,
-                   cudaStream_t stream) {
+                   int sq, int sk, int h, int d, const long long* st, float scale,
+                   int vec, cudaStream_t stream) {
   constexpr int QT = kRPW * (kWarps / KSPLIT);
   const size_t smem = sizeof(float) * kWarps * warp_smem_floats<D>();
   auto kern = cached_fwd_kernel<T, D, KSPLIT>;
@@ -257,36 +326,45 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid((sq + QT - 1) / QT, h, b);
   kern<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, kv_len, static_cast<T*>(out), sq, sk, h,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
+      static_cast<const T*>(v), q_pos, kv_len, static_cast<T*>(out), sq, sk, h, d,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, vec);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
                          const int* q_pos, const int* kv_len, void* out, int b,
-                         int sq, int sk, int h, const long long* st,
-                         float scale, int ksplit, cudaStream_t stream) {
+                         int sq, int sk, int h, int d, const long long* st,
+                         float scale, int ksplit, int vec, cudaStream_t stream) {
   if (ksplit == kWarps)
-    return launch<T, D, kWarps>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, st, scale, stream);
+    return launch<T, D, kWarps>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, d, st, scale,
+                                vec, stream);
   if (ksplit == 1)
-    return launch<T, D, 1>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, st, scale, stream);
+    return launch<T, D, 1>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, d, st, scale, vec,
+                           stream);
   return cudaErrorInvalidValue;
 }
 
+// the widths K4 is instantiated at
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const int* q_pos, const int* kv_len, void* out, int b,
                      int sq, int sk, int h, int d, const long long* st,
-                     float scale, int ksplit, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch_split<T, 32>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, st, scale, ksplit, stream);
-    case 64: return launch_split<T, 64>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, st, scale, ksplit, stream);
-    case 96: return launch_split<T, 96>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, st, scale, ksplit, stream);
-    case 128: return launch_split<T, 128>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, st, scale, ksplit, stream);
-  }
+                     float scale, int ksplit, int vec, cudaStream_t stream) {
+#define PTT_CACHED(D)                                                                 \
+  if (d <= D)                                                                         \
+    return launch_split<T, D>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, d, st, scale, \
+                              ksplit, vec, stream);
+  PTT_CACHED(32)
+  PTT_CACHED(64)
+  PTT_CACHED(96)
+  PTT_CACHED(128)
+  PTT_CACHED(256)
+#undef PTT_CACHED
   return cudaErrorInvalidValue;
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 }  // namespace ptt
@@ -299,14 +377,20 @@ extern "C" int ptt_flash_attention_cached_fwd(
     int dtype, int ksplit, void* stream) {
   using namespace ptt;
   if (b == 0 || sq == 0 || h == 0) return cudaSuccess;
+  if (d < 1) return cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   const int* qp = static_cast<const int*>(q_pos);
   const int* kl = static_cast<const int*>(kv_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte K/V loads: aligned bases and every (batch, seq, head) stride
+  // and the head dim a whole number of 16-byte pieces
+  const long long per16 = dtype == kFloat32 ? 4 : 8;
+  int vec = aligned16(k) && aligned16(v) && d % per16 == 0;
+  for (int i = 3; i < 9; ++i) vec = vec && st[i] % per16 == 0;
   switch (dtype) {
-    case kFloat32: return launch_d<float>(q, k, v, qp, kl, out, b, sq, sk, h, d, st, scale, ksplit, s);
-    case kBFloat16: return launch_d<__nv_bfloat16>(q, k, v, qp, kl, out, b, sq, sk, h, d, st, scale, ksplit, s);
-    case kFloat16: return launch_d<__half>(q, k, v, qp, kl, out, b, sq, sk, h, d, st, scale, ksplit, s);
+    case kFloat32: return launch_d<float>(q, k, v, qp, kl, out, b, sq, sk, h, d, st, scale, ksplit, vec, s);
+    case kBFloat16: return launch_d<__nv_bfloat16>(q, k, v, qp, kl, out, b, sq, sk, h, d, st, scale, ksplit, vec, s);
+    case kFloat16: return launch_d<__half>(q, k, v, qp, kl, out, b, sq, sk, h, d, st, scale, ksplit, vec, s);
   }
   return cudaErrorInvalidValue;
 }

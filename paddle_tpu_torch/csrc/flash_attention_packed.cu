@@ -21,6 +21,15 @@
 // Unlike the TPU kernel, p and ds stay fp32 in the products (the JAX kernel
 // rounds them to the input dtype before its matmuls).
 //
+// Attention dropout (the TPU kernels' in-kernel PRNG): with p > 0 each
+// tile's keep bits come from the counter-based Philox of csrc/philox.cuh,
+// keyed by two seed words and counted from (batch, head, row, column), so
+// K5 and K6 regenerate one mask whatever their tiling. K5 scales the kept p
+// by 1 / (1 - p) after the row sum took the undropped p
+// (flash_attention_packed.py:145, :189); K6 forms the dropped p for dv and
+// masks and scales dp before ds (:286-290). Dropout is a template switch:
+// the p = 0 kernels are the code they were.
+//
 // Bound on the H100 (GPT-2 124M, b = 24, s = 1024, h = 12, d = 64, bf16):
 // K5 moves ~151 MB and does ~39 GFLOP of causal score work: ~0.045 ms at
 // 3.35 TB/s or 989 TFLOP/s, a tie. K6 does ~2.5x the operations over ~302 MB,
@@ -52,35 +61,40 @@ namespace {
 
 using namespace flash;
 
+constexpr int kM = 4;  // 64 x 64 tiles at every packed head dim (<= 128)
+constexpr int kBQ = Tile<kM>::B, kBK = Tile<kM>::B, kPad = Tile<kM>::Pad;
+
 // ---------------------------------------------------------------------------
 // K5: forward
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 packed_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const float* __restrict__ bias,
                   T* __restrict__ out, float* __restrict__ lse, int sq, int sk,
                   int h, long long qsb, long long qss, long long ksb,
                   long long kss, long long vsb, long long vss, float scale,
-                  int causal) {
+                  int causal, Dropout drp) {
   extern __shared__ float smem[];
   float* qs = smem;                 // [kBQ][D + 1] q rows, pre-scaled
   float* kt = qs + kBQ * (D + 1);   // [D][kPad]  k tile, transposed
   float* vt = kt + D * kPad;        // [D][kPad]  v tile, transposed
   float* ps = vt + D * kPad;        // [kBQ][kPad] probabilities
+  uint8_t* kb = reinterpret_cast<uint8_t*>(ps + kBQ * kPad);  // keep bits
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int bb = blockIdx.z, hh = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const T* kb = k + bb * ksb + hh * D;
-  const T* vb = v + bb * vsb + hh * D;
+  const uint32_t bh = static_cast<uint32_t>(bb * h + hh);
+  const T* kbase = k + bb * ksb + hh * D;
+  const T* vbase = v + bb * vsb + hh * D;
   // q is pre-scaled, so the logits take the scores as they are
   const Logits lg{sq, sk, causal, 1.f, bias, sk};
-  load_rows<T, D>(q + bb * qsb + hh * D, qss, q0, sq, scale, qs);
-  const int kend = lg.key_end(q0);
+  load_rows<T, D, kM>(q + bb * qsb + hh * D, qss, q0, sq, D, scale, qs);
+  const int kend = lg.key_end(q0, kBQ);
 
-  float m[4], l[4], acc[4][D / 16];
+  float m[kM], l[kM], acc[kM][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kM; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -89,16 +103,17 @@ packed_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < kend; k0 += kBK) {
     __syncthreads();  // the previous tile is no longer read
-    load_kv_t<T, D>(kb, vb, kss, vss, k0, sk, kt, vt);
+    load_kv_t<T, D, kM>(kbase, vbase, kss, vss, k0, sk, D, kt, vt);
+    if constexpr (DROP) fill_keep<kM>(drp, bh, q0, k0, kb);
     __syncthreads();
-    float s[4][4];
-    score_tile<D>(qs, kt, ty, tx, s);
+    float s[kM][kM];
+    score_tile<D, kM>(qs, kt, ty, tx, s);
     lg.mask(s, q0, k0, ty, tx);
-    softmax_step<D>(s, m, l, acc, ps, ty, tx);
+    softmax_step<D, kM, DROP>(s, m, l, acc, ps, ty, tx, drp, kb);
     __syncthreads();
-    acc_rows<D>(ps, vt, ty, tx, acc);
+    acc_rows<D, kM>(ps, vt, ty, tx, acc);
   }
-  store_out<T, D>(acc, m, l, out, lse, bb, hh, h, q0, sq, ty, tx);
+  store_out<T, D, kM>(acc, m, l, out, lse, bb, hh, h, q0, sq, D, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
@@ -129,7 +144,7 @@ packed_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const float* __restrict__ bias,
@@ -137,7 +152,8 @@ packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ delta, float* __restrict__ dq_ws,
                   T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h,
                   long long qsb, long long qss, long long ksb, long long kss,
-                  long long vsb, long long vss, float scale, int causal) {
+                  long long vsb, long long vss, float scale, int causal,
+                  Dropout drp) {
   extern __shared__ float smem[];
   float* kt = smem;                 // [D][kPad]  k block, transposed
   float* vt = kt + D * kPad;        // [D][kPad]  v block, transposed
@@ -146,9 +162,11 @@ packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ps = gs + kBQ * (D + 1);   // [kBQ][kPad] p, then ds
   float* ls = ps + kBQ * kPad;      // [kBQ] lse
   float* dl = ls + kBQ;             // [kBQ] delta
+  uint8_t* kb = reinterpret_cast<uint8_t*>(dl + kBQ);  // keep bits
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int bb = blockIdx.z, hh = blockIdx.y, k0 = blockIdx.x * kBK;
+  const uint32_t bh = static_cast<uint32_t>(bb * h + hh);
   const long long hd = static_cast<long long>(h) * D;  // contiguous row
   const T* qb = q + bb * qsb + hh * D;
   const T* gb = dout + static_cast<long long>(bb) * sq * hd + hh * D;
@@ -157,52 +175,54 @@ packed_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dqb = dq_ws + static_cast<long long>(bb) * sq * hd + hh * D;
   const Logits lg{sq, sk, causal, scale, bias, sk};
 
-  load_kv_t<T, D>(k + bb * ksb + hh * D, v + bb * vsb + hh * D, kss, vss, k0, sk,
-                  kt, vt);
+  load_kv_t<T, D, kM>(k + bb * ksb + hh * D, v + bb * vsb + hh * D, kss, vss, k0,
+                      sk, D, kt, vt);
 
-  float dka[4][D / 16], dva[4][D / 16];
+  float dka[kM][D / 16], dva[kM][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kM; ++i)
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) dka[i][c] = dva[i][c] = 0.f;
 
-  for (int q0 = lg.first_q_tile(k0); q0 < sq; q0 += kBQ) {
+  for (int q0 = lg.first_q_tile(k0, kBQ); q0 < sq; q0 += kBQ) {
     __syncthreads();  // the previous tile is no longer read
-    load_rows<T, D>(qb, qss, q0, sq, 1.f, qs);
-    load_rows<T, D>(gb, hd, q0, sq, 1.f, gs);
+    load_rows<T, D, kM>(qb, qss, q0, sq, D, 1.f, qs);
+    load_rows<T, D, kM>(gb, hd, q0, sq, D, 1.f, gs);
     if (tid < kBQ) {
       const int row = q0 + tid;
       ls[tid] = row < sq ? lb[row] : kNegInf;
       dl[tid] = row < sq ? db[row] : 0.f;
     }
+    if constexpr (DROP) fill_keep<kM>(drp, bh, q0, k0, kb);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    score_tiles<D>(qs, gs, kt, vt, ty, tx, s, dp);
-    // p to shared memory for dv first; ds kept in s until p is consumed
-    probs_ds(lg, q0, k0, ls, dl, s, dp, ps, true, ty, tx);
+    float s[kM][kM], dp[kM][kM];
+    score_tiles<D, kM>(qs, gs, kt, vt, ty, tx, s, dp);
+    // p (dropped) to shared memory for dv first; ds kept in s until p is
+    // consumed
+    probs_ds<kM, DROP>(lg, q0, k0, ls, dl, s, dp, ps, true, ty, tx, drp, kb);
     __syncthreads();
-    acc_keys<D>(ps, gs, ty, tx, dva);  // dv[key] += sum_q p[q][key] dout[q]
+    acc_keys<D, kM>(ps, gs, ty, tx, dva);  // dv[key] += sum_q p[q][key] dout[q]
     __syncthreads();
-    store_tile(s, ps, ty, tx);
+    store_tile<kM>(s, ps, ty, tx);
     __syncthreads();
-    acc_keys<D>(ps, qs, ty, tx, dka);  // dk[key] += sum_q ds[q][key] q[q]
+    acc_keys<D, kM>(ps, qs, ty, tx, dka);  // dk[key] += sum_q ds[q][key] q[q]
     // dq[q] += sum_key ds[q][key] k[key] * scale, into the fp32 workspace
-    float dqa[4][D / 16];
+    float dqa[kM][D / 16];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kM; ++i)
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) dqa[i][c] = 0.f;
-    acc_rows<D>(ps, kt, ty, tx, dqa);
+    acc_rows<D, kM>(ps, kt, ty, tx, dqa);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < kM; ++i) {
+      const int row = q0 + ty * kM + i;
       if (row >= sq) continue;
 #pragma unroll
       for (int c = 0; c < D / 16; ++c)
         atomicAdd(dqb + row * hd + tx + 16 * c, dqa[i][c] * scale);
     }
   }
-  store_dkv<T, D>(dka, dva, dk, dv, bb, hh, h, k0, sk, scale, ty, tx);
+  store_dkv<T, D, kM>(dka, dva, dk, dv, bb, hh, h, k0, sk, D, scale, ty, tx);
 }
 
 template <typename T>
@@ -219,12 +239,13 @@ struct Args {
   long long qsb, qss, ksb, kss, vsb, vss;
   float scale;
   int causal;
+  Dropout drp;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 cudaError_t fwd(const Args& a, void* out, float* lse, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * fwd_smem_floats<D>();
-  auto kern = packed_fwd_kernel<T, D>;
+  const size_t smem = sizeof(float) * fwd_smem_floats<D, kM, DROP>();
+  auto kern = packed_fwd_kernel<T, D, DROP>;
   static bool configured = false;
   cudaError_t e = allow_smem(kern, smem, configured);
   if (e != cudaSuccess) return e;
@@ -232,11 +253,12 @@ cudaError_t fwd(const Args& a, void* out, float* lse, cudaStream_t stream) {
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.bias, static_cast<T*>(out), lse, a.sq,
-      a.sk, a.h, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal);
+      a.sk, a.h, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal,
+      a.drp);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 cudaError_t bwd(const Args& a, const void* out, const void* dout,
                 const float* lse, float* delta, float* dq_ws, void* dq,
                 void* dk, void* dv, cudaStream_t stream) {
@@ -253,8 +275,8 @@ cudaError_t bwd(const Args& a, const void* out, const void* dout,
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   if (a.sk > 0) {
-    const size_t smem = sizeof(float) * bwd_smem_floats<D>();
-    auto kern = packed_bwd_kernel<T, D>;
+    const size_t smem = sizeof(float) * bwd_smem_floats<D, kM, DROP>();
+    auto kern = packed_bwd_kernel<T, D, DROP>;
     static bool configured = false;
     if ((e = allow_smem(kern, smem, configured)) != cudaSuccess) return e;
     dim3 grid((a.sk + kBK - 1) / kBK, a.h, a.b);
@@ -262,7 +284,7 @@ cudaError_t bwd(const Args& a, const void* out, const void* dout,
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.bias, static_cast<const T*>(dout), lse,
         delta, dq_ws, static_cast<T*>(dk), static_cast<T*>(dv), a.sq, a.sk,
-        a.h, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal);
+        a.h, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal, a.drp);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   if (n > 0) {
@@ -273,46 +295,66 @@ cudaError_t bwd(const Args& a, const void* out, const void* dout,
   return e;
 }
 
-template <typename T>
+template <typename T, bool DROP>
 cudaError_t fwd_d(const Args& a, int d, void* out, float* lse, cudaStream_t s) {
   switch (d) {
-    case 32: return fwd<T, 32>(a, out, lse, s);
-    case 64: return fwd<T, 64>(a, out, lse, s);
-    case 128: return fwd<T, 128>(a, out, lse, s);
+    case 32: return fwd<T, 32, DROP>(a, out, lse, s);
+    case 64: return fwd<T, 64, DROP>(a, out, lse, s);
+    case 128: return fwd<T, 128, DROP>(a, out, lse, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, bool DROP>
+cudaError_t bwd_d(const Args& a, int d, const void* out, const void* dout,
+                  const float* lse, float* delta, float* dq_ws, void* dq,
+                  void* dk, void* dv, cudaStream_t s) {
+  switch (d) {
+    case 32: return bwd<T, 32, DROP>(a, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
+    case 64: return bwd<T, 64, DROP>(a, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
+    case 128: return bwd<T, 128, DROP>(a, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
   }
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t bwd_d(const Args& a, int d, const void* out, const void* dout,
-                  const float* lse, float* delta, float* dq_ws, void* dq,
-                  void* dk, void* dv, cudaStream_t s) {
-  switch (d) {
-    case 32: return bwd<T, 32>(a, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
-    case 64: return bwd<T, 64>(a, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
-    case 128: return bwd<T, 128>(a, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t fwd_t(const Args& a, int d, void* out, float* lse, cudaStream_t s) {
+  return a.drp.thr < 65536u ? fwd_d<T, true>(a, d, out, lse, s)
+                            : fwd_d<T, false>(a, d, out, lse, s);
+}
+
+template <typename T>
+cudaError_t bwd_t(const Args& a, int d, const void* out, const void* dout,
+                  const float* lse, float* delta, float* dq_ws, void* dq, void* dk,
+                  void* dv, cudaStream_t s) {
+  return a.drp.thr < 65536u
+             ? bwd_d<T, true>(a, d, out, dout, lse, delta, dq_ws, dq, dk, dv, s)
+             : bwd_d<T, false>(a, d, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
 }
 
 }  // namespace
 }  // namespace ptt
 
+// Dropout: seed0, seed1 and the keep threshold thr of csrc/philox.cuh, and
+// inv_keep = 1 / (1 - p); thr = 65536 (no 16-bit value is below it) means
+// no dropout and takes the p = 0 kernels.
 extern "C" int ptt_flash_attention_packed_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* out,
     void* lse, int b, int sq, int sk, int h, int d, long long qsb,
     long long qss, long long ksb, long long kss, long long vsb, long long vss,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, unsigned int seed0, unsigned int seed1,
+    unsigned int thr, float inv_keep, int dtype, void* stream) {
   using namespace ptt;
   if (b == 0 || sq == 0 || h == 0) return cudaSuccess;
   const Args a{q, k, v, static_cast<const float*>(bias), b, sq, sk, h,
-               qsb, qss, ksb, kss, vsb, vss, scale, causal};
+               qsb, qss, ksb, kss, vsb, vss, scale, causal,
+               Dropout{seed0, seed1, thr, inv_keep}};
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return fwd_d<float>(a, d, out, l, s);
-    case kBFloat16: return fwd_d<__nv_bfloat16>(a, d, out, l, s);
-    case kFloat16: return fwd_d<__half>(a, d, out, l, s);
+    case kFloat32: return fwd_t<float>(a, d, out, l, s);
+    case kBFloat16: return fwd_t<__nv_bfloat16>(a, d, out, l, s);
+    case kFloat16: return fwd_t<__half>(a, d, out, l, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -322,20 +364,22 @@ extern "C" int ptt_flash_attention_packed_bwd(
     const void* out, const void* dout, const void* lse, void* delta,
     void* dq_ws, void* dq, void* dk, void* dv, int b, int sq, int sk, int h,
     int d, long long qsb, long long qss, long long ksb, long long kss,
-    long long vsb, long long vss, float scale, int causal, int dtype,
+    long long vsb, long long vss, float scale, int causal, unsigned int seed0,
+    unsigned int seed1, unsigned int thr, float inv_keep, int dtype,
     void* stream) {
   using namespace ptt;
   if (b == 0 || h == 0) return cudaSuccess;
   const Args a{q, k, v, static_cast<const float*>(bias), b, sq, sk, h,
-               qsb, qss, ksb, kss, vsb, vss, scale, causal};
+               qsb, qss, ksb, kss, vsb, vss, scale, causal,
+               Dropout{seed0, seed1, thr, inv_keep}};
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   float* ws = static_cast<float*>(dq_ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return bwd_d<float>(a, d, out, dout, l, dl, ws, dq, dk, dv, s);
-    case kBFloat16: return bwd_d<__nv_bfloat16>(a, d, out, dout, l, dl, ws, dq, dk, dv, s);
-    case kFloat16: return bwd_d<__half>(a, d, out, dout, l, dl, ws, dq, dk, dv, s);
+    case kFloat32: return bwd_t<float>(a, d, out, dout, l, dl, ws, dq, dk, dv, s);
+    case kBFloat16: return bwd_t<__nv_bfloat16>(a, d, out, dout, l, dl, ws, dq, dk, dv, s);
+    case kFloat16: return bwd_t<__half>(a, d, out, dout, l, dl, ws, dq, dk, dv, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -8,8 +8,8 @@
 // dout and out in K3) sit in shared memory in their input type, each row
 // padded by 16 bytes (row stride D + 8 elements: 208 bytes at d = 96), so
 // the 8 row addresses of every ldmatrix fall in 8 different 16-byte bank
-// groups for every instantiated head dim (32, 64, 80, 96, 128) without a
-// swizzle. Score tiles come out of the tensor cores as C fragments, which
+// groups for every instantiated head dim (16, 32, 64, 80, 96, 128)
+// without a swizzle. Score tiles come out of the tensor cores as C fragments, which
 // are also the A fragments of the next product once rounded to the input
 // type (pack2): p and ds never go through shared memory.
 #pragma once
@@ -20,6 +20,8 @@
 namespace ptt {
 namespace flash {
 
+constexpr int kBQ = 64;  // query rows a tile
+constexpr int kBK = 64;  // keys a tile
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
 static_assert(kTcWarps * 16 == kBQ && kBQ == kBK, "one m16 row block a warp");
@@ -106,20 +108,30 @@ __device__ __forceinline__ void mma_pb(float (&acc)[NT][4], const float (&p)[2 *
 
 // the warp's 16 x D accumulator, row g times mul[0] and row g + 8 times
 // mul[1], into rows r0 + g and r0 + g + 8 of dst (row stride rs elements;
-// rows >= n are not written)
+// rows >= n and columns >= dn are not written). Columns go in pairs with
+// one 4-byte store where dn is even (every row offset is then even), one by
+// one where it is odd.
 template <typename T, int NT>
 __device__ __forceinline__ void store_acc(const float (&acc)[NT][4], const float (&mul)[2],
-                                          T* dst, long long rs, int r0, int n) {
+                                          T* dst, long long rs, int r0, int n, int dn) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool pairs = (dn & 1) == 0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + g + 8 * r;
     if (row >= n) continue;
     T* d = dst + row * rs + 2 * t;
 #pragma unroll
-    for (int c = 0; c < NT; ++c)
-      *reinterpret_cast<uint32_t*>(d + c * 8) =
-          pack2<T>(acc[c][2 * r] * mul[r], acc[c][2 * r + 1] * mul[r]);
+    for (int c = 0; c < NT; ++c) {
+      const int col = c * 8 + 2 * t;
+      const float lo = acc[c][2 * r] * mul[r], hi = acc[c][2 * r + 1] * mul[r];
+      if (pairs) {
+        if (col < dn) *reinterpret_cast<uint32_t*>(d + c * 8) = pack2<T>(lo, hi);
+      } else {
+        if (col < dn) d[c * 8] = from_f32<T>(lo);
+        if (col + 1 < dn) d[c * 8 + 1] = from_f32<T>(hi);
+      }
+    }
   }
 }
 

@@ -41,10 +41,20 @@
 //    dl summed in a fixed order.
 // Each CTA owns its output rows, so there are no atomics and every result
 // is deterministic; the TPU kernels' sequential-grid scratch becomes the
-// CTA's loop over T blocks. fp32 operands (the CPU-parity model, and a
-// mixed x/w pair that the wrapper widens) run the same loop with plain FMA
-// in place of mma.sync; round_dl rounds dl to bf16 there when the
-// reference casts dl to a bf16 operand's type.
+// CTA's loop over T blocks.
+// Widths whose R block and T buffers do not fit a CTA's shared memory (above
+// 1024; fp32 above 768 in the backward) stream the hidden width instead:
+// each T block's S is accumulated over 256-column chunks of R and T staged
+// in turn (the same per-warp split, summed in a fixed order, so the bits
+// repeat), and the backward splits its output columns over a second grid
+// dimension in pieces of up to 768 (a piece's 32 x piece accumulator is
+// what one CTA's registers hold): each piece's CTA recomputes S and dl and
+// multiplies dl by the staged T columns of its piece.
+// bf16 and fp16 take the tensor cores (mma.sync m16n8k16 of either type).
+// fp32 operands (the CPU-parity model, and a mixed x/w pair that the
+// wrapper widens) run the same loops with plain FMA in place of mma.sync;
+// round_dl rounds dl to bf16 or fp16 there when the reference casts dl to
+// a 2-byte operand's type.
 #include <math_constants.h>
 
 #include <cstdint>
@@ -56,6 +66,7 @@ namespace ptt {
 namespace {
 
 constexpr int kRows = 32;     // rows of R and of each T block
+constexpr int kChunk = 256;   // hidden columns a streamed chunk
 constexpr int kThreads = 256;
 constexpr int kPStride = kRows + 8;  // fp32 row stride of a partial S tile
 constexpr float kNegInf = -1e30f;
@@ -106,19 +117,32 @@ __device__ void load_rows(T* dst, const T* src, int row0, int nrows, int h,
 // t = lane % 4) holds (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1). The fp32
 // versions below compute the same elements with FMA.
 
-// Partial tile P[w] (fp32, row stride kPStride) = R[32 x kw] . T[32 x kw]^T
-// over warp w's slice [w * kw, (w + 1) * kw) of the hidden width, kw = h / 8
-// (a multiple of 16): two m16 halves times four n8 tiles, 8 mma a k16 step.
-__device__ void s_tile(const __nv_bfloat16* R, const __nv_bfloat16* Tt, int h,
-                       int stride, float* S) {
+// A warp's share of S = R . T^T, accumulated over hidden chunks: the
+// 2-byte path's c[2][4][4] (two m16 halves times four n8 tiles of the whole
+// 32 x 32 tile over the warp's slice of each chunk), the fp32 path's c[0][0]
+// (the warp's own 16 x 8 tile over all of each chunk).
+struct SAcc {
+  float c[2][4][4];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[mi][j][0] = c[mi][j][1] = c[mi][j][2] = c[mi][j][3] = 0.f;
+  }
+};
+
+// acc += R[32 x kw] . T[32 x kw]^T over warp w's slice [w * kw, (w + 1) * kw)
+// of the hw columns staged in R and T, kw = hw / 8 (a multiple of 16): 8
+// mma a k16 step.
+template <typename T>
+__device__ __forceinline__ void s_accum(const T* R, const T* Tt, int hw, int stride,
+                                        SAcc& acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kw = h / s_parts<__nv_bfloat16>(), k0 = warp * kw;
-  float c[2][4][4] = {};
+  const int kw = hw / s_parts<T>(), k0 = warp * kw;
   // A: rows lane & 15 (+16), k half lane >> 4. B (ldmatrix x4 = two n8
   // tiles x k16): rows (lane & 7) + 8 * (lane >> 4), k half (lane >> 3) & 1.
-  const __nv_bfloat16* ap = R + (lane & 15) * stride + (lane >> 4) * 8 + k0;
-  const __nv_bfloat16* bp =
-      Tt + ((lane & 7) + ((lane >> 4) << 3)) * stride + ((lane >> 3) & 1) * 8 + k0;
+  const T* ap = R + (lane & 15) * stride + (lane >> 4) * 8 + k0;
+  const T* bp = Tt + ((lane & 7) + ((lane >> 4) << 3)) * stride + ((lane >> 3) & 1) * 8 + k0;
   for (int k = 0; k < kw; k += 16) {
     uint32_t a[2][4], b[2][4];
     ldm_x4(a[0], ap + k);
@@ -129,23 +153,15 @@ __device__ void s_tile(const __nv_bfloat16* R, const __nv_bfloat16* Tt, int h,
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        mma_bf16(c[mi][j], a[mi], b[j >> 1][(j & 1) * 2], b[j >> 1][(j & 1) * 2 + 1]);
+        mma16816<T>(acc.c[mi][j], a[mi], b[j >> 1][(j & 1) * 2], b[j >> 1][(j & 1) * 2 + 1]);
   }
-  const int g = lane >> 2, t = lane & 3;
-  float* p = S + warp * kRows * kPStride + g * kPStride + 2 * t;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float* q = p + mi * 16 * kPStride + j * 8;
-      *reinterpret_cast<float2*>(q) = make_float2(c[mi][j][0], c[mi][j][1]);
-      *reinterpret_cast<float2*>(q + 8 * kPStride) = make_float2(c[mi][j][2], c[mi][j][3]);
-    }
 }
 
-// S[32 x 32] (fp32, stride kPStride) = R[32 x h] . T[32 x h]^T; warp w owns
-// the 16 x 8 tile at rows 16 * (w & 1), cols 8 * (w >> 1).
-__device__ void s_tile(const float* R, const float* Tt, int h, int stride, float* S) {
+// the fp32 path: the warp's 16 x 8 tile at rows 16 * (w & 1), cols
+// 8 * (w >> 1), over all hw staged columns
+template <>
+__device__ __forceinline__ void s_accum<float>(const float* R, const float* Tt, int hw,
+                                               int stride, SAcc& acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * 8;
   const int g = lane >> 2, t = lane & 3;
@@ -153,19 +169,56 @@ __device__ void s_tile(const float* R, const float* Tt, int h, int stride, float
   const float* r1 = r0 + 8 * stride;
   const float* t0 = Tt + (n0 + 2 * t) * stride;
   const float* t1 = t0 + stride;
-  float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
-  for (int k = 0; k < h; ++k) {
+  float* c = acc.c[0][0];
+  for (int k = 0; k < hw; ++k) {
     const float a = r0[k], b = r1[k], x = t0[k], y = t1[k];
-    c0 = fmaf(a, x, c0);
-    c1 = fmaf(a, y, c1);
-    c2 = fmaf(b, x, c2);
-    c3 = fmaf(b, y, c3);
+    c[0] = fmaf(a, x, c[0]);
+    c[1] = fmaf(a, y, c[1]);
+    c[2] = fmaf(b, x, c[2]);
+    c[3] = fmaf(b, y, c[3]);
   }
+}
+
+// the warp's accumulated share into S: partial tile P[w] (fp32, row stride
+// kPStride) on the 2-byte path, the warp's 16 x 8 tile of S on the fp32 path
+template <typename T>
+__device__ __forceinline__ void s_store(const SAcc& acc, float* S) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* p = S + warp * kRows * kPStride + g * kPStride + 2 * t;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* q = p + mi * 16 * kPStride + j * 8;
+      *reinterpret_cast<float2*>(q) = make_float2(acc.c[mi][j][0], acc.c[mi][j][1]);
+      *reinterpret_cast<float2*>(q + 8 * kPStride) =
+          make_float2(acc.c[mi][j][2], acc.c[mi][j][3]);
+    }
+}
+
+template <>
+__device__ __forceinline__ void s_store<float>(const SAcc& acc, float* S) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * 8;
+  const int g = lane >> 2, t = lane & 3;
+  const float* c = acc.c[0][0];
   float* s0 = S + (m0 + g) * kPStride + n0 + 2 * t;
-  s0[0] = c0;
-  s0[1] = c1;
-  s0[8 * kPStride] = c2;
-  s0[8 * kPStride + 1] = c3;
+  s0[0] = c[0];
+  s0[1] = c[1];
+  s0[8 * kPStride] = c[2];
+  s0[8 * kPStride + 1] = c[3];
+}
+
+// S (partial tiles, or the fp32 tile) = R[32 x h] . T[32 x h]^T, R and T
+// resident
+template <typename T>
+__device__ __forceinline__ void s_tile(const T* R, const T* Tt, int h, int stride,
+                                       float* S) {
+  SAcc acc;
+  acc.zero();
+  s_accum<T>(R, Tt, h, stride, acc);
+  s_store<T>(acc, S);
 }
 
 // S[r][c .. c + 3]: the sum of the partial tiles, in warp order
@@ -188,12 +241,11 @@ __device__ __forceinline__ void s_row4(const float* S, int r, int c, float* out)
 
 // acc[32 x h] += DL[32 x 32] . T[32 x h]; warp w owns columns
 // [w * NT * 8, (w + 1) * NT * 8) as NT n8 tiles over both m16 halves.
-template <int NT>
-__device__ void acc_product(float (&acc)[2][NT][4], const __nv_bfloat16* DL,
-                            const __nv_bfloat16* Tt, int stride) {
+template <int NT, typename T>
+__device__ void acc_product(float (&acc)[2][NT][4], const T* DL, const T* Tt, int stride) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col0 = warp * NT * 8;
-  constexpr int dls = dl_stride<__nv_bfloat16>();
+  constexpr int dls = dl_stride<T>();
 #pragma unroll
   for (int kk = 0; kk < kRows; kk += 16) {
     uint32_t a[2][4];
@@ -206,8 +258,8 @@ __device__ void acc_product(float (&acc)[2][NT][4], const __nv_bfloat16* DL,
       ldm_x4_trans(b, Tt + (kk + (lane & 15)) * stride + col0 + j * 8 + (lane >> 4) * 8);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        mma_bf16(acc[mi][j], a[mi], b[0], b[1]);
-        mma_bf16(acc[mi][j + 1], a[mi], b[2], b[3]);
+        mma16816<T>(acc[mi][j], a[mi], b[0], b[1]);
+        mma16816<T>(acc[mi][j + 1], a[mi], b[2], b[3]);
       }
     }
   }
@@ -270,6 +322,67 @@ __device__ __forceinline__ T* stage(T* Tb, const T* src, int it, int nt, int tot
   return Tb + (nbuf == 2 ? (it & 1) * blk : 0);
 }
 
+// S = R . T^T of T block `it`, the hidden width streamed through R and T
+// chunk buffers kChunk columns at a time (the last chunk may be 128; rows of
+// the operands at stride h, chunk rows at stride `stride`); S's partial
+// tiles hold the sum over the chunks in a fixed order. Ends with S written
+// and the CTA synchronised.
+template <typename T>
+__device__ __forceinline__ void s_streamed(T* R, T* Tc, const T* rsrc, const T* tsrc,
+                                           int r0, int r_total, int t0, int t_total,
+                                           int h, int stride, float* S) {
+  SAcc acc;
+  acc.zero();
+  for (int c0 = 0; c0 < h; c0 += kChunk) {
+    const int hw = min(kChunk, h - c0);
+    __syncthreads();  // the previous chunk (or tile) is no longer read
+    copy_rows(R, stride, rsrc + c0, h, r0, kRows, r_total, hw, kThreads);
+    copy_rows(Tc, stride, tsrc + c0, h, t0, kRows, t_total, hw, kThreads);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    s_accum<T>(R, Tc, hw, stride, acc);
+  }
+  s_store<T>(acc, S);
+  __syncthreads();
+}
+
+// The forward's step over S of vocab block `it`: thread (er, ec) updates its
+// token row's running max m, sum l and picked label logit.
+template <typename T>
+__device__ __forceinline__ void lse_step(const float* S, int it, int vocab,
+                                         const float* bias, int lab, int er, int ec,
+                                         float& m, float& l, float& picked) {
+  float sv[4];
+  s_row4<T>(S, er, ec, sv);
+  float tmax = -CUDART_INF_F;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int voc = it * kRows + ec + q;
+    // vocab columns past V are absent
+    sv[q] = voc < vocab ? sv[q] + (bias ? bias[voc] : 0.f) : -CUDART_INF_F;
+    tmax = fmaxf(tmax, sv[q]);
+    if (voc == lab) picked += sv[q];
+  }
+  const float m_new = fmaxf(m, group8_max(tmax));
+  float ps = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) ps += expf(sv[q] - m_new);
+  l = l * expf(m - m_new) + group8_sum(ps);
+  m = m_new;
+}
+
+// loss and lse of the thread's token row, once a row
+__device__ __forceinline__ void lse_store(float* loss, float* lse, int tok, int n_tok,
+                                          float m, float l, float picked) {
+  picked = group8_sum(picked);
+  if ((threadIdx.x & 7) == 0 && tok < n_tok) {
+    const float v = m + logf(l);
+    lse[tok] = v;
+    loss[tok] = v - picked;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -297,30 +410,120 @@ __global__ void __launch_bounds__(kThreads)
     const T* Tt = stage(Tb, w, it, nt, vocab, h, stride, nbuf);
     s_tile(R, Tt, h, stride, S);
     __syncthreads();
-    float sv[4];
-    s_row4<T>(S, er, ec, sv);
-    float tmax = -CUDART_INF_F;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int voc = it * kRows + ec + q;
-      // vocab columns past V are absent
-      sv[q] = voc < vocab ? sv[q] + (bias ? bias[voc] : 0.f) : -CUDART_INF_F;
-      tmax = fmaxf(tmax, sv[q]);
-      if (voc == lab) picked += sv[q];
-    }
-    const float m_new = fmaxf(m, group8_max(tmax));
-    float ps = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) ps += expf(sv[q] - m_new);
-    l = l * expf(m - m_new) + group8_sum(ps);
-    m = m_new;
+    lse_step<T>(S, it, vocab, bias, lab, er, ec, m, l, picked);
     __syncthreads();
   }
-  picked = group8_sum(picked);
-  if ((threadIdx.x & 7) == 0 && tok < n_tok) {
-    const float v = m + logf(l);
-    lse[tok] = v;
-    loss[tok] = v - picked;
+  lse_store(loss, lse, tok, n_tok, m, l, picked);
+}
+
+// the forward with the hidden width streamed (widths whose R block does not
+// stay in shared memory)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ce_fwd_stream_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                         const float* __restrict__ bias, const int* __restrict__ label,
+                         float* __restrict__ loss, float* __restrict__ lse, int n_tok,
+                         int vocab, int h) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int stride = row_stride<T>(kChunk);
+  T* R = reinterpret_cast<T*>(smem);
+  T* Tc = R + kRows * stride;
+  float* S = reinterpret_cast<float*>(Tc + kRows * stride);
+  const int r0 = blockIdx.x * kRows;
+  const int nt = (vocab + kRows - 1) / kRows;
+  const int er = threadIdx.x >> 3, ec = (threadIdx.x & 7) * 4;
+  const int tok = r0 + er;
+  const int lab = tok < n_tok ? label[tok] : -1;
+  float m = kNegInf, l = 0.f, picked = 0.f;
+  for (int it = 0; it < nt; ++it) {
+    s_streamed(R, Tc, x, w, r0, n_tok, it * kRows, vocab, h, stride, S);
+    lse_step<T>(S, it, vocab, bias, lab, er, ec, m, l, picked);
+  }
+  lse_store(loss, lse, tok, n_tok, m, l, picked);
+}
+
+// what a backward CTA's dl phase reads: its R rows' per-row terms
+struct DlRow {
+  float lse, g, bias;
+  int lab;
+};
+
+// The backward's dl phase over S of T block `it`: thread (er, ec) forms
+// dl = (exp(s - lse) - onehot(y)) * g for its R row and 4 columns, rounded
+// (round_dl: 1 to bf16, 2 to fp16, on the fp32 path) and stored to DL in
+// T's type; returns its fp32 row sum (K11's db).
+template <typename T>
+__device__ __forceinline__ float dl_step(const float* S, int it, bool dx_mode, int rr,
+                                         const DlRow& row, const int* label,
+                                         const float* lse, const float* g,
+                                         const float* bias, int n_tok, int vocab,
+                                         int er, int ec, int round_dl, T* DL) {
+  constexpr int dls = dl_stride<T>();
+  float sv[4];
+  s_row4<T>(S, er, ec, sv);
+  float rowsum = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int cc = it * kRows + ec + q;
+    int tok, voc, lab;
+    float lv, gv, b;
+    if (dx_mode) {
+      tok = rr; voc = cc; lab = row.lab; lv = row.lse; gv = row.g;
+      b = (bias != nullptr && voc < vocab) ? bias[voc] : 0.f;
+    } else {
+      tok = cc; voc = rr; b = row.bias;
+      const bool ok = tok < n_tok;
+      lab = ok ? label[tok] : -1;
+      lv = ok ? lse[tok] : 0.f;
+      gv = ok ? g[tok] : 0.f;
+    }
+    float d = 0.f;
+    if (tok < n_tok && voc < vocab) {
+      const float s = sv[q] + b;
+      d = (expf(s - lv) - (voc == lab ? 1.f : 0.f)) * gv;
+    }
+    rowsum += d;
+    if (round_dl)
+      d = round_dl == 1 ? __bfloat162float(__float2bfloat16(d)) : __half2float(__float2half(d));
+    DL[er * dls + ec + q] = from_f32<T>(d);
+  }
+  return rowsum;
+}
+
+// the per-row terms of the thread's R row
+__device__ __forceinline__ DlRow dl_row(bool dx_mode, int rr, int n_tok, int vocab,
+                                        const float* lse, const float* g, const int* label,
+                                        const float* bias) {
+  DlRow row{0.f, 0.f, 0.f, -1};
+  if (dx_mode && rr < n_tok) {
+    row.lse = lse[rr];
+    row.g = g[rr];
+    row.lab = label[rr];
+  }
+  if (!dx_mode && bias != nullptr && rr < vocab) row.bias = bias[rr];
+  return row;
+}
+
+// the 32 x (8 NT warps' columns) accumulator into rows r0.. of out (row
+// stride h), columns from col0
+template <typename T, int NT>
+__device__ __forceinline__ void store_rows(const float (&acc)[2][NT][4], T* out, int r0,
+                                           int r_total, int h, int col0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + mi * 16 + gq + 8 * half;
+      if (row >= r_total) continue;
+      T* o = out + static_cast<size_t>(row) * h + col0 + warp * NT * 8 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[j * 8] = from_f32<T>(acc[mi][j][2 * half]);
+        o[j * 8 + 1] = from_f32<T>(acc[mi][j][2 * half + 1]);
+      }
+    }
   }
 }
 
@@ -335,7 +538,6 @@ __global__ void __launch_bounds__(kThreads)
                   int h, int mode, int nbuf, int round_dl) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int stride = row_stride<T>(h);
-  constexpr int dls = dl_stride<T>();
   T* R = reinterpret_cast<T*>(smem);
   T* Tb = R + kRows * stride;
   float* S = reinterpret_cast<float*>(Tb + nbuf * kRows * stride);
@@ -356,47 +558,15 @@ __global__ void __launch_bounds__(kThreads)
   // dl phase: thread owns row er (an R row) and columns ec .. ec + 3
   const int er = threadIdx.x >> 3, ec = (threadIdx.x & 7) * 4;
   const int rr = r0 + er;
-  float row_lse = 0.f, row_g = 0.f, row_bias = 0.f;
-  int row_lab = -1;
-  if (dx_mode && rr < n_tok) {
-    row_lse = lse[rr];
-    row_g = g[rr];
-    row_lab = label[rr];
-  }
-  if (!dx_mode && bias != nullptr && rr < vocab) row_bias = bias[rr];
+  const DlRow row = dl_row(dx_mode, rr, n_tok, vocab, lse, g, label, bias);
   float db_acc = 0.f;
   float acc[2][NT][4] = {};
   for (int it = 0; it < nt; ++it) {
     const T* Tt = stage(Tb, tsrc, it, nt, t_total, h, stride, nbuf);
     s_tile(R, Tt, h, stride, S);
     __syncthreads();
-    float sv[4];
-    s_row4<T>(S, er, ec, sv);
-    float rowsum = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int cc = it * kRows + ec + q;
-      int tok, voc, lab;
-      float lv, gv, b;
-      if (dx_mode) {
-        tok = rr; voc = cc; lab = row_lab; lv = row_lse; gv = row_g;
-        b = (bias != nullptr && voc < vocab) ? bias[voc] : 0.f;
-      } else {
-        tok = cc; voc = rr; b = row_bias;
-        const bool ok = tok < n_tok;
-        lab = ok ? label[tok] : -1;
-        lv = ok ? lse[tok] : 0.f;
-        gv = ok ? g[tok] : 0.f;
-      }
-      float d = 0.f;
-      if (tok < n_tok && voc < vocab) {
-        const float s = sv[q] + b;
-        d = (expf(s - lv) - (voc == lab ? 1.f : 0.f)) * gv;
-      }
-      rowsum += d;
-      if (round_dl) d = __bfloat162float(__float2bfloat16(d));
-      DL[er * dls + ec + q] = from_f32<T>(d);
-    }
+    float rowsum = dl_step<T>(S, it, dx_mode, rr, row, label, lse, g, bias, n_tok, vocab,
+                              er, ec, round_dl, DL);
     if (!dx_mode) {
       rowsum = group8_sum(rowsum);
       if ((threadIdx.x & 7) == 0) db_acc += rowsum;
@@ -405,72 +575,162 @@ __global__ void __launch_bounds__(kThreads)
     acc_product<NT>(acc, DL, Tt, stride);
     __syncthreads();
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + mi * 16 + gq + 8 * half;
-      if (row >= r_total) continue;
-      T* o = out + static_cast<size_t>(row) * h + warp * NT * 8 + 2 * t;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        o[j * 8] = from_f32<T>(acc[mi][j][2 * half]);
-        o[j * 8 + 1] = from_f32<T>(acc[mi][j][2 * half + 1]);
-      }
-    }
-  }
+  store_rows<T, NT>(acc, out, r0, r_total, h, 0);
   if (!dx_mode && db != nullptr && (threadIdx.x & 7) == 0 && rr < vocab) db[rr] = db_acc;
+}
+
+// the backward with the hidden width streamed: CTA (row block, piece)
+// computes S over the whole width in chunks, then the output columns
+// [piece * 8 NT * 8, ...) of its rows from a staged T piece; the piece-0
+// CTAs write db
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+    ce_bwd_stream_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                         const float* __restrict__ bias, const int* __restrict__ label,
+                         const float* __restrict__ g, const float* __restrict__ lse,
+                         T* __restrict__ out, float* __restrict__ db, int n_tok, int vocab,
+                         int h, int mode, int round_dl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int stride = row_stride<T>(kChunk);
+  constexpr int kPiece = 8 * NT * 8;  // output columns a CTA
+  constexpr int pstride = row_stride<T>(kPiece);
+  T* R = reinterpret_cast<T*>(smem);
+  T* Tc = R + kRows * stride;
+  float* S = reinterpret_cast<float*>(Tc + kRows * stride);
+  T* DL = reinterpret_cast<T*>(S + s_parts<T>() * kRows * kPStride);
+  T* Tp = DL + kRows * dl_stride<T>();
+  const bool dx_mode = mode == 0;
+  const T* rsrc = dx_mode ? x : w;
+  const T* tsrc = dx_mode ? w : x;
+  const int r_total = dx_mode ? n_tok : vocab;
+  const int t_total = dx_mode ? vocab : n_tok;
+  const int r0 = blockIdx.x * kRows;
+  const int p0 = blockIdx.y * kPiece;
+  const int nt = (t_total + kRows - 1) / kRows;
+  const int er = threadIdx.x >> 3, ec = (threadIdx.x & 7) * 4;
+  const int rr = r0 + er;
+  const DlRow row = dl_row(dx_mode, rr, n_tok, vocab, lse, g, label, bias);
+  float db_acc = 0.f;
+  float acc[2][NT][4] = {};
+  for (int it = 0; it < nt; ++it) {
+    __syncthreads();  // the previous product no longer reads Tp and DL
+    copy_rows(Tp, pstride, tsrc + p0, h, it * kRows, kRows, t_total, kPiece, kThreads);
+    cp_commit();
+    s_streamed(R, Tc, rsrc, tsrc, r0, r_total, it * kRows, t_total, h, stride, S);
+    float rowsum = dl_step<T>(S, it, dx_mode, rr, row, label, lse, g, bias, n_tok, vocab,
+                              er, ec, round_dl, DL);
+    if (!dx_mode) {
+      rowsum = group8_sum(rowsum);
+      if ((threadIdx.x & 7) == 0) db_acc += rowsum;
+    }
+    __syncthreads();
+    acc_product<NT>(acc, DL, Tp, pstride);
+  }
+  store_rows<T, NT>(acc, out, r0, r_total, h, p0);
+  if (!dx_mode && db != nullptr && blockIdx.y == 0 && (threadIdx.x & 7) == 0 && rr < vocab)
+    db[rr] = db_acc;
+}
+
+// the widths whose R block stays in shared memory: up to 1024, where the
+// buffers fit
+template <typename T>
+bool resident(int h, bool with_dl) {
+  return h <= 1024 && pick_nbuf<T>(h, with_dl) > 0;
+}
+
+template <typename T>
+size_t stream_smem_bytes(int piece) {
+  size_t b = 2 * static_cast<size_t>(kRows) * row_stride<T>(kChunk) * sizeof(T) +
+             static_cast<size_t>(s_parts<T>()) * kRows * kPStride * sizeof(float);
+  if (piece > 0)
+    b += static_cast<size_t>(kRows) * (dl_stride<T>() + row_stride<T>(piece)) * sizeof(T);
+  return b;
 }
 
 template <typename T>
 int launch_fwd(const void* x, const void* w, const void* bias, const void* label,
                void* loss, void* lse, int n_tok, int vocab, int h, cudaStream_t s) {
-  const int nbuf = pick_nbuf<T>(h, false);
-  if (nbuf == 0) return cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes<T>(h, nbuf, false);
-  cudaError_t e = cudaFuncSetAttribute(ce_fwd_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
+  const unsigned grid = (n_tok + kRows - 1) / kRows;
+  cudaError_t e;
+  if (resident<T>(h, false)) {
+    const int nbuf = pick_nbuf<T>(h, false);
+    const size_t bytes = smem_bytes<T>(h, nbuf, false);
+    e = cudaFuncSetAttribute(ce_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    ce_fwd_kernel<T><<<grid, kThreads, bytes, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<const float*>(bias), static_cast<const int*>(label),
+        static_cast<float*>(loss), static_cast<float*>(lse), n_tok, vocab, h, nbuf);
+    return cudaGetLastError();
+  }
+  const size_t bytes = stream_smem_bytes<T>(0);
+  e = cudaFuncSetAttribute(ce_fwd_stream_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
-  ce_fwd_kernel<T><<<(n_tok + kRows - 1) / kRows, kThreads, bytes, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(label),
-      static_cast<float*>(loss), static_cast<float*>(lse), n_tok, vocab, h, nbuf);
+  ce_fwd_stream_kernel<T><<<grid, kThreads, bytes, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<const int*>(label), static_cast<float*>(loss), static_cast<float*>(lse),
+      n_tok, vocab, h);
   return cudaGetLastError();
 }
 
 template <typename T, int NT>
 int launch_bwd_nt(const void* x, const void* w, const void* bias, const void* label,
                   const void* g, const void* lse, void* out, void* db, int n_tok,
-                  int vocab, int h, int mode, int round_dl, cudaStream_t s) {
-  const int nbuf = pick_nbuf<T>(h, true);
-  if (nbuf == 0) return cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes<T>(h, nbuf, true);
-  cudaError_t e = cudaFuncSetAttribute(ce_bwd_kernel<T, NT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
-  if (e != cudaSuccess) return e;
+                  int vocab, int h, int mode, int round_dl, bool res, cudaStream_t s) {
   const int rows = mode == 0 ? n_tok : vocab;
-  ce_bwd_kernel<T, NT><<<(rows + kRows - 1) / kRows, kThreads, bytes, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(label),
-      static_cast<const float*>(g), static_cast<const float*>(lse),
-      static_cast<T*>(out), static_cast<float*>(db), n_tok, vocab, h, mode, nbuf,
-      round_dl);
+  const unsigned grid = (rows + kRows - 1) / kRows;
+  cudaError_t e;
+  if (res) {  // NT = h / 64
+    const int nbuf = pick_nbuf<T>(h, true);
+    const size_t bytes = smem_bytes<T>(h, nbuf, true);
+    e = cudaFuncSetAttribute(ce_bwd_kernel<T, NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    ce_bwd_kernel<T, NT><<<grid, kThreads, bytes, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<const float*>(bias), static_cast<const int*>(label),
+        static_cast<const float*>(g), static_cast<const float*>(lse),
+        static_cast<T*>(out), static_cast<float*>(db), n_tok, vocab, h, mode, nbuf,
+        round_dl);
+    return cudaGetLastError();
+  }
+  const size_t bytes = stream_smem_bytes<T>(NT * 64);
+  e = cudaFuncSetAttribute(ce_bwd_stream_kernel<T, NT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  ce_bwd_stream_kernel<T, NT><<<dim3(grid, h / (NT * 64)), kThreads, bytes, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<const int*>(label), static_cast<const float*>(g),
+      static_cast<const float*>(lse), static_cast<T*>(out), static_cast<float*>(db), n_tok,
+      vocab, h, mode, round_dl);
   return cudaGetLastError();
+}
+
+// the output columns a streamed backward CTA takes: the widest multiple of
+// 128 up to 768 that divides h
+int piece_of(int h) {
+  for (int p = 768; p >= 128; p -= 128)
+    if (h % p == 0) return p;
+  return 0;
 }
 
 template <typename T>
 int launch_bwd(const void* x, const void* w, const void* bias, const void* label,
                const void* g, const void* lse, void* out, void* db, int n_tok,
                int vocab, int h, int mode, int round_dl, cudaStream_t s) {
+  // resident widths take NT = h / 64 (the whole width); streamed ones a piece
+  const bool res = resident<T>(h, true);
+  const int width = res ? h : piece_of(h);
 #define PTT_CE_NT(NT)                                                                \
   case NT:                                                                           \
     return launch_bwd_nt<T, NT>(x, w, bias, label, g, lse, out, db, n_tok, vocab, h, \
-                                mode, round_dl, s);
-  switch (h / 64) {
+                                mode, round_dl, res, s);
+  switch (width / 64) {
     PTT_CE_NT(2)
     PTT_CE_NT(4)
     PTT_CE_NT(6)
@@ -484,13 +744,14 @@ int launch_bwd(const void* x, const void* w, const void* bias, const void* label
   return cudaErrorInvalidValue;
 }
 
-bool hidden_ok(int h) { return h > 0 && h % 128 == 0 && h <= 1024; }
+bool hidden_ok(int h) { return h > 0 && h % 128 == 0; }
 
 }  // namespace
 }  // namespace ptt
 
 // loss, lse: fp32 [n_tok]; label: int32 [n_tok] in [0, vocab); bias: fp32
-// [vocab] or null. x [n_tok, hidden] and w [vocab, hidden] share `dtype`.
+// [vocab] or null. x [n_tok, hidden] and w [vocab, hidden] share `dtype`;
+// hidden is any multiple of 128.
 extern "C" int ptt_fused_ce_fwd(const void* x, const void* w, const void* bias,
                                 const void* label, void* loss, void* lse, int n_tok,
                                 int vocab, int hidden, int dtype, void* stream) {
@@ -500,13 +761,15 @@ extern "C" int ptt_fused_ce_fwd(const void* x, const void* w, const void* bias,
   switch (dtype) {
     case kFloat32: return launch_fwd<float>(x, w, bias, label, loss, lse, n_tok, vocab, hidden, s);
     case kBFloat16: return launch_fwd<__nv_bfloat16>(x, w, bias, label, loss, lse, n_tok, vocab, hidden, s);
+    case kFloat16: return launch_fwd<__half>(x, w, bias, label, loss, lse, n_tok, vocab, hidden, s);
   }
   return cudaErrorInvalidValue;
 }
 
 // mode 0: out = dx [n_tok, hidden]; mode 1: out = dw [vocab, hidden] and db
 // (fp32 [vocab], or null). g and lse: fp32 [n_tok] (g already 0 at ignored
-// labels). round_dl: round dl to bf16 before the product (fp32 operands only).
+// labels). round_dl: round dl before the product to bf16 (1) or fp16 (2)
+// (fp32 operands only).
 extern "C" int ptt_fused_ce_bwd(const void* x, const void* w, const void* bias,
                                 const void* label, const void* g, const void* lse,
                                 void* out, void* db, int n_tok, int vocab, int hidden,
@@ -521,6 +784,9 @@ extern "C" int ptt_fused_ce_bwd(const void* x, const void* w, const void* bias,
     case kBFloat16:
       if (round_dl) return cudaErrorInvalidValue;
       return launch_bwd<__nv_bfloat16>(x, w, bias, label, g, lse, out, db, n_tok, vocab, hidden, mode, 0, s);
+    case kFloat16:
+      if (round_dl) return cudaErrorInvalidValue;
+      return launch_bwd<__half>(x, w, bias, label, g, lse, out, db, n_tok, vocab, hidden, mode, 0, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -47,12 +47,13 @@ __device__ __forceinline__ void cp_wait() {
 // `threads` threads take the rows' 16-byte pieces in order, neighbouring
 // threads neighbouring pieces (so a row narrower than a warp leaves no lane
 // idle): with cp.async when `async`, else (a source that is not 16-byte
-// aligned) element by element with plain loads.
+// aligned, or rows of `cols` < row_elems elements whose other columns are
+// zero-filled and not read) element by element with plain loads.
 template <typename T>
 __device__ __forceinline__ void copy_rows(T* dst, int dst_stride, const T* src,
                                           long long src_stride, int row0, int rows,
                                           int nrows, int row_elems, int threads,
-                                          bool async = true) {
+                                          bool async = true, int cols = 1 << 30) {
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));
   const int pieces = row_elems / kPer;
   const int step_r = threads / pieces, step_c = threads % pieces;
@@ -65,7 +66,8 @@ __device__ __forceinline__ void copy_rows(T* dst, int dst_stride, const T* src,
       cp_async16(s, g, ok);
     } else {
 #pragma unroll
-      for (int e = 0; e < kPer; ++e) s[e] = ok ? g[e] : from_f32<T>(0.f);
+      for (int e = 0; e < kPer; ++e)
+        s[e] = ok && c * kPer + e < cols ? g[e] : from_f32<T>(0.f);
     }
     r += step_r;
     c += step_c;

@@ -37,15 +37,26 @@ Routing of an uncached call (``_flash_ok`` / ``_sdpa_flash``):
   128-lane head groups, the dq slab cap); every other call (a 4-D or
   trainable mask, another head dim such as GPT-3 Large's 96) K1-K3, as JAX
   sends it to its layout-swapping kernel, without the 128 alignment.
-  Attention dropout in training raises.
+  Attention dropout in training runs inside those kernels from a Philox
+  keep-mask keyed by two words of :func:`~paddle_tpu_torch.framework.random.next_seed_words`,
+  as JAX's kernels draw theirs from the TPU PRNG; with a trainable mask it
+  takes the dense path, as in JAX.
 * **CPU** — JAX's route under interpret mode (which skips the min-seq-prod
   crossover): 128-aligned sequence dims take the packed wrapper when
   ``flash_attention_packed.supports`` holds and the K1-K3 wrapper
   otherwise (their plain versions on a CPU tensor, which zero a row with no
   visible key as the JAX kernels do).
+  Attention dropout in training takes no flash route on the CPU (JAX's
+  interpret mode has no lowering of its in-kernel PRNG).
 * Anything else (a ``(b, 1, 1, s)`` padding bias, a short or unaligned
   call) runs the blockwise loop (long causal calls without a mask) or the
   dense path, as in JAX.
+
+Attention dropout on the dense path (any call with dropout in training that
+no flash kernel takes, LengthMask calls included, on either device) drops
+the softmax output with a ``[b, h, sq, sk]`` keep-mask drawn by
+``torch.bernoulli`` from the port's generator of the tensors' device, where
+JAX draws ``jax.random.bernoulli``.
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ import math
 import torch
 
 from ...amp.auto_cast import cast_inputs as _amp_cast
+from ...framework import random as rnd
 from ...framework.flags import flag_value
 from ...ops.cuda import flash_attention as _fa
 from ...ops.cuda import flash_attention_packed as _fp
@@ -62,9 +74,6 @@ __all__ = ["LengthMask", "scaled_dot_product_attention", "NEG_INF"]
 
 #: additive-mask floor shared with serving.kv_cache.MASK_MIN
 NEG_INF = -1e30
-
-_DROPOUT = ("attention dropout in training needs an in-kernel counter-based "
-            "generator (ROADMAP B note 6); the training slice runs dropout 0")
 
 
 class LengthMask:
@@ -228,14 +237,24 @@ def _blockwise_blocks(sq, sk):
     return bq, bk
 
 
+def _keep_mask(query, key, p):
+    """The dense path's ``[b, h, sq, sk]`` bool keep-mask: kept with
+    probability ``1 - p``, from the port's generator of the device."""
+    b, sq, h, _ = query.shape
+    probs = torch.full((b, h, sq, key.shape[1]), 1.0 - p,
+                       device=query.device)
+    return torch.bernoulli(probs, generator=rnd.generator(query.device)).bool()
+
+
 def _route_length_masked(query, key, value, lm, dropout_p, training, scale):
-    """Cached-attention routing (see the module docstring)."""
+    """Cached-attention routing (see the module docstring); with dropout in
+    training the dense path on either device, as ``_blockwise_ok`` sends it
+    there in JAX."""
     b, sq, h, d = query.shape
     sk = key.shape[1]
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(_DROPOUT)
+    active_p = dropout_p if training else 0.0
     s = scale if scale is not None else 1.0 / math.sqrt(d)
-    if query.device.type == "cuda":
+    if query.device.type == "cuda" and active_p == 0.0:
         return _fa.flash_attention_cached(query, key, value, lm.q_pos,
                                           lm.kv_len, scale=s)
     if _blockwise_ok(query.shape, key.shape, dropout_p, training):
@@ -246,17 +265,24 @@ def _route_length_masked(query, key, value, lm, dropout_p, training, scale):
         return _sdpa_blockwise(query, key, value, lm.q_pos, lm.kv_len,
                                scale=s, block_q=bq, block_k=bk)
     mask = lm.additive(sk, query.dtype)
-    return _sdpa_raw(query, key, value, mask, causal=False, scale=scale)
+    keep = _keep_mask(query, key, active_p) if active_p > 0.0 else None
+    return _sdpa_raw(query, key, value, mask, keep, causal=False, scale=scale,
+                     dropout_p=active_p)
 
 
-def _flash_ok(q_shape, k_shape, mask, on_cuda):
+def _flash_ok(q_shape, k_shape, mask, on_cuda, dropout_p=0.0, training=False,
+              mask_trainable=False):
     """Where the JAX package runs a flash kernel (``_flash_ok`` with Pallas
     available): enabled, a mask the kernels stream exactly (trailing dims
     ``(sq, sk)``, broadcastable batch/head dims), and — on CUDA — at least
     ``flash_attention_min_seq_prod`` score entries; on the CPU (interpret
     mode, which skips that crossover) 128-aligned sequence dims
-    (``flash_attention.supports``)."""
+    (``flash_attention.supports``). With attention dropout in training, as
+    in JAX, no flash route on the CPU (interpret mode) and none with a
+    trainable mask (its gradient cannot regenerate the in-kernel mask)."""
     if flag_value("disable_flash_attention"):
+        return False
+    if dropout_p > 0.0 and training and (not on_cuda or mask_trainable):
         return False
     sq, sk = q_shape[1], k_shape[1]
     if on_cuda and sq * sk < flag_value("flash_attention_min_seq_prod"):
@@ -274,12 +300,13 @@ def _flash_ok(q_shape, k_shape, mask, on_cuda):
 
 
 def _sdpa_flash(q, k, v, mask=None, causal=False, scale=None,
-                mask_trainable=False):
+                mask_trainable=False, dropout_p=0.0, dropout_seed=None):
     """q, k, v: ``(batch, seq, heads, head_dim)``. The packed kernels take
     the ``(b, s, h·d)`` reshape of the qkv projection's views (strides
     ``(s·3hd, 3hd, 1)``: no copy) when the mask is absent or a constant
     shared 2-D one; every other call takes K1-K3, which read the views
-    through their strides. See the module docstring."""
+    through their strides. ``dropout_seed`` keys the kernels' dropout mask.
+    See the module docstring."""
     q, k, v, mask = _amp_cast("flash_sdpa", q, k, v, mask)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -292,14 +319,18 @@ def _sdpa_flash(q, k, v, mask=None, causal=False, scale=None,
         out = _fp.flash_attention_packed(
             q.reshape(b, sq, h * d), k.reshape(b, sk, h * d),
             v.reshape(b, sk, h * d), h, bias=mask, causal=causal,
-            scale=scale)
+            scale=scale, dropout_p=dropout_p, dropout_seed=dropout_seed)
         return out.reshape(b, sq, h, d)
     return _fa.flash_attention(q, k, v, bias=mask, causal=causal,
-                               scale=scale, bias_grad=mask_trainable)
+                               scale=scale, bias_grad=mask_trainable,
+                               dropout_p=dropout_p, dropout_seed=dropout_seed)
 
 
-def _sdpa_raw(q, k, v, mask=None, causal=False, scale=None):
-    """Dense path: matmul + softmax in the input dtype (small shapes)."""
+def _sdpa_raw(q, k, v, mask=None, dropout_mask=None, causal=False,
+              scale=None, dropout_p=0.0):
+    """Dense path: matmul + softmax in the input dtype (small shapes).
+    ``dropout_mask`` is a keep-mask drawn by the caller, as in JAX: the
+    kept probabilities are scaled by ``1 / (1 - dropout_p)``."""
     q, k, v, mask = _amp_cast("sdpa", q, k, v, mask)
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -318,6 +349,8 @@ def _sdpa_raw(q, k, v, mask=None, causal=False, scale=None):
         else:
             logits = logits + mask
     probs = torch.softmax(logits, dim=-1)
+    if dropout_mask is not None:
+        probs = probs * dropout_mask.to(probs.dtype) / (1.0 - dropout_p)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -326,13 +359,15 @@ def _sdpa(query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,
     if isinstance(attn_mask, LengthMask):
         return _route_length_masked(query, key, value, attn_mask, dropout_p,
                                     training, scale)
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(_DROPOUT)
+    trainable = attn_mask is not None and attn_mask.requires_grad
     if _flash_ok(query.shape, key.shape, attn_mask,
-                 query.device.type == "cuda"):
-        trainable = attn_mask is not None and attn_mask.requires_grad
+                 query.device.type == "cuda", dropout_p, training, trainable):
+        active_p = dropout_p if training else 0.0
+        # two 32-bit words key the kernels' dropout mask
+        seed = rnd.next_seed_words(query.device) if active_p > 0.0 else None
         return _sdpa_flash(query, key, value, attn_mask, causal=is_causal,
-                           scale=scale, mask_trainable=trainable)
+                           scale=scale, mask_trainable=trainable,
+                           dropout_p=active_p, dropout_seed=seed)
     if (attn_mask is None and is_causal
             and _blockwise_ok(query.shape, key.shape, dropout_p, training)):
         # long causal attention without the flash kernel: blockwise loop
@@ -345,8 +380,11 @@ def _sdpa(query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,
         bq, bk = _blockwise_blocks(sq, sk)
         return _sdpa_blockwise(query, key, value, q_pos, None, scale=s,
                                block_q=bq, block_k=bk)
-    return _sdpa_raw(query, key, value, attn_mask, causal=is_causal,
-                     scale=scale)
+    keep = None
+    if dropout_p > 0.0 and training:
+        keep = _keep_mask(query, key, dropout_p)
+    return _sdpa_raw(query, key, value, attn_mask, keep, causal=is_causal,
+                     scale=scale, dropout_p=dropout_p)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -8,7 +8,9 @@ first use, see :mod:`._build`) or raises — there is no fallback.
 Each wrapper keeps a launch count as a plain integer attribute
 (``flash_attention_fwd.launches``, ``layer_norm.launches``, ...), raised
 by one where the kernel is launched and nowhere else, so a run can show that
-its main path went through the kernels. The wrappers that return a kernel's
+its main path went through the kernels. The attention kernels with in-kernel
+dropout (K1-K3, K5/K6) also count their launches with dropout
+(``dropout_launches``). The wrappers that return a kernel's
 output directly raise when autograd is asked to record them; the
 differentiable entry points (``layer_norm``, ``flash_attention``,
 ``flash_attention_packed``, ``flash_linear_cross_entropy``) are
@@ -22,7 +24,8 @@ from . import fused_ce as _ce
 from . import layer_norm as _ln
 from ._build import build_info, library
 
-__all__ = ["build_info", "library", "launch_counts", "reset_launch_counts"]
+__all__ = ["build_info", "library", "launch_counts", "dropout_launch_counts",
+           "reset_launch_counts"]
 
 
 def _wrappers():
@@ -44,6 +47,15 @@ def launch_counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def dropout_launch_counts():
+    """``{kernel wrapper name: launches with dropout}`` since the last reset,
+    for the wrappers whose kernels take dropout."""
+    return {name: fn.dropout_launches for name, fn in _wrappers().items()
+            if hasattr(fn, "dropout_launches")}
+
+
 def reset_launch_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "dropout_launches"):
+            fn.dropout_launches = 0

@@ -38,7 +38,12 @@ _info = {}
 p = ctypes.c_void_p
 i32 = ctypes.c_int
 i64 = ctypes.c_longlong
+u32 = ctypes.c_uint
 f32 = ctypes.c_float
+
+#: the attention kernels' trailing arguments: scale, causal, the dropout
+#: seed words, keep threshold and 1 / (1 - p), dtype, stream
+_ATTN_TAIL = [f32, i32, u32, u32, u32, f32, i32, p]
 
 #: C signatures of every entry point in csrc/
 _SIGNATURES = {
@@ -54,30 +59,30 @@ _SIGNATURES = {
         [p, p, p, p, p, p, i32, i32, i32, i32, i32]
         + [i64] * 9 + [f32, i32, i32, p]),
     # q, k, v, bias, out, lse, b, sq, sk, h, d, q/k/v strides (b, s, h),
-    # bias strides (b, h, row), scale, causal, dtype, stream
-    "ptt_flash_attention_fwd": [p] * 6 + [i32] * 5 + [i64] * 12 + [f32, i32,
-                                                                   i32, p],
+    # bias strides (b, h, row), scale, causal, dropout, dtype, stream
+    "ptt_flash_attention_fwd": [p] * 6 + [i32] * 5 + [i64] * 12 + _ATTN_TAIL,
     # q, k, v, bias, out, dout, lse, dq, b, sq, sk, h, d, strides as above,
-    # scale, causal, dtype, stream
-    "ptt_flash_attention_bwd_dq": [p] * 8 + [i32] * 5 + [i64] * 12 + [f32, i32,
-                                                                      i32, p],
+    # scale, causal, dropout, dtype, stream
+    "ptt_flash_attention_bwd_dq": [p] * 8 + [i32] * 5 + [i64] * 12 + _ATTN_TAIL,
     # q, k, v, bias, out, dout, lse, dk, dv, b, sq, sk, h, d, strides as
-    # above, scale, causal, dtype, stream
-    "ptt_flash_attention_bwd_dkv": [p] * 9 + [i32] * 5 + [i64] * 12 + [
-        f32, i32, i32, p],
+    # above, scale, causal, dropout, dtype, stream
+    "ptt_flash_attention_bwd_dkv": [p] * 9 + [i32] * 5 + [i64] * 12 + _ATTN_TAIL,
     # q, k, v, bias, out, lse, b, sq, sk, h, d,
-    # q strides (b, s), k strides, v strides, scale, causal, dtype, stream
-    "ptt_flash_attention_packed_fwd": (
-        [p] * 6 + [i32] * 5 + [i64] * 6 + [f32, i32, i32, p]),
+    # q strides (b, s), k strides, v strides, scale, causal, dropout, dtype,
+    # stream
+    "ptt_flash_attention_packed_fwd": [p] * 6 + [i32] * 5 + [i64] * 6 + _ATTN_TAIL,
     # q, k, v, bias, out, dout, lse, delta, dq workspace, dq, dk, dv,
-    # b, sq, sk, h, d, q/k/v strides (b, s), scale, causal, dtype, stream
+    # b, sq, sk, h, d, q/k/v strides (b, s), scale, causal, dropout, dtype,
+    # stream
     "ptt_flash_attention_packed_bwd": (
-        [p] * 12 + [i32] * 5 + [i64] * 6 + [f32, i32, i32, p]),
+        [p] * 12 + [i32] * 5 + [i64] * 6 + _ATTN_TAIL),
     # x, w, bias, label, loss, lse, tokens, vocab, hidden, dtype, stream
     "ptt_fused_ce_fwd": [p] * 6 + [i32] * 4 + [p],
     # x, w, bias, label, g, lse, out, db, tokens, vocab, hidden, mode,
     # round_dl, dtype, stream
     "ptt_fused_ce_bwd": [p] * 8 + [i32] * 6 + [p],
+    # mask, b, h, sq, sk, seed0, seed1, threshold, stream
+    "ptt_philox_keep_mask": [p, i32, i32, i32, i32, u32, u32, u32, p],
 }
 
 
@@ -110,14 +115,25 @@ def _build():
         # workers) never write one file together
         obj = _OUT / f"{src.stem}_{tag}.{os.getpid()}.o"
         cmd = [nvcc, *_ARCH, *_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        # the report goes to a file, so no pipe fills while another
+        # process is waited on
+        out = open(obj.with_suffix(".log"), "w+")
+        procs.append((src, obj, out, subprocess.Popen(
+            cmd, stdout=out, stderr=subprocess.STDOUT)))
+    # each source's wall time until its nvcc ended (they run at once)
+    per_source = {}
+    while len(per_source) < len(procs):
+        for src, _, _, proc in procs:
+            if src.name not in per_source and proc.poll() is not None:
+                per_source[src.name] = round(time.perf_counter() - t0, 1)
+        time.sleep(0.05)
     log = []
     failed = []
-    for src, _, proc in procs:
-        out, _ = proc.communicate()
-        log.append(f"== {src.name}\n{out}")
+    for src, obj, out, proc in procs:
+        out.seek(0)
+        log.append(f"== {src.name}\n{out.read()}")
+        out.close()
+        os.remove(out.name)
         if proc.returncode != 0:
             failed.append(src.name)
     if failed:
@@ -126,13 +142,13 @@ def _build():
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run(
         [nvcc, *_ARCH, "-shared", "-o", str(tmp),
-         *[str(o) for _, o, _ in procs]],
+         *[str(o) for _, o, _, _ in procs]],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"linking the CUDA kernels failed:\n{link.stdout}")
     os.replace(tmp, so)
     _info.update(path=str(so), seconds=time.perf_counter() - t0,
-                 cached=False, log="\n".join(log))
+                 cached=False, log="\n".join(log), per_source=per_source)
     return so
 
 
@@ -151,9 +167,11 @@ def library():
 
 
 def build_info():
-    """``{"path", "seconds", "cached", "log"}`` of the build this process
-    loaded (empty before the first :func:`library` call). ``log`` holds
-    nvcc's ``-Xptxas -v`` report: registers, shared memory, spills."""
+    """``{"path", "seconds", "cached", "log", "per_source"}`` of the build
+    this process loaded (empty before the first :func:`library` call).
+    ``log`` holds nvcc's ``-Xptxas -v`` report: registers, shared memory,
+    spills; ``per_source`` the seconds from the start until each source's
+    nvcc ended (all start together)."""
     return dict(_info)
 
 

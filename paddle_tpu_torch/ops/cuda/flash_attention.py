@@ -15,22 +15,31 @@ without a copy.
   autograd it saves q, k, v, the bias, the output and the fp32 logsumexp;
   the backward recomputes the probabilities from them, dq swept over key
   tiles (K2) and dk/dv over query tiles (K3): no atomics, the same bits
-  from run to run. bf16 and fp16 inputs run K1 and K3 on the tensor cores
-  (``mma.sync``), rounding p (and K3's ``ds * scale``) to the input type
-  before their products as the TPU kernels do; fp32 inputs, and K2 in every
-  type, run fp32 FMA kernels (:func:`kernel_route`). A trainable bias
-  gets its gradient from PyTorch operations on the saved residuals, as the
-  JAX package computes it with XLA operations outside its kernels. The raw
-  launchers (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
+  from run to run. bf16 and fp16 inputs up to head dim 128 run K1 and K3 on
+  the tensor cores (``mma.sync``), rounding p (and K3's ``ds * scale``) to
+  the input type before their products as the TPU kernels do; fp32 inputs,
+  head dims above 128, and K2 in every type, run fp32 FMA kernels
+  (:func:`kernel_route`). A trainable bias gets its gradient from PyTorch
+  operations on the saved residuals, as the JAX package computes it with
+  XLA operations outside its kernels. The raw launchers
+  (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
   :func:`flash_attention_bwd_dkv`) raise on a CUDA tensor that asks
   autograd to record them. Block sizes and the interpret switch are TPU
-  matters (accepted, unused); attention dropout raises.
+  matters (accepted, unused). Attention dropout runs inside the kernels: a
+  Philox keep-mask keyed by ``dropout_seed`` and counted from (batch, head,
+  row, column) (``ops/philox.py``, ``csrc/philox.cuh``), which the plain
+  versions draw bit for bit the same; the JAX wrapper's refusals are kept
+  (no seed, dropout with a bias gradient, 1024 heads or more).
 * :func:`flash_attention_cached` — the length-masked cached forward (K4,
   ``csrc/flash_attention_cached.cu``). Key ``j`` attends to query row ``i``
   of batch ``b`` iff ``j <= q_pos[b, i]`` and, when ``kv_len`` is given,
   ``j < kv_len[b]``; a row with no valid key gives 0. Forward only: serving
   holds no gradients through the cache, and on a CUDA tensor the wrapper
   raises rather than return an output that autograd cannot see.
+
+Both take every head dim up to :data:`MAX_HEAD_DIM`: a head dim runs in the
+smallest instantiated width at or above it (:data:`FLASH_WIDTHS` for
+K1-K3), the columns past it zero-filled inside the kernel.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ import math
 
 import torch
 
+from .. import philox
 from ._build import check, dtype_code, library, needs_grad, stream_of
 
 __all__ = ["flash_attention", "flash_attention_fwd",
@@ -45,18 +55,22 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_plain", "flash_attention_cached",
            "flash_attention_cached_plain", "supports", "kernel_route",
-           "HEAD_DIMS", "FLASH_HEAD_DIMS", "NEG_INF"]
+           "MAX_HEAD_DIM", "FLASH_WIDTHS", "MAX_DROPOUT_HEADS", "NEG_INF"]
 
 NEG_INF = -1e30
-#: head dims K4 is instantiated for
-HEAD_DIMS = (32, 64, 96, 128)
-#: head dims K1-K3 are instantiated for (csrc/flash_attention.cu)
-FLASH_HEAD_DIMS = (32, 64, 80, 96, 128)
+#: the widest head dim the kernels take
+MAX_HEAD_DIM = 256
+#: widths K1-K3 are instantiated at (csrc/flash_attention.cuh); K4 is at
+#: 32, 64, 96, 128 and 256 (csrc/flash_attention_cached.cu)
+FLASH_WIDTHS = (16, 32, 64, 80, 96, 128, 256)
+#: the JAX kernels' in-kernel dropout takes fewer heads than this (their
+#: per-tile seed packs the head into 10 bits; flash_attention.py:754-759)
+MAX_DROPOUT_HEADS = 1024
 #: the JAX kernels' q/k block preference and lane width, for the CPU gate
 _DEFAULT_BLOCK = 1024
 DEFAULT_BLOCK_Q = DEFAULT_BLOCK_K = _DEFAULT_BLOCK
 _LANES = 128
-#: keys a tile of K1's online softmax (csrc/flash_tile.cuh kBK)
+#: keys a tile of K1's online softmax on the tensor cores
 _KEY_TILE = 64
 
 
@@ -104,11 +118,10 @@ def flash_attention_cached_plain(q, k, v, q_pos, kv_len=None, scale=None):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _check_qkv(q, k, v, what, head_dims, aligned):
+def _check_qkv(q, k, v, what):
     """``(b, sq, sk, h, d)`` of q, k and v as a kernel takes them: paddle
-    layout, one dtype and device, a contiguous head_dim, a head dim the
-    kernel is instantiated for and, with ``aligned``, every row 16-byte
-    aligned. Raises on anything else."""
+    layout, one dtype and device, a contiguous head_dim and a head dim up to
+    :data:`MAX_HEAD_DIM`. Raises on anything else."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k, v must be (batch, seq, heads, head_dim); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}")
@@ -117,22 +130,17 @@ def _check_qkv(q, k, v, what, head_dims, aligned):
     if k.shape != (b, sk, h, d) or v.shape != k.shape:
         raise ValueError(f"k/v must be ({b}, seq_k, {h}, {d}); got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if d not in head_dims:
-        raise ValueError(f"{what} kernel takes head_dim in {head_dims}, "
-                         f"got {d}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what} kernel takes head dims up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
     dtype_code(q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.stride(-1) != 1:
+        if d > 1 and t.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous head_dim "
-                             f"(strides {t.stride()})")
-        per16 = 16 // t.element_size()
-        if aligned and (t.data_ptr() % 16
-                        or any(st % per16 for st in t.stride()[:3])):
-            raise ValueError(f"{name} must be 16-byte aligned in every row "
                              f"(strides {t.stride()})")
     return b, sq, sk, h, d
 
@@ -156,8 +164,7 @@ def flash_attention_cached(q, k, v, q_pos, kv_len=None, *, scale=None):
     if needs_grad(q, k, v):
         raise RuntimeError("flash_attention_cached is forward-only: its "
                            "kernel's output is not recorded by autograd")
-    b, sq, sk, h, d = _check_qkv(q, k, v, "cached attention", HEAD_DIMS,
-                                 aligned=True)
+    b, sq, sk, h, d = _check_qkv(q, k, v, "cached attention")
     if tuple(q_pos.shape) != (b, sq):
         raise ValueError(f"q_pos must be ({b}, {sq}), got {tuple(q_pos.shape)}")
     qp = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
@@ -206,16 +213,50 @@ def _scale(q, scale):
     return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
 
 
-def flash_attention_fwd_plain(q, k, v, bias=None, causal=False, scale=None):
+def _keep(q, k, dropout_p, seed):
+    """The call's ``[b, h, sq, sk]`` keep-mask (None without dropout)."""
+    if not dropout_p:
+        return None
+    b, sq, h, _ = q.shape
+    return philox.keep_mask(seed, b, h, sq, k.shape[1], dropout_p, q.device)
+
+
+def _dropped(x, keep, dropout_p):
+    """``x`` where kept, times ``1 / (1 - p)``; 0 where dropped."""
+    if keep is None:
+        return x
+    return torch.where(keep, x * philox.inv_keep(dropout_p), 0.0)
+
+
+def kernel_route(dtype, head_dim=None):
+    """The route K1 and K3 take on the card for inputs of ``dtype`` and
+    ``head_dim`` (csrc/flash_attention.cu's dispatch): ``"mma.sync"``
+    tensor-core tiles for bf16 and fp16 up to head dim 128, ``"fma"`` fp32
+    FMA for fp32 and wider heads. K2 is ``"fma"`` in every type."""
+    dtype_code(dtype)
+    wide = head_dim is not None and head_dim > 128
+    return "fma" if dtype == torch.float32 or wide else "mma.sync"
+
+
+def _rounds(t):
+    """Whether K1 and K3 round p (and ds * scale) to ``t``'s type."""
+    return kernel_route(t.dtype, t.shape[-1]) == "mma.sync"
+
+
+def flash_attention_fwd_plain(q, k, v, bias=None, causal=False, scale=None,
+                              dropout_p=0.0, seed=None):
     """Plain version of K1: ``(out, lse)``; out in q's dtype ``(b, sq, h,
     d)``, lse fp32 ``(b, h, sq)``. ``bias`` is None or ``(B|1, H|1, sq,
     sk)``. The online softmax over 64-key tiles, as K1 runs it: each tile's
-    ``p = exp(s - m)`` against the row's running max ``m`` is rounded to v's
-    dtype before ``p v`` (as the TPU kernel rounds it,
-    flash_attention.py:156), while ``l`` sums the unrounded p; in fp32 the
-    rounding changes nothing."""
+    ``p = exp(s - m)`` against the row's running max ``m`` goes into ``l``
+    undropped; with dropout the kept p is scaled by ``1 / (1 - p)`` and the
+    dropped p is 0 in ``p v`` (flash_attention.py:148-154); on K1's
+    tensor-core route p is rounded to v's dtype before ``p v`` (as the TPU
+    kernel rounds it, :156)."""
     s, _ = _scores(q, k, bias, causal, _scale(q, scale))
+    keep = _keep(q, k, dropout_p, seed)
     vf = v.float().transpose(1, 2)
+    rnd = _rounds(v)
     m = torch.full(s.shape[:-1] + (1,), NEG_INF, device=s.device)
     l = torch.zeros_like(m)
     acc = torch.zeros(s.shape[:-1] + (vf.shape[-1],), device=s.device)
@@ -226,8 +267,11 @@ def flash_attention_fwd_plain(q, k, v, bias=None, causal=False, scale=None):
         # rows with no visible key so far: p 0 (_zero_masked_rows)
         p = torch.where(m_new > NEG_INF * 0.5, torch.exp(st - m_new), 0.0)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(),
-                                         vf[..., k0:k0 + _KEY_TILE, :])
+        if keep is not None:
+            p = _dropped(p, keep[..., k0:k0 + _KEY_TILE], dropout_p)
+        if rnd:
+            p = p.to(v.dtype).float()
+        acc = acc * alpha + torch.matmul(p, vf[..., k0:k0 + _KEY_TILE, :])
         m = m_new
     # rows with no visible key: output 0, lse -1e30
     l_safe = torch.where(l == 0.0, 1.0, l)
@@ -235,11 +279,14 @@ def flash_attention_fwd_plain(q, k, v, bias=None, causal=False, scale=None):
     return (acc / l_safe).transpose(1, 2).to(q.dtype), lse
 
 
-def _probs_ds(q, k, v, out, lse, dout, bias, causal, scale):
+def _probs_ds(q, k, v, out, lse, dout, bias, causal, scale, dropout_p=0.0,
+              seed=None):
     """fp32 ``(p, ds)`` ``[b, h, sq, sk]`` recomputed from the saved lse:
     ``p = exp(s - lse)`` (0 where masked and on rows with no visible key),
-    ``ds = p * (dout.v - rowsum(dout * out))``. K2's plain version and the
-    bias gradient use them unrounded; K3's rounds them."""
+    ``ds = p * (dp - rowsum(dout * out))``. With dropout, p comes back
+    dropped (the dv operand) and dp is masked and scaled before ds
+    (flash_attention.py:246-251). K2's plain version and the bias gradient
+    use them unrounded; K3's rounds them."""
     s, ok = _scores(q, k, bias, causal, scale)
     lse_ = lse.float()[..., None]
     live = lse_ > NEG_INF * 0.5
@@ -249,28 +296,37 @@ def _probs_ds(q, k, v, out, lse, dout, bias, causal, scale):
     gf = dout.float().transpose(1, 2)
     delta = (gf * out.float().transpose(1, 2)).sum(-1, keepdim=True)
     dp = torch.matmul(gf, v.float().permute(0, 2, 3, 1))
-    return p, p * (dp - delta)
+    keep = _keep(q, k, dropout_p, seed)
+    ds = p * (_dropped(dp, keep, dropout_p) - delta)
+    return _dropped(p, keep, dropout_p), ds
 
 
 def flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, bias=None,
-                                 causal=False, scale=None):
+                                 causal=False, scale=None, dropout_p=0.0,
+                                 seed=None):
     """Plain version of K2: dq ``(b, sq, h, d)`` in q's dtype, fp32 math."""
     scale = _scale(q, scale)
-    _, ds = _probs_ds(q, k, v, out, lse, dout, bias, causal, scale)
+    _, ds = _probs_ds(q, k, v, out, lse, dout, bias, causal, scale,
+                      dropout_p, seed)
     dq = torch.matmul(ds, k.float().transpose(1, 2)) * scale
     return dq.transpose(1, 2).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, bias=None,
-                                  causal=False, scale=None):
+                                  causal=False, scale=None, dropout_p=0.0,
+                                  seed=None):
     """Plain version of K3: ``(dk, dv)`` ``(b, sk, h, d)`` in k's and v's
-    dtypes, fp32 math; p and ``ds * scale`` are rounded to dout's and q's
-    types before their products, as K3 and the TPU kernel
-    (flash_attention.py:254, :257-259) do."""
+    dtypes, fp32 math; on K3's tensor-core route the (dropped) p and
+    ``ds * scale`` are rounded to dout's and q's types before their
+    products, as K3 and the TPU kernel (flash_attention.py:254, :257-259)
+    do."""
     scale = _scale(q, scale)
-    p, ds = _probs_ds(q, k, v, out, lse, dout, bias, causal, scale)
-    p = p.to(dout.dtype).float()
-    ds = (ds * scale).to(q.dtype).float()
+    p, ds = _probs_ds(q, k, v, out, lse, dout, bias, causal, scale,
+                      dropout_p, seed)
+    ds = ds * scale
+    if _rounds(q):
+        p = p.to(dout.dtype).float()
+        ds = ds.to(q.dtype).float()
     dk = torch.matmul(ds.transpose(-1, -2), q.float().transpose(1, 2))
     dv = torch.matmul(p.transpose(-1, -2), dout.float().transpose(1, 2))
     return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
@@ -280,21 +336,13 @@ def _dbias(q, k, v, out, lse, dout, bias, causal, scale):
     """The trainable bias's gradient, ``ds`` reduced onto the bias's
     broadcast shape (``paddle_tpu/ops/pallas/flash_attention.py:492-514``):
     PyTorch operations on the saved residuals on either device, exactly 0
-    on rows with no visible key."""
+    on rows with no visible key (no dropout: the wrapper refuses it with a
+    bias gradient, as JAX does)."""
     _, ds = _probs_ds(q, k, v, out, lse, dout, bias, causal, scale)
     red = tuple(i for i in (0, 1) if bias.shape[i] == 1)
     if red:
         ds = ds.sum(red, keepdim=True)
     return ds.to(bias.dtype)
-
-
-def kernel_route(dtype):
-    """The route K1 and K3 take on the card for inputs of ``dtype``
-    (csrc/flash_attention.cu's dispatch): ``"mma.sync"`` tensor-core tiles
-    for bf16 and fp16, ``"fma"`` fp32 FMA for fp32. K2 is ``"fma"`` in
-    every type."""
-    dtype_code(dtype)
-    return "fma" if dtype == torch.float32 else "mma.sync"
 
 
 def _flash_check(q, k, v, bias, what, *others):
@@ -306,8 +354,7 @@ def _flash_check(q, k, v, bias, what, *others):
         raise RuntimeError(
             f"{what}: the kernel's output is not recorded by autograd; call "
             "flash_attention, which differentiates through K1, K2 and K3")
-    b, sq, sk, h, d = _check_qkv(q, k, v, what, FLASH_HEAD_DIMS,
-                                 aligned=False)
+    b, sq, sk, h, d = _check_qkv(q, k, v, what)
     if bias is not None:
         if (bias.dim() != 4 or bias.shape[2:] != (sq, sk)
                 or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, h)
@@ -341,11 +388,21 @@ def _check_saved(q, out, lse, dout):
     return out.contiguous(), lse.contiguous(), dout.contiguous()
 
 
-def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None):
+def _tail(q, scale, causal, dropout_p, seed):
+    """The kernels' trailing C arguments (``_build._ATTN_TAIL``)."""
+    return (_scale(q, scale), int(bool(causal)),
+            *philox.kernel_args(dropout_p, seed), dtype_code(q.dtype),
+            stream_of(q))
+
+
+def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
+                        dropout_p=0.0, seed=None):
     """``(out, lse)``: CPU tensors take the plain version; CUDA tensors
-    launch kernel K1. ``bias`` is None or fp32 ``(B|1, H|1, sq, sk)``."""
+    launch kernel K1. ``bias`` is None or fp32 ``(B|1, H|1, sq, sk)``;
+    ``seed`` (two words) keys the dropout mask when ``dropout_p > 0``."""
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, bias, causal, scale)
+        return flash_attention_fwd_plain(q, k, v, bias, causal, scale,
+                                         dropout_p, seed)
     b, sq, sk, h, d = _flash_check(q, k, v, bias, "flash_attention_fwd")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -353,19 +410,19 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, sq, sk, h, d, *_flash_strides(q, k, v, bias),
-        _scale(q, scale), int(bool(causal)), dtype_code(q.dtype),
-        stream_of(q)), "flash_attention_fwd")
+        *_tail(q, scale, causal, dropout_p, seed)), "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.dropout_launches += int(bool(dropout_p))
     return out, lse
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, bias=None, causal=False,
-                           scale=None):
+                           scale=None, dropout_p=0.0, seed=None):
     """dq from the forward's ``out`` and ``lse``: CPU tensors take the plain
     version; CUDA tensors launch kernel K2."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, bias,
-                                            causal, scale)
+                                            causal, scale, dropout_p, seed)
     b, sq, sk, h, d = _flash_check(q, k, v, bias, "flash_attention_bwd_dq",
                                    out, dout)
     out, lse, dout = _check_saved(q, out, lse, dout)
@@ -374,19 +431,20 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, bias=None, causal=False,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), b, sq, sk, h, d,
-        *_flash_strides(q, k, v, bias), _scale(q, scale), int(bool(causal)),
-        dtype_code(q.dtype), stream_of(q)), "flash_attention_bwd_dq")
+        *_flash_strides(q, k, v, bias),
+        *_tail(q, scale, causal, dropout_p, seed)), "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.dropout_launches += int(bool(dropout_p))
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, dout, bias=None, causal=False,
-                            scale=None):
+                            scale=None, dropout_p=0.0, seed=None):
     """``(dk, dv)`` from the forward's ``out`` and ``lse``: CPU tensors take
     the plain version; CUDA tensors launch kernel K3."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, bias,
-                                             causal, scale)
+                                             causal, scale, dropout_p, seed)
     b, sq, sk, h, d = _flash_check(q, k, v, bias, "flash_attention_bwd_dkv",
                                    out, dout)
     out, lse, dout = _check_saved(q, out, lse, dout)
@@ -396,10 +454,10 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, bias=None, causal=False,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
-        sk, h, d, *_flash_strides(q, k, v, bias), _scale(q, scale),
-        int(bool(causal)), dtype_code(q.dtype), stream_of(q)),
-        "flash_attention_bwd_dkv")
+        sk, h, d, *_flash_strides(q, k, v, bias),
+        *_tail(q, scale, causal, dropout_p, seed)), "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.dropout_launches += int(bool(dropout_p))
     return dk, dv
 
 
@@ -409,27 +467,28 @@ class _Flash(torch.autograd.Function):
     their module names at call time."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, bias, causal, scale)
+    def forward(ctx, q, k, v, bias, causal, scale, dropout_p, seed):
+        out, lse = flash_attention_fwd(q, k, v, bias, causal, scale,
+                                       dropout_p, seed)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.args = (causal, scale)
+        ctx.args = (causal, scale, dropout_p, seed)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        causal, scale = ctx.args
+        causal, scale, dropout_p, seed = ctx.args
         dout = dout.contiguous()
         args = (q, k, v, out, lse, dout, bias, causal, scale)
         need = ctx.needs_input_grad
         dq = dk = dv = dbias = None
         if need[0]:
-            dq = flash_attention_bwd_dq(*args)
+            dq = flash_attention_bwd_dq(*args, dropout_p, seed)
         if need[1] or need[2]:
-            dk, dv = flash_attention_bwd_dkv(*args)
+            dk, dv = flash_attention_bwd_dkv(*args, dropout_p, seed)
         if need[3]:
             dbias = _dbias(*args)
-        return dq, dk, dv, dbias, None, None
+        return dq, dk, dv, dbias, None, None, None, None
 
 
 def _bias_4d(bias):
@@ -449,6 +508,30 @@ def _bias_4d(bias):
     return bias.reshape((1,) * (4 - bias.dim()) + tuple(bias.shape))
 
 
+def dropout_seed_words(dropout_p, dropout_seed, heads, bias_grad=False):
+    """The two seed words of an attention call with dropout (None without),
+    after the JAX wrapper's refusals (flash_attention.py:740-759): a seed is
+    required, a bias gradient cannot be taken (the bias's gradient is
+    recomputed outside the kernels, which cannot regenerate the mask), and
+    the heads must be fewer than :data:`MAX_DROPOUT_HEADS`."""
+    if not dropout_p:
+        return None
+    if dropout_seed is None:
+        raise ValueError("dropout_p > 0 requires dropout_seed")
+    if bias_grad:
+        raise ValueError(
+            "bias_grad with attention dropout is unsupported: the dbias "
+            "recompute cannot regenerate the in-kernel mask (pass "
+            "bias_grad=False for constant masks)")
+    if heads >= MAX_DROPOUT_HEADS:
+        raise ValueError(f"in-kernel dropout supports < {MAX_DROPOUT_HEADS} "
+                         f"heads (got {heads})")
+    seed = [int(w) for w in torch.as_tensor(dropout_seed).reshape(-1).tolist()]
+    if len(seed) != 2:
+        raise ValueError(f"dropout_seed must be two words, got {seed}")
+    return tuple(w & 0xFFFFFFFF for w in seed)
+
+
 def flash_attention(q, k, v, bias=None, *, causal=False, scale=None,
                     block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K,
                     interpret=None, bias_grad=True, dropout_p=0.0,
@@ -463,25 +546,32 @@ def flash_attention(q, k, v, bias=None, *, causal=False, scale=None,
       scale: softmax scale; default ``1/sqrt(head_dim)``.
       bias_grad: whether the backward computes the bias's gradient (False:
         the bias is a constant).
-      block_q, block_k, interpret, dropout_seed: TPU matters, unused.
-      dropout_p: must be 0 (attention dropout raises).
+      block_q, block_k, interpret: TPU matters, unused.
+      dropout_p: attention-probability dropout rate, applied inside the
+        kernels (no mask in device memory).
+      dropout_seed: two int32 words; the forward and backward kernels
+        regenerate the same keep-mask from them.
 
     CPU tensors take the plain versions; CUDA tensors launch K1, and K2 and
     K3 in the backward. Returns ``(batch, seq_q, heads, head_dim)``.
     """
-    if float(dropout_p) > 0.0:
-        raise NotImplementedError(
-            "attention dropout needs an in-kernel counter-based generator "
-            "(ROADMAP B note 6)")
+    dropout_p = float(dropout_p)
     bias = _bias_4d(bias)
+    seed = dropout_seed_words(dropout_p, dropout_seed, q.shape[2],
+                              bias is not None and bias_grad)
     if bias is not None and not bias_grad:
         bias = bias.detach()
     scale = _scale(q, scale)
     if needs_grad(q, k, v, bias):
-        return _Flash.apply(q, k, v, bias, bool(causal), scale)
-    return flash_attention_fwd(q, k, v, bias, bool(causal), scale)[0]
+        return _Flash.apply(q, k, v, bias, bool(causal), scale, dropout_p,
+                            seed)
+    return flash_attention_fwd(q, k, v, bias, bool(causal), scale, dropout_p,
+                               seed)[0]
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.dropout_launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.dropout_launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.dropout_launches = 0

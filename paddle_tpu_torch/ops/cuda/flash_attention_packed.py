@@ -14,9 +14,13 @@ q, k, v, the output and the fp32 logsumexp, and the backward recomputes the
 probabilities from them (K6), as the JAX custom vjp does. The raw launchers
 (:func:`flash_attention_packed_fwd`, :func:`flash_attention_packed_bwd`)
 raise on a CUDA tensor that asks autograd to record them. The JAX kernels'
-block sizes and dropout are TPU matters: the flags ``flash_attention_block_q``,
+block sizes are TPU matters: the flags ``flash_attention_block_q``,
 ``flash_attention_block_k`` and ``flash_attention_bwd_block`` are accepted
-and unused here, and attention dropout is refused by the router.
+and unused here. Attention dropout runs inside the kernels from a Philox
+keep-mask keyed by ``dropout_seed`` (``ops/philox.py``,
+``csrc/philox.cuh``), which depends only on (batch, head, row, column), so
+K5 and K6 regenerate it whatever their tiling, and the plain versions draw
+it bit for bit the same.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ import math
 
 import torch
 
+from .. import philox
 from ._build import check, dtype_code, library, needs_grad, stream_of
-from .flash_attention import _pick_block
+from .flash_attention import _dropped, _pick_block, dropout_seed_words
 
 __all__ = ["flash_attention_packed", "flash_attention_packed_plain",
            "flash_attention_packed_fwd", "flash_attention_packed_fwd_plain",
@@ -93,10 +98,20 @@ def _logits(q, k, num_heads, bias, causal, scale):
     return torch.where(ok, s, NEG_INF), ok
 
 
+def _keep(q, k, num_heads, dropout_p, seed):
+    if not dropout_p:
+        return None
+    b, sq, sk, h, _ = _heads(q, k, num_heads)
+    return philox.keep_mask(seed, b, h, sq, sk, dropout_p, q.device)
+
+
 def flash_attention_packed_fwd_plain(q, k, v, num_heads, bias=None,
-                                     causal=False, scale=None):
+                                     causal=False, scale=None, dropout_p=0.0,
+                                     seed=None):
     """Plain version of K5: ``(out, lse)``, dense fp32 scores. out is in
-    q's dtype, lse fp32 ``(b, h, sq)``."""
+    q's dtype, lse fp32 ``(b, h, sq)``. With dropout the row sum takes the
+    undropped p and ``p v`` the kept p times ``1 / (1 - p)``
+    (flash_attention_packed.py:145, :189)."""
     b, sq, sk, h, d = _heads(q, k, num_heads)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     s, _ = _logits(q, k, num_heads, bias, causal, scale)
@@ -105,6 +120,7 @@ def flash_attention_packed_fwd_plain(q, k, v, num_heads, bias=None,
     p = torch.where(m > NEG_INF * 0.5, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
+    p = _dropped(p, _keep(q, k, num_heads, dropout_p, seed), dropout_p)
     vf = v.float().reshape(b, sk, h, d).transpose(1, 2)
     out = torch.matmul(p, vf) / l_safe
     lse = (m + torch.log(l_safe)).squeeze(-1)
@@ -112,9 +128,11 @@ def flash_attention_packed_fwd_plain(q, k, v, num_heads, bias=None,
 
 
 def flash_attention_packed_bwd_plain(q, k, v, out, lse, dout, num_heads,
-                                     bias=None, causal=False, scale=None):
+                                     bias=None, causal=False, scale=None,
+                                     dropout_p=0.0, seed=None):
     """Plain version of K6: ``(dq, dk, dv)`` in the inputs' dtypes, from the
-    saved output and logsumexp, all in fp32."""
+    saved output and logsumexp, all in fp32. With dropout, dv takes the
+    dropped p and ds the masked and scaled dp (:286-290)."""
     b, sq, sk, h, d = _heads(q, k, num_heads)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     s, ok = _logits(q, k, num_heads, bias, causal, scale)
@@ -127,10 +145,11 @@ def flash_attention_packed_bwd_plain(q, k, v, out, lse, dout, num_heads,
     gf, of = heads(dout, sq), heads(out, sq)
     delta = (gf * of).sum(-1, keepdim=True)
     dp = torch.matmul(gf, heads(v, sk).transpose(-1, -2))
-    ds = p * (dp - delta)
+    keep = _keep(q, k, num_heads, dropout_p, seed)
+    ds = p * (_dropped(dp, keep, dropout_p) - delta)
     dq = torch.matmul(ds, heads(k, sk)) * scale
     dk = torch.matmul(ds.transpose(-1, -2), heads(q, sq)) * scale
-    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dv = torch.matmul(_dropped(p, keep, dropout_p).transpose(-1, -2), gf)
 
     def back(t, n, like):
         return t.transpose(1, 2).reshape(b, n, h * d).to(like.dtype)
@@ -173,13 +192,22 @@ def _strides(q, k, v):
     return (*q.stride()[:2], *k.stride()[:2], *v.stride()[:2])
 
 
+def _tail(scale, causal, dropout_p, seed, dtype, t):
+    """The kernels' trailing C arguments (``_build._ATTN_TAIL``)."""
+    return (float(scale), int(bool(causal)),
+            *philox.kernel_args(dropout_p, seed), dtype_code(dtype),
+            stream_of(t))
+
+
 def flash_attention_packed_fwd(q, k, v, num_heads, bias=None, causal=False,
-                               scale=None):
+                               scale=None, dropout_p=0.0, seed=None):
     """``(out, lse)``: CPU tensors take the plain version; CUDA tensors
-    launch kernel K5. ``bias`` is None or a contiguous fp32 ``(sq, sk)``."""
+    launch kernel K5. ``bias`` is None or a contiguous fp32 ``(sq, sk)``;
+    ``seed`` (two words) keys the dropout mask when ``dropout_p > 0``."""
     if q.device.type == "cpu":
         return flash_attention_packed_fwd_plain(q, k, v, num_heads, bias,
-                                                causal, scale)
+                                                causal, scale, dropout_p,
+                                                seed)
     b, sq, sk, h, d = _check_operands(q, k, v, bias, num_heads,
                                       "flash_attention_packed_fwd")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
@@ -188,22 +216,25 @@ def flash_attention_packed_fwd(q, k, v, num_heads, bias=None, causal=False,
     check(library().ptt_flash_attention_packed_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, sq, sk, h, d, *_strides(q, k, v), float(scale),
-        int(bool(causal)), dtype_code(q.dtype), stream_of(q)),
+        lse.data_ptr(), b, sq, sk, h, d, *_strides(q, k, v),
+        *_tail(scale, causal, dropout_p, seed, q.dtype, q)),
         "flash_attention_packed_fwd")
     flash_attention_packed_fwd.launches += 1
+    flash_attention_packed_fwd.dropout_launches += int(bool(dropout_p))
     return out, lse
 
 
 def flash_attention_packed_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
-                               causal=False, scale=None):
+                               causal=False, scale=None, dropout_p=0.0,
+                               seed=None):
     """``(dq, dk, dv)`` from the forward's ``out`` and ``lse``: CPU tensors
     take the plain version; CUDA tensors launch kernel K6 (with its delta
     pre-pass and dq cast pass). dq is summed with atomics, so its last bits
     vary from run to run."""
     if q.device.type == "cpu":
         return flash_attention_packed_bwd_plain(q, k, v, out, lse, dout,
-                                                num_heads, bias, causal, scale)
+                                                num_heads, bias, causal, scale,
+                                                dropout_p, seed)
     b, sq, sk, h, d = _check_operands(q, k, v, bias, num_heads,
                                       "flash_attention_packed_bwd", out, dout)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
@@ -225,9 +256,10 @@ def flash_attention_packed_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_ws.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d,
-        *_strides(q, k, v), float(scale), int(bool(causal)),
-        dtype_code(q.dtype), stream_of(q)), "flash_attention_packed_bwd")
+        *_strides(q, k, v), *_tail(scale, causal, dropout_p, seed, q.dtype, q)),
+        "flash_attention_packed_bwd")
     flash_attention_packed_bwd.launches += 1
+    flash_attention_packed_bwd.dropout_launches += int(bool(dropout_p))
     return dq, dk, dv
 
 
@@ -235,20 +267,22 @@ class _FlashPacked(torch.autograd.Function):
     """K5 forward, K6 backward; saves q, k, v, out and lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, num_heads, causal, scale):
+    def forward(ctx, q, k, v, bias, num_heads, causal, scale, dropout_p,
+                seed):
         out, lse = flash_attention_packed_fwd(q, k, v, num_heads, bias,
-                                              causal, scale)
+                                              causal, scale, dropout_p, seed)
         ctx.save_for_backward(q, k, v, out, lse, bias)
-        ctx.args = (num_heads, causal, scale)
+        ctx.args = (num_heads, causal, scale, dropout_p, seed)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, bias = ctx.saved_tensors
-        num_heads, causal, scale = ctx.args
+        num_heads, causal, scale, dropout_p, seed = ctx.args
         dq, dk, dv = flash_attention_packed_bwd(
-            q, k, v, out, lse, dout, num_heads, bias, causal, scale)
-        return dq, dk, dv, None, None, None, None
+            q, k, v, out, lse, dout, num_heads, bias, causal, scale,
+            dropout_p, seed)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _bias_f32(bias, sq, sk):
@@ -265,29 +299,43 @@ def _bias_f32(bias, sq, sk):
 
 
 def flash_attention_packed(q, k, v, num_heads, bias=None, *, causal=False,
-                           scale=None):
+                           scale=None, dropout_p=0.0, dropout_seed=None):
     """Flash attention over packed ``(batch, seq, heads * head_dim)``
     tensors; returns ``(batch, seq_q, heads * head_dim)`` in q's dtype.
 
     ``bias`` (optional) is a shared 2-D ``(seq_q, seq_k)`` additive or
-    boolean mask, constant (no gradient). CPU tensors take the plain
-    versions; CUDA tensors launch K5, and K6 in the backward."""
+    boolean mask, constant (no gradient). ``dropout_p`` drops attention
+    probabilities inside the kernels from the keep-mask keyed by
+    ``dropout_seed`` (two words; required with dropout, as are fewer than
+    1024 heads, as in the JAX wrapper). CPU tensors take the plain versions;
+    CUDA tensors launch K5, and K6 in the backward."""
     b, sq, sk, h, d = _heads(q, k, num_heads)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     bias = _bias_f32(bias, sq, sk)
+    dropout_p = float(dropout_p)
+    seed = dropout_seed_words(dropout_p, dropout_seed, h)
     if needs_grad(q, k, v):
-        return _FlashPacked.apply(q, k, v, bias, h, bool(causal), scale)
-    return flash_attention_packed_fwd(q, k, v, h, bias, causal, scale)[0]
+        return _FlashPacked.apply(q, k, v, bias, h, bool(causal), scale,
+                                  dropout_p, seed)
+    return flash_attention_packed_fwd(q, k, v, h, bias, causal, scale,
+                                      dropout_p, seed)[0]
 
 
 def flash_attention_packed_plain(q, k, v, num_heads, bias=None, *,
-                                 causal=False, scale=None):
+                                 causal=False, scale=None, dropout_p=0.0,
+                                 dropout_seed=None):
     """The plain version of :func:`flash_attention_packed`, differentiable
-    by autograd itself (the reference run on the card)."""
+    by autograd itself (the reference run on the card); it drops the same
+    elements as the kernels for the same seed."""
     b, sq, sk, h, d = _heads(q, k, num_heads)
+    dropout_p = float(dropout_p)
+    seed = dropout_seed_words(dropout_p, dropout_seed, h)
     return flash_attention_packed_fwd_plain(
-        q, k, v, h, _bias_f32(bias, sq, sk), causal, scale)[0]
+        q, k, v, h, _bias_f32(bias, sq, sk), causal, scale, dropout_p,
+        seed)[0]
 
 
 flash_attention_packed_fwd.launches = 0
+flash_attention_packed_fwd.dropout_launches = 0
 flash_attention_packed_bwd.launches = 0
+flash_attention_packed_bwd.dropout_launches = 0

@@ -20,7 +20,11 @@ in ``[0, vocab)`` (the router passes ``ignore_index`` rows as label 0 and
 zeroes their ``g``). x and w may differ in dtype (bf16 against fp32, as
 ``amp.auto_cast`` can give): both are widened to fp32, which is exact and is
 what JAX's ``dot_general`` promotion computes, and ``dl`` is still rounded
-to the narrower operand's type where the reference casts it so.
+to the narrower operand's type where the reference casts it so. The kernels
+take fp32, bf16 and fp16 operands and every hidden size the JAX gate admits
+(a multiple of 128): up to 1024 the token (or vocab) block stays in shared
+memory, above that the hidden width streams through it in 256-column
+chunks.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (``csrc/fused_ce.cu``) or raises. The raw launchers
@@ -35,18 +39,14 @@ from ._build import check, dtype_code, library, needs_grad, stream_of
 
 __all__ = ["flash_linear_cross_entropy", "ce_forward", "ce_forward_plain",
            "ce_backward_dx", "ce_backward_dx_plain", "ce_backward_dw",
-           "ce_backward_dw_plain", "mm_f32", "supports", "LANES",
-           "MAX_HIDDEN"]
+           "ce_backward_dw_plain", "mm_f32", "supports", "LANES"]
 
 #: the JAX gate's lane width (``fused_ce.supports``)
 LANES = 128
-#: widest hidden size the kernels take (the fp32 backward: 768, its tiles
-#: fill a CTA's shared memory)
-MAX_HIDDEN = 1024
-MAX_HIDDEN_FP32_BWD = 768
 #: token chunk of the plain versions (a [2048, vocab] fp32 tile at a time)
 _PLAIN_CHUNK = 2048
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: dl's rounding on the fp32 path (csrc/fused_ce.cu ``round_dl``)
+_ROUND_DL = {torch.bfloat16: 1, torch.float16: 2}
 
 
 def supports(hidden_size):
@@ -145,15 +145,14 @@ def _operands(what, x, w, b, y, *per_token):
                          "[tokens, hidden] and [vocab, hidden]")
     n, h = x.shape
     v = w.shape[0]
-    if not supports(h) or h > MAX_HIDDEN:
+    if not supports(h):
         raise ValueError(f"{what} kernel takes hidden sizes that are multiples "
-                         f"of {LANES} up to {MAX_HIDDEN}, got {h}")
+                         f"of {LANES}, got {h}")
     for t in (w, b, y, *per_token):
         if t is not None and t.device != x.device:
             raise ValueError(f"{what}: all operands must be on {x.device}")
-    if x.dtype not in _KERNEL_DTYPES or w.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{what} kernel takes fp32 or bf16 x and w, got "
-                        f"{x.dtype} and {w.dtype}")
+    dtype_code(x.dtype)
+    dtype_code(w.dtype)
     if x.dtype != w.dtype:
         x, w = x.float(), w.float()
     if b is not None:
@@ -198,9 +197,6 @@ def _bwd(what, mode, x, w, b, y, g, lse, round_to):
     xk, wk, bk, yk, gk, lk = _operands(what, x, w, b, y, g, lse)
     n, h = xk.shape
     v = wk.shape[0]
-    if xk.dtype == torch.float32 and h > MAX_HIDDEN_FP32_BWD:
-        raise ValueError(f"{what} kernel takes fp32 operands up to hidden "
-                         f"{MAX_HIDDEN_FP32_BWD}, got {h}")
     rows = n if mode == 0 else v
     out = torch.empty((rows, h), dtype=xk.dtype, device=x.device)
     db = (torch.empty(v, dtype=torch.float32, device=x.device)
@@ -212,7 +208,7 @@ def _bwd(what, mode, x, w, b, y, g, lse, round_to):
         return out, db
     # dl is rounded to the narrower operand's type when the operands were
     # widened to fp32 (the reference casts dl to w.dtype for dx, x.dtype for dw)
-    round_dl = int(xk.dtype == torch.float32 and round_to == torch.bfloat16)
+    round_dl = _ROUND_DL.get(round_to, 0) if xk.dtype == torch.float32 else 0
     check(library().ptt_fused_ce_bwd(
         xk.data_ptr(), wk.data_ptr(), _ptr(bk), yk.data_ptr(), gk.data_ptr(),
         lk.data_ptr(), out.data_ptr(), _ptr(db), n, v, h, mode, round_dl,

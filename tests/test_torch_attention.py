@@ -206,8 +206,29 @@ def test_kernel_wrapper_refuses_a_non_cuda_device():
         k4.flash_attention_cached(q, q, q, qp)
 
 
-def test_uncached_dropout_waits_for_the_training_slice():
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        PA.scaled_dot_product_attention(q, q, q, dropout_p=0.1,
-                                         is_causal=True, training=True)
+def test_uncached_dropout_waits_for_the_training_slice(monkeypatch):
+    """Attention dropout in training runs on the CPU: the dense path with a
+    bernoulli keep-mask from the port's generator, replayed by
+    ``framework.random.seed`` and equal to JAX's ``_sdpa_raw`` given the
+    mask it drew."""
+    from paddle_tpu_torch.framework import random as rnd
+
+    q, k, v = _qkv(1, 4, 4, 2, 8, seed=5)
+    drawn = []
+    real = PA._keep_mask
+
+    def spy(*a):
+        drawn.append(real(*a))
+        return drawn[-1]
+
+    monkeypatch.setattr(PA, "_keep_mask", spy)
+    outs = []
+    for _ in range(2):
+        rnd.seed(11)
+        outs.append(PA.scaled_dot_product_attention(
+            *_t(q, k, v), dropout_p=0.1, is_causal=True, training=True))
+    assert torch.equal(outs[0], outs[1])
+    want = np.asarray(JA._sdpa_raw.raw(*_j(q, k, v), None,
+                                       jnp.asarray(drawn[0].numpy()),
+                                       causal=True, dropout_p=0.1))
+    np.testing.assert_allclose(outs[0].numpy(), want, atol=FP32_TOL, rtol=0)

@@ -103,6 +103,14 @@ _CASES = [
     (1, 300, 2048, 16, 96, torch.bfloat16),    # GPT-3 Large prefill
     (8, 1, 2048, 16, 96, torch.bfloat16),      # GPT-3 Large decode
     (2, 9, 65, 3, 96, torch.float32),
+    # head dims in the next instantiated width (zero-filled columns):
+    # GPT-3 2.7B's 80 (prefill and decode), 256, and 20 (rows not 16-byte
+    # aligned: plain loads)
+    (1, 300, 512, 32, 80, torch.bfloat16),
+    (8, 1, 2048, 32, 80, torch.bfloat16),
+    (2, 40, 130, 2, 256, torch.bfloat16),
+    (2, 9, 65, 2, 256, torch.float32),
+    (2, 9, 65, 3, 20, torch.float16),
 ]
 
 
@@ -145,12 +153,17 @@ def test_cached_attention_reads_strided_views_in_place(dev):
 
 
 def test_cached_attention_rejects_misaligned_rows(dev):
+    """Rows that are not 16-byte aligned load with plain loads in the same
+    kernel: the bits of the same inputs made contiguous, and the plain
+    version's values."""
     q = torch.randn(1, 4, 2, 65, device=dev, dtype=torch.bfloat16)[..., 1:]
-    qp = torch.zeros(1, 4, dtype=torch.int32, device=dev)
+    qp = torch.arange(4, dtype=torch.int32, device=dev)[None]
     before = k4.flash_attention_cached.launches
-    with pytest.raises(ValueError, match="aligned"):
-        k4.flash_attention_cached(q, q, q, qp)
-    assert k4.flash_attention_cached.launches == before
+    got = k4.flash_attention_cached(q, q, q, qp)
+    assert k4.flash_attention_cached.launches == before + 1
+    qc = q.contiguous()
+    assert torch.equal(got, k4.flash_attention_cached(qc, qc, qc, qp))
+    _assert_close(got, k4.flash_attention_cached_plain(q, q, q, qp))
 
 
 def _packed_qkv(dev, dtype, b, sq, sk, h, d, seed):
@@ -309,7 +322,8 @@ def _k1_counts():
 def test_router_sends_training_attention_to_k5_k6_on_the_card(dev):
     """At sq·sk >= 1024² a causal call takes K5 and K6; a 4-D mask or a head
     dim the packed kernels do not take (GPT-3 Large's 96) takes K1, and K2
-    and K3 in the backward; dropout raises."""
+    and K3 in the backward; with dropout in training they launch with
+    in-kernel dropout."""
     qkv = torch.randn(1, 1024, 3, 2, 64, device=dev, requires_grad=True)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     counts = (k5.flash_attention_packed_fwd.launches,
@@ -333,9 +347,26 @@ def test_router_sends_training_attention_to_k5_k6_on_the_card(dev):
     assert (k5.flash_attention_packed_fwd.launches,
             k5.flash_attention_packed_bwd.launches) == (counts[0] + 1,
                                                         counts[1] + 1)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        PF.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
-                                        is_causal=True, training=True)
+    # dropout in training: K5 and K6 with in-kernel dropout, keyed by two
+    # seed words of the port's generator
+    drops = (k5.flash_attention_packed_fwd.dropout_launches,
+             k5.flash_attention_packed_bwd.dropout_launches)
+    out = PF.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                          is_causal=True, training=True)
+    out.sum().backward()
+    assert (k5.flash_attention_packed_fwd.dropout_launches,
+            k5.flash_attention_packed_bwd.dropout_launches) == (
+                drops[0] + 1, drops[1] + 1)
+    # ... and K1-K3 for a head dim the packed kernels do not take
+    drops = (k1.flash_attention_fwd.dropout_launches,
+             k1.flash_attention_bwd_dkv.dropout_launches)
+    out = PF.scaled_dot_product_attention(odd[:, :, 0], odd[:, :, 1],
+                                          odd[:, :, 2], dropout_p=0.1,
+                                          is_causal=True, training=True)
+    out.sum().backward()
+    assert (k1.flash_attention_fwd.dropout_launches,
+            k1.flash_attention_bwd_dkv.dropout_launches) == (
+                drops[0] + 1, drops[1] + 1)
 
 
 # (b, sq, sk, h, d, dtype, causal, bias (B, H) or None): GPT-3 Large's head
@@ -360,6 +391,15 @@ _FLASH = [
     (1, 300, 200, 4, 96, torch.float16, True, (1, 4)),
     (2, 77, 77, 2, 128, torch.bfloat16, True, (2, 1)),
     (1, 192, 130, 2, 128, torch.float16, False, (1, 2)),
+    # head dims in the next instantiated width (zero-filled columns): 16,
+    # 48 and 112 on the tensor cores, 256 on FMA with 32 x 32 tiles, 20
+    # (rows not 16-byte aligned: plain loads)
+    (1, 100, 100, 2, 16, torch.bfloat16, True, None),
+    (2, 130, 130, 2, 48, torch.float16, True, (1, 2)),
+    (1, 100, 150, 2, 112, torch.bfloat16, True, None),
+    (2, 130, 100, 2, 256, torch.bfloat16, True, (2, 1)),
+    (1, 70, 70, 2, 256, torch.float32, False, None),
+    (1, 77, 77, 2, 20, torch.bfloat16, True, (1, 1)),
 ]
 
 
@@ -445,6 +485,98 @@ def test_flash_attention_routes_by_dtype():
     assert k1.kernel_route(torch.bfloat16) == "mma.sync"
     assert k1.kernel_route(torch.float16) == "mma.sync"
     assert k1.kernel_route(torch.float32) == "fma"
+    assert k1.kernel_route(torch.bfloat16, 128) == "mma.sync"
+    assert k1.kernel_route(torch.bfloat16, 256) == "fma"
+
+
+# (b, sq, sk, h, d, dtype, causal, bias (B, H) or None) with dropout 0.3:
+# the tensor-core route, FMA (fp32, and width 256), a constant bias and a
+# causal boundary inside a tile
+_FLASH_DROPOUT = [
+    (2, 200, 200, 3, 96, torch.bfloat16, True, None),
+    (1, 130, 100, 2, 64, torch.float32, True, (1, 2)),
+    (2, 100, 130, 2, 32, torch.float16, False, None),
+    (1, 90, 90, 2, 256, torch.bfloat16, True, None),
+]
+_SEED = (0x9E3779B9, 12345)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,dtype,causal,bias_bh", _FLASH_DROPOUT)
+def test_flash_attention_dropout_matches_plain(dev, b, sq, sk, h, d, dtype,
+                                               causal, bias_bh):
+    """K1-K3 with in-kernel dropout against their plain versions on the
+    same seed (one Philox mask), under the dropout-0 limits; the same bits
+    from run to run; each launch counted as a dropout launch."""
+    q, k, v, bias = _flash_inputs(dev, dtype, b, sq, sk, h, d, bias_bh,
+                                  seed=sq + d)
+    drop = (0.3, _SEED)
+    before = (k1.flash_attention_fwd.dropout_launches,
+              k1.flash_attention_bwd_dq.dropout_launches,
+              k1.flash_attention_bwd_dkv.dropout_launches)
+    out, lse = k1.flash_attention_fwd(q, k, v, bias, causal, None, *drop)
+    want_out, want_lse = k1.flash_attention_fwd_plain(q, k, v, bias, causal,
+                                                      None, *drop)
+    _assert_close(out, want_out)
+    _assert_close(lse, want_lse)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    dout = torch.randn(b, sq, h, d, generator=g).to(dev, dtype)
+    args = (q, k, v, out, lse, dout, bias, causal, None)
+    dq = k1.flash_attention_bwd_dq(*args, *drop)
+    dk, dv = k1.flash_attention_bwd_dkv(*args, *drop)
+    torch.cuda.synchronize()
+    assert (k1.flash_attention_fwd.dropout_launches,
+            k1.flash_attention_bwd_dq.dropout_launches,
+            k1.flash_attention_bwd_dkv.dropout_launches) == tuple(
+                c + 1 for c in before)
+    _assert_close(dq, k1.flash_attention_bwd_dq_plain(*args, *drop))
+    for got, ref in zip((dk, dv),
+                        k1.flash_attention_bwd_dkv_plain(*args, *drop)):
+        _assert_close(got, ref)
+    assert torch.equal(dq, k1.flash_attention_bwd_dq(*args, *drop))
+    # another seed drops other elements
+    other = k1.flash_attention_fwd(q, k, v, bias, causal, None, 0.3, (1, 2))
+    assert not torch.equal(out, other[0])
+
+
+@pytest.mark.parametrize("b,s,h,d,dtype", [
+    (2, 300, 4, 64, torch.bfloat16), (1, 200, 2, 128, torch.float32),
+    (2, 130, 4, 32, torch.float16)])
+def test_packed_attention_dropout_matches_plain(dev, b, s, h, d, dtype):
+    """K5/K6 with in-kernel dropout against their plain versions on the
+    same seed, causal, under the dropout-0 limits."""
+    q, k, v = _packed_qkv(dev, dtype, b, s, s, h, d, seed=s + d)
+    drop = (0.1, _SEED)
+    before = (k5.flash_attention_packed_fwd.dropout_launches,
+              k5.flash_attention_packed_bwd.dropout_launches)
+    out, lse = k5.flash_attention_packed_fwd(q, k, v, h, None, True, None,
+                                             *drop)
+    want = k5.flash_attention_packed_fwd_plain(q, k, v, h, None, True, None,
+                                               *drop)
+    _assert_close(out, want[0])
+    _assert_close(lse, want[1])
+    g = torch.Generator(device="cpu").manual_seed(9)
+    dout = torch.randn(b, s, h * d, generator=g).to(dev, dtype)
+    grads = k5.flash_attention_packed_bwd(q, k, v, out, lse, dout, h, None,
+                                          True, None, *drop)
+    torch.cuda.synchronize()
+    assert (k5.flash_attention_packed_fwd.dropout_launches,
+            k5.flash_attention_packed_bwd.dropout_launches) == (
+                before[0] + 1, before[1] + 1)
+    want = k5.flash_attention_packed_bwd_plain(q, k, v, out, lse, dout, h,
+                                               None, True, None, *drop)
+    for got, ref in zip(grads, want):
+        _assert_close(got, ref)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,p", [(2, 3, 70, 77, 0.1),
+                                         (1, 12, 1024, 1024, 0.5),
+                                         (3, 1, 5, 9, 0.01)])
+def test_device_philox_draws_the_plain_mask(dev, b, h, sq, sk, p):
+    from paddle_tpu_torch.ops import philox
+
+    got = philox.keep_mask_kernel(_SEED, b, h, sq, sk, p)
+    want = philox.keep_mask(_SEED, b, h, sq, sk, p, dev)
+    assert torch.equal(got, want)
 
 
 def test_flash_attention_autograd_matches_plain(dev, monkeypatch):
@@ -476,8 +608,8 @@ def test_flash_attention_autograd_matches_plain(dev, monkeypatch):
 
 
 def test_flash_attention_refuses_what_it_does_not_take(dev):
-    x = torch.randn(1, 64, 2, 48, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
+    x = torch.randn(1, 64, 2, 257, device=dev)
+    with pytest.raises(ValueError, match="up to 256"):
         k1.flash_attention_fwd(x, x, x)
     y = torch.randn(1, 64, 2, 96, device=dev)
     with pytest.raises(ValueError, match="bias"):
@@ -500,6 +632,13 @@ _FCE = [
     (100, 300, 1024, torch.bfloat16, torch.bfloat16, True),
     (33, 200, 384, torch.bfloat16, torch.bfloat16, False),
     (90, 150, 128, torch.float32, torch.bfloat16, True),
+    # fp16, and widths whose hidden streams through 256-column chunks:
+    # GPT-3 Large's 1536, a ragged last chunk (1152), fp32 above 768
+    (300, 1000, 768, torch.float16, torch.float16, True),
+    (100, 300, 1536, torch.bfloat16, torch.bfloat16, True),
+    (70, 130, 1152, torch.float16, torch.float16, False),
+    (64, 130, 1024, torch.float32, torch.float32, True),
+    (90, 150, 1536, torch.float32, torch.float16, True),
 ]
 
 
@@ -514,13 +653,13 @@ def _fce_inputs(dev, n, v, h, xdt, wdt, use_bias, seed):
     return x, w, b, y, go
 
 
-def _close_to_max(got, want):
-    """One bf16 step of the largest reference value (fp32 outputs of bf16
-    tile products), or 5e-5 absolute for fp32 operands."""
+def _close_to_max(got, want, step=2.0 ** -7):
+    """One step of the operand type (bf16 by default) of the largest
+    reference value (fp32 outputs of 2-byte tile products)."""
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= 2.0 ** -7 * want.float().abs().max().item(), err
+    assert err <= step * want.float().abs().max().item(), err
 
 
 @pytest.mark.parametrize("n,v,h,xdt,wdt,use_bias", _FCE)
@@ -531,10 +670,10 @@ def test_fused_ce_kernels_match_plain(dev, n, v, h, xdt, wdt, use_bias):
     torch.cuda.synchronize()
     assert k9.ce_forward.launches == c0 + 1
     want = k9.ce_forward_plain(x, w, b, y)
-    low = torch.bfloat16 in (xdt, wdt)
+    low = xdt == wdt != torch.float32
     for got, ref in zip((loss, lse), want):
         if low:
-            _close_to_max(got, ref)
+            _close_to_max(got, ref, _STEP[xdt])
         else:
             _assert_close(got, ref)
     c1, c2 = k9.ce_backward_dx.launches, k9.ce_backward_dw.launches
@@ -601,11 +740,10 @@ def test_fused_ce_launchers_refuse_what_they_do_not_take(dev):
         k9.ce_backward_dx(xg, w, None, y, go, lse)
     with pytest.raises(RuntimeError, match="autograd"):
         k9.ce_backward_dw(xg, w, None, y, go, lse)
-    with pytest.raises(TypeError, match="bf16"):
-        k9.ce_forward(x.half(), w.half(), None, y)
-    wide = torch.zeros(16, 1152, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="1024"):
-        k9.ce_forward(wide, wide, None, y)
-    x32 = torch.zeros(16, 1024, device=dev)
-    with pytest.raises(ValueError, match="768"):
-        k9.ce_backward_dx(x32, x32, None, y, go, go)
+    # fp16 and every hidden size that is a multiple of 128 are taken now;
+    # other sizes and types are not
+    with pytest.raises(TypeError, match="no CUDA kernel"):
+        k9.ce_forward(x.double(), w.double(), None, y)
+    odd = torch.zeros(16, 200, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        k9.ce_forward(odd, odd, None, y)

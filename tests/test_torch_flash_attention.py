@@ -231,9 +231,19 @@ def test_bf16_plain_k1_k3_round_as_the_pallas_kernels(
 
 
 def test_wrapper_refuses_dropout_and_3d_masks():
+    """The wrapper refuses what the JAX wrapper refuses: dropout without a
+    seed or with a bias gradient, and a 3-D mask. With a seed, dropout runs
+    in the plain versions from the Philox mask (tests/test_torch_dropout.py
+    holds them to the dense path)."""
     x = torch.zeros(1, 128, 2, 96)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         k1.flash_attention(x, x, x, dropout_p=0.1)
+    with pytest.raises(ValueError, match="bias_grad"):
+        k1.flash_attention(x, x, x, bias=torch.zeros(128, 128),
+                           dropout_p=0.1, dropout_seed=(1, 2))
+    out = k1.flash_attention(x + 1, x, x + 1, dropout_p=0.5,
+                             dropout_seed=(1, 2))
+    assert out.shape == x.shape and bool(out.isfinite().all())
     with pytest.raises(ValueError, match="3-D"):
         k1.flash_attention(x, x, x, bias=torch.zeros(1, 128, 128))
 
