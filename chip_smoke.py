@@ -10,14 +10,17 @@
 3. Kernel phase: every kernel of the serving and training paths against its
    plain PyTorch version at the shapes GPT-2 124M gives it (serving: K4,
    K7, K4 also at GPT-3 Large's head dim 96; training at batch 24 x 1024:
-   K5, K6, K7, K8; K9-K11 in 6; K1-K3, and K7/K8 at width 1536, in 8),
-   in bf16, with the
+   K5, K6, K7, K8; K9-K11 in 6; K1-K3, and K7/K8 at width 1536, in 8;
+   K4 also at head dims 320 and 512, bf16 and fp32), in bf16, with the
    kernel's, the plain version's and one library call's time (CUDA events,
    L2 flushed before every launch) beside the kernel's bound.
    Tolerance: kernel and plain version compute in fp32 and round once to
    bf16, so they agree to one bf16 step, |Δ| <= 2^-7 · max(1, |ref|) (K6's
    dq is summed with atomics, K8's dgamma/dbeta over 24576 or 16384 rows,
-   both in fp32: orders that differ far below a bf16 step).
+   both in fp32: orders that differ far below a bf16 step). K5 runs K1's
+   tensor-core forward and rounds p to bf16 before p v, as its plain
+   version does (K1's 64-key online softmax): also a quarter step in
+   relative L2 norm.
 4. Serving phase (a main path): GPT-2 124M (vocab 50304, hidden 768, 12
    layers, 12 heads, 1024 positions) with random weights from
    ``torch.manual_seed(0)``, bf16 with fp32 LayerNorms, behind
@@ -76,12 +79,15 @@
    at a (1, 16, sq, sk) bias, and in fp32: within one step of the type per
    element (bf16 2^-7, fp16 2^-10) and a quarter of one in relative L2
    norm, 5e-5 in fp32; rows with no visible key exactly 0 in out and dq, a
-   key no row sees exactly 0 in dk and dv. Each case gives its route (K1
-   and K3: ``mma.sync`` tensor cores at bf16/fp16, ``fma`` at fp32; K2
-   ``fma``), achieved TFLOP/s and share of its bound. Beside them SDPA's
-   forward and backward at the train shape. Right after the build,
-   ``cuobjdump -sass`` of the library must show tensor-core instructions
-   (HMMA, or HGMMA) in every bf16 K1 and K3 function.
+   key no row sees exactly 0 in dk and dv. Each case gives its route
+   (K1-K3: ``mma.sync`` tensor cores at bf16/fp16 up to head dim 128,
+   ``fma`` at fp32 and wider heads; K2 rounds ds * scale to the input type
+   before ds k, as its plain version does), achieved TFLOP/s and share of
+   its bound. Beside them SDPA's forward and backward at the train shape.
+   Right after the build, ``cuobjdump -sass`` of the library must show
+   tensor-core instructions (HMMA, or HGMMA) in every bf16 K1, K2 and K3
+   tensor-core function, and ptxas's registers and spills of the bf16
+   attention kernels are printed.
    K7 and K8 at GPT-3 Large's LayerNorm shape (16384 rows of 1536, bf16 x,
    fp32 gamma and beta) within one bf16 step, beside ``F.layer_norm`` and
    ``native_layer_norm_backward``.
@@ -107,8 +113,9 @@
     Philox (a test-only launch) against ``ops/philox.py`` bit for bit on
     the train shape's whole mask, its keep rate within 4 sigma of 0.9.
     K1-K3 at head dims 16, 48, 112 and 256 (b 2, s 1024, 8 heads, bf16,
-    causal), K4 at GPT-3 2.7B's head dim 80 (32 heads; prefill and
-    decode), and K9-K11 at GPT-3 Large's loss shape (16384 tokens, hidden
+    causal) and above 256 (320 and 512 in bf16, 320 in fp32: the chunked
+    kernels), K4 at GPT-3 2.7B's head dim 80 (32 heads; prefill and
+    decode) and at 320 and 512, and K9-K11 at GPT-3 Large's loss shape (16384 tokens, hidden
     1536, vocab 50304, bf16: the hidden width streamed) and in fp16 (one
     fp16 step of the largest value), each against its plain version.
 11. gpt2_dropout phase (the main path of the dropout slice): GPT-2 124M at
@@ -121,9 +128,10 @@
     one seed (both runs drop the same elements; losses within 2e-3), and a
     second kernel run whose first forward loss must equal the first run's
     bit for bit.
-12. Prints the ``kernels`` JSON line (K1-K11; K1-K3 with their route by
-    dtype, K1 and K3 with their bf16 HMMA counts, K1-K3 and K5/K6 with a
-    ``dropout`` entry), then the result line last.
+12. Prints the ``kernels`` JSON line (K1-K11; K1-K3 and K5 with their
+    route by dtype, K1-K3 with their bf16 HMMA counts and ptxas registers
+    and spills, K1-K3 and K5/K6 with a ``dropout`` entry), then the result
+    line last.
 
 Any failure raises and exits non-zero; nothing is printed as a result then.
 """
@@ -301,13 +309,34 @@ def kernel_phase(torch, timer):
                            torch.tensor([[0], [299], [511], [900], [1200],
                                          [1700], [2047], [64]],
                                         dtype=torch.int32), None)
+    # head dims above 256 (the chunked kernel: q and K in 128-column
+    # chunks, the output in 256-column slices): prefill and decode at 320
+    # (a ragged last chunk), 512 (two slices) in bf16, 320 in fp32
+
+    def wide(*shape, dt=torch.bfloat16):
+        return torch.randn(*shape, generator=gen).to(dev, dt)
+
+    for name, hw, dw, dt in (("d320", 4, 320, torch.bfloat16),
+                             ("d512", 2, 512, torch.bfloat16),
+                             ("d320_fp32", 2, 320, torch.float32)):
+        cases["prefill_" + name] = (
+            wide(2, 512, hw, dw, dt=dt), wide(2, 512, hw, dw, dt=dt),
+            wide(2, 512, hw, dw, dt=dt),
+            torch.arange(512, dtype=torch.int32)[None].repeat(2, 1),
+            torch.tensor([300, 512], dtype=torch.int32))
+        cases["decode_" + name] = (
+            wide(2, 1, hw, dw, dt=dt), wide(2, 1024, hw, dw, dt=dt),
+            wide(2, 1024, hw, dw, dt=dt),
+            torch.tensor([[700], [1023]], dtype=torch.int32), None)
     for name, (q, k, v, qp, kl) in cases.items():
         b, sq, h, d = q.shape
         qp = qp.to(dev)
         kl = None if kl is None else kl.to(dev)
         sk = k.shape[1]
-        err = _bf16_err(k4.flash_attention_cached(q, k, v, qp, kl),
-                        k4.flash_attention_cached_plain(q, k, v, qp, kl))
+        got = k4.flash_attention_cached(q, k, v, qp, kl)
+        want = k4.flash_attention_cached_plain(q, k, v, qp, kl)
+        err = (_max_rel_err(got, want, "fp32") if q.dtype == torch.float32
+               else _bf16_err(got, want))
         col = torch.arange(sk, device=dev)
         ok = col[None, None, :] <= qp[:, :, None]
         if kl is not None:
@@ -317,13 +346,16 @@ def kernel_phase(torch, timer):
         # visible key
         vis = ok.any(1)                                       # [b, sk]
         keys = int((torch.where(vis, col, -1).amax(-1) + 1).sum())
-        nbytes = (2 * q.numel() * 2 + 2 * keys * h * d * 2
+        esz = q.element_size()
+        nbytes = (2 * q.numel() * esz + 2 * keys * h * d * esz
                   + qp.numel() * 4 + (0 if kl is None else kl.numel() * 4))
-        bound, by = _bound(nbytes, 4 * d * pairs, H100_BF16_FLOPS)
+        bound, by = _bound(nbytes, 4 * d * pairs,
+                           H100_FP32_FLOPS if esz == 4 else H100_BF16_FLOPS)
         mask = ok[:, None]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         fa_cases.append({
-            "case": name, "shape": {"q": list(q.shape), "kv": list(k.shape)},
+            "case": name, "shape": {"q": list(q.shape), "kv": list(k.shape),
+                                    "dtype": str(q.dtype)},
             "max_abs_err": err,
             "ms": timer(lambda: k4.flash_attention_cached(q, k, v, qp, kl)),
             "plain_ms": timer(
@@ -392,6 +424,7 @@ def training_kernel_phase(torch, timer):
     and K8 also at GPT-3 Large's (16384 rows of 1536)."""
     import torch.nn.functional as TF
 
+    from paddle_tpu_torch.ops.cuda import flash_attention as k1
     from paddle_tpu_torch.ops.cuda import flash_attention_packed as k5
 
     gen = torch.Generator(device="cpu").manual_seed(1)
@@ -409,6 +442,7 @@ def training_kernel_phase(torch, timer):
         want_out, want_lse = k5.flash_attention_packed_fwd_plain(
             q, k, v, h, bias, True)
         err = max(_bf16_err(out, want_out), _bf16_err(lse, want_lse))
+        rel = _rel_l2_err(out, want_out)
         dout = torch.randn(b, sq, h * d, generator=gen).to("cuda",
                                                             torch.bfloat16)
         grads = k5.flash_attention_packed_bwd(q, k, v, out, lse, dout, h,
@@ -450,8 +484,11 @@ def training_kernel_phase(torch, timer):
                 qt, kt, vt, attn_mask=lib_mask, is_causal=lib_causal)
 
         shape = {"q": [b, sq, h * d], "kv": [b, sk, h * d], "heads": h}
+        # K5 runs K1's forward (tensor cores at bf16); K6 is FMA
         fwd_cases.append({
             "case": name, "shape": shape, "max_abs_err": err,
+            "rel_l2_err": rel, "route": k1.kernel_route(torch.bfloat16, d),
+            "runs": "fwd_tc_kernel (csrc/flash_attention.cu)",
             "ms": timer(lambda: k5.flash_attention_packed_fwd(
                 q, k, v, h, bias, True)),
             "plain_ms": timer(lambda: k5.flash_attention_packed_fwd_plain(
@@ -492,11 +529,13 @@ def flash_kernel_phase(torch, timer):
     one, and the small d = 96 model's shape). Tolerance: one step of the
     type per element (bf16 2^-7, fp16 2^-10) and a quarter of one in
     relative L2 norm, 5e-5 in fp32; the rows that see no key are exactly 0
-    in out and dq, the key no row sees exactly 0 in dk and dv. Each case
-    reports the route it ran (K1 and K3: ``mma.sync`` tensor cores at
-    bf16/fp16, ``fma`` at fp32; K2 ``fma``), its achieved TFLOP/s (the
-    causal work this data needs over the kernel's time) and its share of
-    its bound (bound ms over ms)."""
+    in out and dq, the key no row sees exactly 0 in dk and dv. Head dims
+    16, 48, 112, 256, and above 256 (320 with a ragged last chunk and 512
+    in bf16, 320 in fp32: the chunked kernels), at two steps a element.
+    Each case reports the route it ran (K1-K3: ``mma.sync`` tensor cores
+    at bf16/fp16 up to head dim 128, ``fma`` at fp32 and wider heads), its
+    achieved TFLOP/s (the causal work this data needs over the kernel's
+    time) and its share of its bound (bound ms over ms)."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.cuda import flash_attention as k1
@@ -515,7 +554,12 @@ def flash_kernel_phase(torch, timer):
               ("d16", 2, 1024, 1024, 8, 16, "bf16", True, None),
               ("d48", 2, 1024, 1024, 8, 48, "bf16", True, None),
               ("d112", 2, 1024, 1024, 8, 112, "bf16", True, None),
-              ("d256", 2, 1024, 1024, 8, 256, "bf16", True, None)]
+              ("d256", 2, 1024, 1024, 8, 256, "bf16", True, None),
+              # above 256: the head dim in 256-column chunks, the output
+              # in 256-column slices (FMA in every type)
+              ("d320", 2, 1024, 1024, 4, 320, "bf16", True, None),
+              ("d512", 2, 1024, 1024, 2, 512, "bf16", True, None),
+              ("d320_fp32", 2, 512, 512, 2, 320, "fp32", True, None)]
     types = {"bf16": (torch.bfloat16, BF16_STEP),
              "fp16": (torch.float16, FP16_STEP), "fp32": (torch.float32, None)}
     for name, b, sq, sk, h, d, dt, causal, bias_bh in shapes:
@@ -609,7 +653,7 @@ def flash_kernel_phase(torch, timer):
                  "dtype": dt, "causal": causal,
                  "bias": None if bias_bh is None else [*bias_bh, sq, sk]}
         plain_iters = 5
-        # K1 and K3 take the tensor cores at bf16/fp16, K2 FMA in every type
+        # K1-K3 take the tensor cores at bf16/fp16 up to head dim 128
         route = k1.kernel_route(tdt, d)
         for cases, err, r, fn, plain, bound, lib, fl, rt in (
                 (k1_cases, err1, rel[0],
@@ -619,7 +663,7 @@ def flash_kernel_phase(torch, timer):
                 (k2_cases, err2, rel[1],
                  lambda: k1.flash_attention_bwd_dq(*args),
                  lambda: k1.flash_attention_bwd_dq_plain(*args), b2, lib_b,
-                 flops[1], "fma"),
+                 flops[1], route),
                 (k3_cases, err3, rel[2],
                  lambda: k1.flash_attention_bwd_dkv(*args),
                  lambda: k1.flash_attention_bwd_dkv_plain(*args), b3, lib_b,
@@ -686,6 +730,7 @@ def dropout_kernel_phase(torch, timer):
     wo, wl = k5.flash_attention_packed_fwd_plain(q, k, v, h, None, True,
                                                  None, p, seed)
     err5 = max(_bf16_err(o, wo), _bf16_err(lse, wl))
+    rel5 = _rel_l2_err(o, wo)
     del wo, wl
     grads = k5.flash_attention_packed_bwd(q, k, v, o, lse, dout, h, None,
                                           True, None, p, seed)
@@ -697,6 +742,7 @@ def dropout_kernel_phase(torch, timer):
     shape = {"q": [b, s, h * d], "kv": [b, s, h * d], "heads": h, "p": p}
     out["flash_attention_packed_fwd"] = {
         "case": "train_dropout", "shape": shape, "max_abs_err": err5,
+        "rel_l2_err": rel5,
         "ms": timer(lambda: k5.flash_attention_packed_fwd(
             q, k, v, h, None, True, None, p, seed)),
         "ms_dropout_0": timer(lambda: k5.flash_attention_packed_fwd(
@@ -1715,13 +1761,15 @@ def small_d96_reference(torch, np):
 
 
 #: the tensor-core instantiations whose SASS must hold HMMA instructions
-_TC_KERNELS = ("fwd_tc_kernel", "dkv_tc_kernel")
+#: (K1, which also runs K5; K2; K3)
+_TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel")
 
 
 def tensor_core_sass(path):
-    """HMMA (mma.sync) or HGMMA (wgmma) instructions in each bf16 K1 and K3
-    function of the built library, from ``cuobjdump -sass``; fails if an
-    instantiation (one a head dim) has none."""
+    """HMMA (mma.sync) or HGMMA (wgmma) instructions in each bf16 K1, K2
+    and K3 tensor-core function of the built library, from ``cuobjdump
+    -sass``; fails if an instantiation (one a head dim and dropout switch)
+    has none."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1753,6 +1801,36 @@ def tensor_core_sass(path):
     return counts
 
 
+#: the attention kernels whose ptxas registers and spills are reported
+_PTXAS_KERNELS = _TC_KERNELS + ("fwd_wide_kernel", "dq_wide_kernel",
+                                "dkv_wide_kernel", "cached_fwd_kernel")
+
+
+def ptxas_report(log):
+    """``{kernel<type,widths,switches>: [registers, spill store bytes]}``
+    of the bf16 instantiations of the attention kernels, from the build's
+    ``-Xptxas -v`` report."""
+    import re
+
+    out, cur, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            kern = next((k for k in _PTXAS_KERNELS if k in name), None)
+            cur = None
+            if kern is not None and "bfloat16" in name:
+                args = name.split(kern, 1)[1]
+                ints = re.findall(r"Li(\d+)E", args)
+                flags = re.findall(r"Lb([01])E", args)
+                cur = f"{kern}<bf16,{','.join(ints + flags)}>"
+        elif cur is not None and "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif cur is not None and "registers" in line and "Used" in line:
+            out[cur] = [int(line.split("Used")[1].split("registers")[0]), spill]
+            cur = None
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -1760,6 +1838,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = _card_line()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1769,11 +1848,14 @@ def main():
 
     t0 = time.perf_counter()
     library()
-    print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {build_info()['seconds']:.1f} s)")
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s (nvcc {build_info()['seconds']:.1f} s)")
     hmma = tensor_core_sass(build_info()["path"])
-    print(f"tensor-core SASS (HMMA/HGMMA a bf16 K1/K3 function): "
+    print(f"tensor-core SASS (HMMA/HGMMA a bf16 K1/K2/K3 function): "
           f"{json.dumps(hmma)}")
+    ptxas = ptxas_report(build_info().get("log", ""))
+    print(f"ptxas [registers, spill bytes] of the bf16 attention kernels: "
+          f"{json.dumps(ptxas)}")
     timer = _Timer(torch)
     # bring the clocks up before the first timing: half a second of work
     t0 = time.perf_counter()
@@ -1797,7 +1879,8 @@ def main():
                else "")
         route = (f" [{c['route']}, {c['tflops']:.1f} TFLOP/s, "
                  f"{100 * c['share_of_bound']:.1f} % of bound]"
-                 if "route" in c else "")
+                 if "tflops" in c else
+                 f" [{c['route']}]" if "route" in c else "")
         print(f"kernel {c['case']}: {c['ms']:.4f} ms (plain "
               f"{c['plain_ms']:.4f}, library {lib}, bound "
               f"{c['bound_ms']:.4f} by {c['bound_by']}) err "
@@ -1911,9 +1994,9 @@ def main():
         return {k: v for k, v in paths(name).items() if k in keys}
 
     packed = "paddle_tpu_torch/csrc/flash_attention_packed.cu"
+    flash = "paddle_tpu_torch/csrc/flash_attention.cu"
     ln_src = "paddle_tpu_torch/csrc/layer_norm.cu"
     ce_src = "paddle_tpu_torch/csrc/fused_ce.cu"
-    flash = "paddle_tpu_torch/csrc/flash_attention.cu"
     k1_paths = ("gpt3_large",)
     kernels = [
         entry("flash_attention_fwd", flash,
@@ -1932,7 +2015,7 @@ def main():
               "paddle_tpu/ops/pallas/flash_attention.py:547", fa_cases,
               "decode", only("flash_attention_cached", "serving",
                              "gpt3_large_generate")),
-        entry("flash_attention_packed_fwd", packed,
+        entry("flash_attention_packed_fwd", flash,
               "paddle_tpu/ops/pallas/flash_attention_packed.py:127", k5_cases,
               "train", only("flash_attention_packed_fwd", "serving",
                             "training", "recipe", "gpt2_dropout")),
@@ -1955,18 +2038,27 @@ def main():
               k11_cases, "train", only("fused_ce_dw", "recipe",
                                        "gpt2_dropout")),
     ]
-    # K1 and K3's routes by input type (K2: FMA in every type), and their
-    # bf16 SASS's tensor-core instructions (one function a head dim)
+    # K1-K3's routes by input type (up to head dim 128; FMA above), their
+    # bf16 SASS's tensor-core instructions (one function a head dim and
+    # dropout switch) and ptxas's registers and spills; K5 runs K1's
+    # forward on its packed strides
     from paddle_tpu_torch.ops.cuda import flash_attention as k1
 
     routes = {n: k1.kernel_route(t) for n, t in (
         ("bf16", torch.bfloat16), ("fp16", torch.float16),
         ("fp32", torch.float32))}
-    for k, kern in ((kernels[0], "fwd_tc_kernel"),
-                    (kernels[2], "dkv_tc_kernel")):
+    for k, kern, wide in ((kernels[0], "fwd_tc_kernel", "fwd_wide_kernel"),
+                          (kernels[1], "dq_tc_kernel", "dq_wide_kernel"),
+                          (kernels[2], "dkv_tc_kernel", "dkv_wide_kernel")):
         k["kernel_route"] = routes
         k["hmma_bf16"] = {n: c for n, c in hmma.items() if kern in n}
-    kernels[1]["kernel_route"] = {n: "fma" for n in routes}
+        k["ptxas_bf16"] = {n: r for n, r in ptxas.items()
+                           if kern in n or wide in n}
+    kernels[3]["ptxas_bf16"] = {n: r for n, r in ptxas.items()
+                                if "cached_fwd_kernel" in n}
+    kernels[4]["kernel_route"] = routes
+    kernels[4]["runs"] = ("K1's fwd_tc_kernel (bf16, fp16) or fwd_kernel "
+                          "(fp32), csrc/flash_attention.cu")
     # with in-kernel dropout (p = 0.1): time, dropout-0 time on the same
     # inputs, error against the plain version on the same seed, and the
     # launches with dropout on the gpt2_dropout path (K5/K6)
@@ -1983,6 +2075,8 @@ def main():
     kernels[-1]["chunked_loop_ms"] = chunked["backward_ms"]
     for k in kernels:
         _require(k["launches"] > 0, f"kernel {k['name']} launched on its path")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
+          f"{build_s:.1f} s of it")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

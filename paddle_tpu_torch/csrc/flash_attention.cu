@@ -5,7 +5,12 @@
 // ::_bwd_dq_kernel (K2) and ::_bwd_dkv_kernel (K3), the custom-vjp triple
 // behind every uncached attention call the packed kernels cannot take: a
 // head dim that does not pack into 128 lanes (GPT-3 Large's 96), a
-// per-batch or per-head (B|1, H|1, sq, sk) bias, or a trainable bias.
+// per-batch or per-head (B|1, H|1, sq, sk) bias, or a trainable bias. K1
+// also runs the packed forward K5
+// (paddle_tpu/ops/pallas/flash_attention_packed.py::_fwd_kernel): its
+// (b, s, h * d) views are (b, s, h, d) views with head stride d, and its
+// shared (sq, sk) bias has batch and head strides 0
+// (ops/cuda/flash_attention_packed.py).
 //
 // Layout: q, k and v are read in the paddle layout (batch, seq, heads,
 // head_dim) through their batch, row and head strides, so the three views of
@@ -23,10 +28,11 @@
 // ds = p * (dp - delta); dq = ds k * scale (K2, swept over key tiles),
 // dk = (ds * scale)^T q and dv = p^T dout (K3, swept over query tiles). With
 // that split nothing is summed across CTAs: no atomics, and the gradients
-// are the same bits from run to run. As in the TPU kernels, K1 rounds p to
-// the input type before p v (flash_attention.py:156) and K3 rounds p before
-// p^T dout and ds * scale before ds^T q (:254, :257-259); K2 keeps p and ds
-// in fp32.
+// are the same bits from run to run. On the tensor-core route, as in the
+// TPU kernels, K1 rounds p to the input type before p v
+// (flash_attention.py:156), K2 rounds ds * scale before ds k (:207-209),
+// and K3 rounds p before p^T dout and ds * scale before ds^T q (:254,
+// :257-259).
 //
 // Attention dropout (the TPU kernels' in-kernel PRNG, :84-113): with p > 0
 // the keep bits come from the counter-based Philox of csrc/philox.cuh, keyed
@@ -36,8 +42,8 @@
 // the undropped p (:148-154); K2 masks and scales dp (:204-206); K3 does
 // that and forms the dropped p for dv (:246-251). On the FMA route a tile's
 // keep bits are drawn into shared memory by the whole CTA; on the mma.sync
-// route each warp draws the bits of its own fragment rows (K1: 16 query
-// rows of 8-key groups, K3: 32 queries of its 16 keys) into a small
+// route each warp draws the bits of its own fragment rows (K1 and K2: 16
+// query rows of 8-key groups, K3: 32 queries of its 16 keys) into a small
 // warp-private buffer and reads each fragment element's bit from it.
 // Dropout is a template switch: the p = 0 kernels are the code they were.
 //
@@ -46,7 +52,12 @@
 // zero-filled on load (they add nothing to a dot product) and skipped on
 // store. Width 256 takes the FMA route in every type with 32 x 32 tiles
 // (64-row fp32 tiles would not fit a CTA's shared memory, and the mma.sync
-// route's fragments would not fit 255 registers).
+// route's fragments would not fit 255 registers). Above 256 one chunked FMA
+// kernel a type (flash_attention.cuh::kWide) takes any head dim: the head
+// dim in 256-column chunks staged in turn through the width-256 buffers,
+// the scores (and dp) summed over the chunks, and the output columns split
+// over the grid into 256-column slices, each CTA recomputing the scores
+// for its slice; K1 writes lse from slice 0.
 //
 // Bound on the H100 (GPT-3 Large, b = 8, s = 2048, h = 16, d = 96, bf16,
 // causal): K1 does ~103 GFLOP of causal score work over ~0.2 GB, ~0.10 ms
@@ -56,10 +67,12 @@
 //
 // Two routes, chosen by the input type and width in the launcher; both
 // hand-written:
-//  * bf16 and fp16, K1 and K3, widths up to 128: tensor cores (csrc/flash_mma.cuh). A CTA of
-//    4 warps owns a 64-row tile, 16 rows a warp; the warp's q fragments (K1)
-//    or k and v fragments (K3) stay in registers; the streamed 64-row tiles
-//    (k, v in K1; q, dout, out in K3) come through a two-stage cp.async ring
+//  * bf16 and fp16, widths up to 128: tensor cores (csrc/flash_mma.cuh;
+//    K2's in flash_attention_dq.cu). A CTA of
+//    4 warps owns a 64-row tile, 16 rows a warp; the warp's q fragments (K1),
+//    q and dout fragments (K2) or k and v fragments (K3) stay in registers;
+//    the streamed 64-row tiles (k, v in K1 and K2; q, dout, out in K3) come
+//    through a two-stage cp.async ring
 //    in the input type, rows padded by 16 bytes (no swizzle), so the copy of
 //    tile i + 1 overlaps the products of tile i with one barrier a tile (K3
 //    adds one for its delta). Products are mma.sync m16n8k16 with fp32
@@ -67,17 +80,18 @@
 //    fragments in registers, the mask only on tiles that cross the diagonal
 //    or the ragged end; the online softmax (K1) reduces over the 4 threads
 //    of a row with shuffles, in log2 units (ex2.approx). p (K1, K3) and
-//    ds * scale (K3) are rounded to the input type in registers and used as
-//    the A fragments of the next product. K3 computes delta for each query tile
+//    ds * scale (K2, K3) are rounded to the input type in registers and used
+//    as the A fragments of the next product. K3 computes delta for each query tile
 //    from its out and dout tiles in shared memory (16-byte loads, two threads
 //    a row) and prefetches the tile's lse into registers a tile ahead. A
 //    misaligned view (base or row stride not a multiple of 16 bytes) loads
-//    its tiles with plain loads inside the same kernels. K1 launches its
-//    query tiles longest first (causal tiles differ up to 32x in length).
+//    its tiles with plain loads inside the same kernels. K1 and K2 launch
+//    their query tiles longest first (causal tiles differ up to 32x in
+//    length).
 //    Shared memory at d = 96: K1 52 KB (q lands in the second stage before
 //    the ring starts), K3 79 KB (k and v likewise).
-//  * fp32, width 256 (and K2 in every type): fp32 FMA on CUDA cores with the tile
-//    scheme K5/K6 (csrc/flash_attention_packed.cu) share through
+//  * fp32, width 256 and above: fp32 FMA on CUDA cores with the tile
+//    scheme K6 (csrc/flash_attention_packed.cu) shares through
 //    csrc/flash_tile.cuh, so fp32 results keep fp32 products (TF32 tensor
 //    cores would not hold the fp32 models' limits):
 //    - a CTA of 256 threads is a 16 x 16 grid; each thread owns a 4 x 4
@@ -146,21 +160,62 @@ fwd_kernel(Args a, T* __restrict__ out, float* __restrict__ lse) {
 }
 
 // ---------------------------------------------------------------------------
+// K1 above width 256 (every type): the head dim in kWide-column chunks
+// ---------------------------------------------------------------------------
+// grid (query tiles x output slices, h, b): a CTA writes the kWide output
+// columns of its slice; for every key tile it accumulates the scores over
+// the chunks of q and k, staged in turn through the same buffers
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(kThreads)
+fwd_wide_kernel(Args a, T* __restrict__ out, float* __restrict__ lse) {
+  constexpr int D = kWide, M = tile_m(D), B = Tile<M>::B, P = Tile<M>::Pad;
+  extern __shared__ float smem[];
+  float* qs = smem;                 // [B][D + 1] a chunk of the q rows
+  float* kt = qs + B * (D + 1);     // [D][P]  a chunk of the k tile, transposed
+  float* vt = kt + D * P;           // [D][P]  the slice of the v tile, transposed
+  float* ps = vt + D * P;           // [B][P] probabilities
+  uint8_t* kb = reinterpret_cast<uint8_t*>(ps + B * P);  // keep bits
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int nsl = wide_slices(a.dn), c1 = (blockIdx.x % nsl) * D;
+  const int bb = blockIdx.z, hh = blockIdx.y, q0 = (blockIdx.x / nsl) * B;
+  const uint32_t bh = static_cast<uint32_t>(bb * a.h + hh);
+  const Slice<T> in(a, bb, hh);
+  const int kend = in.lg.key_end(q0, B);
+
+  float m[M], l[M], acc[M][D / 16];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < kend; k0 += B) {
+    float s[M][M] = {};
+    for (int c0 = 0; c0 < a.dn; c0 += D) {
+      __syncthreads();  // the previous chunk (or tile) is no longer read
+      load_rows<T, D, M>(in.q + c0, a.qs[1], q0, a.sq, a.dn - c0, 1.f, qs);
+      load_t<T, D, M>(in.k + c0, a.ks[1], k0, a.sk, a.dn - c0, kt);
+      if (c0 == 0) {
+        load_t<T, D, M>(in.v + c1, a.vs[1], k0, a.sk, a.dn - c1, vt);
+        if constexpr (DROP) fill_keep<M>(a.drp, bh, q0, k0, kb);
+      }
+      __syncthreads();
+      score_tile<D, M, true>(qs, kt, ty, tx, s);
+    }
+    in.lg.mask(s, q0, k0, ty, tx);
+    softmax_step<D, M, DROP>(s, m, l, acc, ps, ty, tx, a.drp, kb);
+    __syncthreads();
+    acc_rows<D, M>(ps, vt, ty, tx, acc);
+  }
+  store_out<T, D, M>(acc, m, l, out, lse, bb, hh, a.h, q0, a.sq, a.dn, ty, tx, c1);
+}
+
+// ---------------------------------------------------------------------------
 // K1 on the tensor cores (bf16, fp16)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
-__host__ __device__ constexpr int fwd_tc_ring_bytes() {
-  return 2 * 2 * kBK * tc_stride<D>() * static_cast<int>(sizeof(T));
-}
-
-// K1's keep bits: a warp's 16 query rows of 8 bytes (one a 8-key group)
-constexpr int kFwdKeepBytes = 16 * (kBK / 8);
-
-template <typename T, int D, bool DROP>
-__host__ __device__ constexpr int fwd_tc_smem_bytes() {
-  return fwd_tc_ring_bytes<T, D>() + (DROP ? kTcWarps * kFwdKeepBytes : 0);
-}
-
 // grid (query tiles, h, b): the CTAs of one (batch, head) run side by side
 // and share its k and v in L2; blockIdx.x = 0 takes the last (longest) tile
 template <typename T, int D, bool DROP>
@@ -179,7 +234,7 @@ fwd_tc_kernel(Args a, T* __restrict__ out, float* __restrict__ lse, int vec) {
   const Slice<T> in(a, bb, hh);
   const int nk = (in.lg.key_end(q0, kBQ) + kBK - 1) / kBK;
   // this warp's keep bits: row r (of its 16) at kw + 8 r
-  uint8_t* const kw = tc_smem + fwd_tc_ring_bytes<T, D>() + warp * kFwdKeepBytes;
+  uint8_t* const kw = tc_smem + qrow_ring_bytes<T, D>() + warp * kQRowKeepBytes;
 
   // q lands in stage 1, is taken into registers, then the ring starts
   T* qs = ring + 2 * kTile;
@@ -195,7 +250,6 @@ fwd_tc_kernel(Args a, T* __restrict__ out, float* __restrict__ lse, int vec) {
   float acc[NT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int c = 0; c < NT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-  const float sl2 = a.scale * kLog2e;
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
 
   for (int i = 0; i < nk; ++i) {
@@ -217,37 +271,8 @@ fwd_tc_kernel(Args a, T* __restrict__ out, float* __restrict__ lse, int vec) {
 
     // keep bits of this thread's rows: byte j of keep[r] is key group j
     uint2 keep[2];
-    if constexpr (DROP) {
-      __syncwarp();  // the previous tile's bits are no longer read
-      const int rr = lane >> 1, g0 = (lane & 1) * 4;
-      uint32_t w = 0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        w |= keep_byte(a.drp, (k0 >> 3) + g0 + e, q0 + warp * 16 + rr, bh) << (8 * e);
-      *reinterpret_cast<uint32_t*>(kw + rr * 8 + g0) = w;
-      __syncwarp();
-      keep[0] = *reinterpret_cast<const uint2*>(kw + g * 8);
-      keep[1] = *reinterpret_cast<const uint2*>(kw + (g + 8) * 8);
-    }
-
-    // logits in log2 units; kNegInf where masked
-    const bool edge = a.bias != nullptr || k0 + kBK > a.sk ||
-                      (a.causal && k0 + kBK - 1 > q0 + (a.sk - a.sq));
-    if (edge) {
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = row0 + (e >> 1) * 8, col = k0 + j * 8 + 2 * t + (e & 1);
-          s[j][e] = in.lg.visible(row, col) ? in.lg.at(s[j][e], row, col) * kLog2e
-                                            : kNegInf;
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
-    }
+    if constexpr (DROP) row_keep_bits(a.drp, kw, k0, q0 + warp * 16, bh, keep);
+    log2_logits<T, kBK / 8>(s, in, a, q0, k0, row0);
 
     // online softmax; l keeps this thread's partial row sums (summed over
     // the quad at the end: every term shares the row's rescaling)
@@ -267,10 +292,7 @@ fwd_tc_kernel(Args a, T* __restrict__ out, float* __restrict__ lse, int vec) {
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
           float p = live ? ex2(s[j][e] - m_new) : 0.f;
           rs += p;
-          if constexpr (DROP) {
-            const uint32_t byte = (j < 4 ? keep[r].x : keep[r].y) >> (8 * (j & 3));
-            p = drop(a.drp, byte, 2 * t + (e & 1), p);
-          }
+          if constexpr (DROP) p = drop(a.drp, keep_group(keep[r], j), 2 * t + (e & 1), p);
           s[j][e] = p;
         }
       l[r] = l[r] * alpha + rs;
@@ -315,9 +337,22 @@ cudaError_t fwd(const Args& a, void* out, float* lse, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, bool DROP>
+cudaError_t fwd_wide(const Args& a, void* out, float* lse, cudaStream_t stream) {
+  constexpr int M = tile_m(kWide);
+  const size_t smem = sizeof(float) * fwd_smem_floats<kWide, M, DROP>();
+  auto kern = fwd_wide_kernel<T, DROP>;
+  static bool configured = false;
+  cudaError_t e = allow_smem(kern, smem, configured);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.sq + Tile<M>::B - 1) / Tile<M>::B * wide_slices(a.dn), a.h, a.b);
+  kern<<<grid, kThreads, smem, stream>>>(a, static_cast<T*>(out), lse);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool DROP>
 cudaError_t fwd_tc(const Args& a, void* out, float* lse, int vec, cudaStream_t stream) {
-  const size_t smem = fwd_tc_smem_bytes<T, D, DROP>();
+  const size_t smem = qrow_smem_bytes<T, D, DROP>();
   auto kern = fwd_tc_kernel<T, D, DROP>;
   static bool configured = false;
   cudaError_t e = allow_smem(kern, smem, configured);
@@ -330,6 +365,7 @@ cudaError_t fwd_tc(const Args& a, void* out, float* lse, int vec, cudaStream_t s
 template <typename T, bool DROP>
 cudaError_t fwd_any(const Args& a, void* out, float* lse, int vec, cudaStream_t s) {
   const int w = width_of(a.dn);
+  if (w == 0) return fwd_wide<T, DROP>(a, out, lse, s);
   if constexpr (sizeof(T) == 2) {
     switch (w) {
 #define PTT_CASE(D) \
@@ -353,9 +389,9 @@ cudaError_t fwd_any(const Args& a, void* out, float* lse, int vec, cudaStream_t 
 }  // namespace ptt
 
 // Strides (in elements): q, k and v each (batch, seq, head), then the bias
-// (batch, head, row), 0 on a broadcast dim. d: any head dim up to 256. fp32
-// takes the FMA kernels; bf16 and fp16 take the tensor-core K1 and K3 up to
-// width 128 (K2: FMA in every type). Dropout: seed0, seed1 and the keep
+// (batch, head, row), 0 on a broadcast dim. d: any head dim. fp32 takes the
+// FMA kernels; bf16 and fp16 take the tensor-core K1-K3 up to width 128,
+// FMA above. Dropout: seed0, seed1 and the keep
 // threshold thr of csrc/philox.cuh, and inv_keep = 1 / (1 - p); thr = 65536
 // (no 16-bit value is below it) means no dropout and takes the p = 0
 // kernels.

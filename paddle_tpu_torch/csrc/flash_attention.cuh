@@ -1,9 +1,11 @@
 // What the layout-swapping flash attention kernels K1 (flash_attention.cu),
 // K2 (flash_attention_dq.cu) and K3 (flash_attention_dkv.cu) share: their
 // arguments, the (batch, head) slice a CTA works on, the loads of a query
-// tile and of a k/v tile, the instantiated widths and the launch checks.
-// Each kernel has its own translation unit so that nvcc builds the three
-// in parallel.
+// tile and of a k/v tile, the tensor-core pieces of the kernels whose warp
+// rows are query rows (K1 and K2: the k/v ring, the keep bits of a warp's
+// rows, the logits of a score fragment), the instantiated widths and the
+// launch checks. Each kernel has its own translation unit so that nvcc
+// builds the three in parallel.
 #pragma once
 
 #include <math_constants.h>
@@ -75,13 +77,92 @@ __device__ __forceinline__ void load_kv_rows(const Slice<T>& in, const Args& a, 
   tile_rows<T, D>(vdst, in.v, a.vs[1], k0, a.sk, a, vec);
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core kernels whose warp rows are query rows (K1, K2)
+// ---------------------------------------------------------------------------
+// a two-stage ring of (k tile, v tile) in the input type
+template <typename T, int D>
+__host__ __device__ constexpr int qrow_ring_bytes() {
+  return 2 * 2 * kBK * tc_stride<D>() * static_cast<int>(sizeof(T));
+}
+
+// the keep bits of a warp: its 16 query rows of 8 bytes (one a 8-key group)
+constexpr int kQRowKeepBytes = 16 * (kBK / 8);
+
+template <typename T, int D, bool DROP>
+__host__ __device__ constexpr int qrow_smem_bytes() {
+  return qrow_ring_bytes<T, D>() + (DROP ? kTcWarps * kQRowKeepBytes : 0);
+}
+
+// The keep bits of this thread's fragment rows (rows g and g + 8 of the
+// warp's 16 from qw) for the 64-key tile at k0: each lane draws 4 Philox
+// calls (a row's 4 key groups) into the warp's buffer kw (row r at kw + 8 r),
+// then reads its two rows back; byte j of keep[r] is key group j.
+__device__ __forceinline__ void row_keep_bits(const Dropout& drp, uint8_t* kw, int k0,
+                                              int qw, uint32_t bh, uint2 (&keep)[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  __syncwarp();  // the previous tile's bits are no longer read
+  const int rr = lane >> 1, g0 = (lane & 1) * 4;
+  uint32_t w = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    w |= keep_byte(drp, (k0 >> 3) + g0 + e, qw + rr, bh) << (8 * e);
+  *reinterpret_cast<uint32_t*>(kw + rr * 8 + g0) = w;
+  __syncwarp();
+  keep[0] = *reinterpret_cast<const uint2*>(kw + g * 8);
+  keep[1] = *reinterpret_cast<const uint2*>(kw + (g + 8) * 8);
+}
+
+// the keep byte of key group j (of 8) from row_keep_bits
+__device__ __forceinline__ uint32_t keep_group(const uint2& keep, int j) {
+  return (j < 4 ? keep.x : keep.y) >> (8 * (j & 3));
+}
+
+// The warp's score fragments s (its rows row0 and row0 + 8; n8 tile j holds
+// keys k0 + 8 j + 2 t, + 1) as logits in log2 units, kNegInf where masked.
+// The bias and the mask are applied only where the 8 NJ keys from k0 cross
+// the diagonal of the query tile at q0 or the ragged end, or with a bias.
+template <typename T, int NJ>
+__device__ __forceinline__ void log2_logits(float (&s)[NJ][4], const Slice<T>& in,
+                                            const Args& a, int q0, int k0, int row0) {
+  const int t = threadIdx.x & 3;
+  const bool edge = a.bias != nullptr || k0 + 8 * NJ > a.sk ||
+                    (a.causal && k0 + 8 * NJ - 1 > q0 + (a.sk - a.sq));
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + (e >> 1) * 8, col = k0 + j * 8 + 2 * t + (e & 1);
+        s[j][e] = in.lg.visible(row, col) ? in.lg.at(s[j][e], row, col) * kLog2e
+                                          : kNegInf;
+      }
+  } else {
+    const float sl2 = a.scale * kLog2e;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
+  }
+}
+
 // the widths the kernels are instantiated at
 // (paddle_tpu_torch/ops/cuda/flash_attention.py::FLASH_WIDTHS); bf16 and
-// fp16 K1 and K3 take the tensor cores up to 128, FMA at 256
+// fp16 K1-K3 take the tensor cores up to 128, FMA at 256
 #define PTT_TC_WIDTHS(X) X(16) X(32) X(64) X(80) X(96) X(128)
 #define PTT_FLASH_WIDTHS(X) PTT_TC_WIDTHS(X) X(256)
 
-// the smallest width >= d (0: d above 256)
+// Above the widest width, the FMA kernels of every type run the head dim in
+// chunks of kWide columns, with kWide-wide tiles (32 x 32, M = 2): the
+// scores (and K2's and K3's dp) accumulate over the chunks, and the output
+// columns (out, dq, dk and dv) split over the grid's x dimension into slices
+// of kWide, each CTA recomputing the scores for its slice.
+constexpr int kWide = 256;
+
+// the number of kWide-column slices of a head dim d
+__host__ __device__ constexpr int wide_slices(int d) { return (d + kWide - 1) / kWide; }
+
+// the smallest width >= d (0: d above 256, the chunked kernels)
 int width_of(int d) {
   const int widths[] = {16, 32, 64, 80, 96, 128, 256};
   for (int w : widths)

@@ -38,9 +38,14 @@
 //    runs in the smallest width >= d, its columns >= d zero-filled on load
 //    and skipped on store (d = 80, GPT-3 2.7B's, runs at 96). At width 256
 //    the K tile is staged 128 columns at a time (the score sums the two
-//    halves), so four warps' tiles fit a CTA's shared memory. Rows whose
-//    base or stride is not 16-byte aligned, or whose head dim is not a whole
-//    number of 16-byte pieces, load element by element.
+//    halves), so four warps' tiles fit a CTA's shared memory. Above 256
+//    (WIDE, one instantiation a type, KSPLIT 1): q and K stream in
+//    128-column chunks over the whole head dim, staged in turn through the
+//    same buffers, and the output columns split over the grid's x dimension
+//    into 256-column slices, each CTA recomputing the scores for its slice
+//    of V and out. Rows whose base or stride is not 16-byte aligned, or
+//    whose head dim is not a whole number of 16-byte pieces, load element
+//    by element.
 #include <cstdint>
 
 #include "common.cuh"
@@ -147,7 +152,7 @@ __device__ __forceinline__ void stage_kv(float* ks, float* vs, const T* kb, cons
   }
 }
 
-template <typename T, int D, int KSPLIT>
+template <typename T, int D, int KSPLIT, bool WIDE>
 __global__ void __launch_bounds__(kWarps * 32)
 cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ q_pos,
@@ -158,6 +163,7 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   long long vsb, long long vss, long long vsh, float scale, int vec) {
   static_assert(D % 32 == 0 && D <= 256, "width must be a multiple of 32, at most 256");
   static_assert(KSPLIT == 1 || KSPLIT == kWarps, "KSPLIT is 1 or 4");
+  static_assert(!WIDE || (D == 256 && KSPLIT == 1), "WIDE: width 256, one key part");
   constexpr int DPL = D / 32;             // acc columns a lane
   constexpr int KC = k_chunk<D>();        // K columns staged at once
   constexpr int NKC = D / KC;             // K chunks a tile
@@ -168,7 +174,12 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rg = warp % kRowGroups, kpart = warp / kRowGroups;
   const int bb = blockIdx.z, hh = blockIdx.y;
-  const int row0 = blockIdx.x * QT + rg * kRPW;
+  // WIDE: the CTA's output columns c1 .. c1 + D (slice blockIdx.x % nsl),
+  // and the K chunks of the whole head dim
+  const int nsl = WIDE ? (dn + D - 1) / D : 1;
+  const int c1 = WIDE ? static_cast<int>(blockIdx.x % nsl) * D : 0;
+  const int nkc = WIDE ? (dn + KC - 1) / KC : NKC;
+  const int row0 = static_cast<int>(blockIdx.x / nsl) * QT + rg * kRPW;
   // rows of this warp that exist (warp-uniform): decode has one, and the
   // loops below skip the rest instead of computing masked rows
   const int nlive = max(0, min(kRPW, sq - row0));
@@ -179,13 +190,15 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + bb * ksb + hh * ksh;
   const T* vb = v + bb * vsb + hh * vsh;
 
-  // this warp's query rows, pre-scaled, into shared memory
+  // this warp's query rows, pre-scaled, into shared memory (WIDE: a chunk
+  // at a time, in the tile loop)
   int qp[kRPW];
 #pragma unroll
   for (int r = 0; r < kRPW; ++r) {
     const int row = row0 + r;
     const bool live = row < sq;
     qp[r] = live ? q_pos[static_cast<long long>(bb) * sq + row] : -1;
+    if (WIDE) continue;
     const T* qr = q + bb * qsb + static_cast<long long>(row) * qss + hh * qsh;
     for (int e = lane; e < D; e += 32)
       qs[r * D + e] = live && e < dn ? to_f32(qr[e]) * scale : 0.f;
@@ -212,20 +225,32 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRPW; ++r) s[r] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < NKC; ++kc) {
+    for (int kc = 0; kc < nkc; ++kc) {
       __syncwarp();  // the previous tile (or chunk) is no longer read
       if constexpr (NKC == 1) {
         stage_kv<T, D>(ks, vs, kb, vb, kss, vss, j0, sk, dn, vec);
       } else {
         stage_rows<T, KC>(ks, KC + 1, kb, kss, j0, sk, kc * KC, dn, vec);
-        if (kc == 0) stage_rows<T, D>(vs, D, vb, vss, j0, sk, 0, dn, vec);
+        if (kc == 0) stage_rows<T, D>(vs, D, vb, vss, j0, sk, c1, dn, vec);
+      }
+      if constexpr (WIDE) {  // the chunk of this warp's query rows, pre-scaled
+#pragma unroll
+        for (int r = 0; r < kRPW; ++r) {
+          const int row = row0 + r;
+          const T* qr = q + bb * qsb + static_cast<long long>(row) * qss + hh * qsh;
+          for (int e = lane; e < KC; e += 32) {
+            const int col = kc * KC + e;
+            qs[r * D + e] = row < sq && col < dn ? to_f32(qr[col]) * scale : 0.f;
+          }
+        }
       }
       __syncwarp();
+      const int qc = WIDE ? 0 : kc * KC;  // the chunk's first column in qs
       for (int d = 0; d < KC; ++d) {
         const float kd = ks[lane * (KC + 1) + d];
 #pragma unroll
         for (int r = 0; r < kRPW; ++r)
-          if (r < nlive) s[r] = fmaf(qs[r * D + kc * KC + d], kd, s[r]);
+          if (r < nlive) s[r] = fmaf(qs[r * D + qc + d], kd, s[r]);
       }
     }
     const int j = j0 + lane;
@@ -262,7 +287,7 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const long long out_row = static_cast<long long>(h) * dn;
-  T* ob = out + (static_cast<long long>(bb) * sq) * out_row + hh * dn;
+  T* ob = out + (static_cast<long long>(bb) * sq) * out_row + hh * dn + c1;
   if constexpr (KSPLIT == 1) {
 #pragma unroll
     for (int r = 0; r < kRPW; ++r) {
@@ -271,7 +296,8 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
       for (int c = 0; c < DPL; ++c)
-        if (lane + 32 * c < dn) ob[row * out_row + lane + 32 * c] = from_f32<T>(acc[r][c] * inv);
+        if (c1 + lane + 32 * c < dn)
+          ob[row * out_row + lane + 32 * c] = from_f32<T>(acc[r][c] * inv);
     }
   } else {
     // merge the four key partitions: each warp parks (m, l, acc) in its own
@@ -308,14 +334,14 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int KSPLIT>
+template <typename T, int D, int KSPLIT, bool WIDE = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_pos, const int* kv_len, void* out, int b,
                    int sq, int sk, int h, int d, const long long* st, float scale,
                    int vec, cudaStream_t stream) {
   constexpr int QT = kRPW * (kWarps / KSPLIT);
   const size_t smem = sizeof(float) * kWarps * warp_smem_floats<D>();
-  auto kern = cached_fwd_kernel<T, D, KSPLIT>;
+  auto kern = cached_fwd_kernel<T, D, KSPLIT, WIDE>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -323,7 +349,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  dim3 grid((sq + QT - 1) / QT, h, b);
+  const int nsl = WIDE ? (d + D - 1) / D : 1;  // output slices
+  dim3 grid((sq + QT - 1) / QT * nsl, h, b);
   kern<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_pos, kv_len, static_cast<T*>(out), sq, sk, h, d,
@@ -345,7 +372,8 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// the widths K4 is instantiated at
+// the widths K4 is instantiated at; above 256 the chunked kernel with one
+// key part (ksplit is not used)
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const int* q_pos, const int* kv_len, void* out, int b,
@@ -361,7 +389,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   PTT_CACHED(128)
   PTT_CACHED(256)
 #undef PTT_CACHED
-  return cudaErrorInvalidValue;
+  return launch<T, 256, 1, true>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, d, st, scale,
+                                 vec, stream);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

@@ -1,54 +1,49 @@
-// Packed (seq-major) flash attention forward and backward (kernels K5 and K6
-// of the port).
+// Packed (seq-major) flash attention backward: kernel K6 of the port.
 //
-// Replaces: paddle_tpu/ops/pallas/flash_attention_packed.py::_fwd_kernel (K5)
-// and ::_bwd_fused_kernel (K6), the custom-vjp pair behind every uncached
-// attention call of a GPT train step (12 forward and 12 backward calls a step
-// for GPT-2 124M at s = 1024).
+// Replaces: paddle_tpu/ops/pallas/flash_attention_packed.py::_bwd_fused_kernel
+// (K6), the backward of the custom-vjp pair behind every uncached attention
+// call of a GPT train step (12 forward and 12 backward calls a step for
+// GPT-2 124M at s = 1024). Its forward, K5 (::_fwd_kernel), runs K1's
+// kernels (csrc/flash_attention.cu): a (batch, seq, heads * head_dim) view
+// read through its row stride is a (batch, seq, heads, head_dim) view with
+// head stride head_dim, and the shared (sq, sk) bias is K1's bias with
+// batch and head strides 0 (ops/cuda/flash_attention_packed.py).
 //
 // Layout: q, k and v are (batch, seq, heads * head_dim) views read through
 // their batch and row strides, so the three views of one fused qkv projection
 // ((b, s, 3, h, d), row stride 3*h*d) go in without a copy. out, dout, dq, dk
 // and dv are contiguous (b, s, h * d); lse and delta are fp32 (b, h, sq).
 //
-// Semantics (the JAX kernels'): logits s = q.k * scale + bias[i, j] (an
+// Semantics (the JAX kernel's): logits s = q.k * scale + bias[i, j] (an
 // optional shared fp32 (sq, sk) bias), causal masking bottom-right aligned
-// (key j is visible to query row i iff j <= i + sk - sq), softmax and the
-// logsumexp in fp32. A row with no visible key gives output 0, lse -1e30 and
-// zero gradients (`_zero_masked_rows`). The backward recomputes
-// p = exp(s - lse) tile by tile; delta = rowsum(dout * out);
-// ds = p * (dp - delta); dq = ds k * scale, dk = ds^T q * scale, dv = p^T dout.
-// Unlike the TPU kernel, p and ds stay fp32 in the products (the JAX kernel
-// rounds them to the input dtype before its matmuls).
+// (key j is visible to query row i iff j <= i + sk - sq). A row with no
+// visible key (lse -1e30) gives zero gradients (`_zero_masked_rows`). The
+// backward recomputes p = exp(s - lse) tile by tile; delta = rowsum(dout *
+// out); ds = p * (dp - delta); dq = ds k * scale, dk = ds^T q * scale,
+// dv = p^T dout. Unlike the TPU kernel, p and ds stay fp32 in the products
+// (the JAX kernel rounds them to the input dtype before its matmuls).
 //
-// Attention dropout (the TPU kernels' in-kernel PRNG): with p > 0 each
+// Attention dropout (the TPU kernel's in-kernel PRNG): with p > 0 each
 // tile's keep bits come from the counter-based Philox of csrc/philox.cuh,
 // keyed by two seed words and counted from (batch, head, row, column), so
-// K5 and K6 regenerate one mask whatever their tiling. K5 scales the kept p
-// by 1 / (1 - p) after the row sum took the undropped p
-// (flash_attention_packed.py:145, :189); K6 forms the dropped p for dv and
-// masks and scales dp before ds (:286-290). Dropout is a template switch:
-// the p = 0 kernels are the code they were.
+// K6 regenerates K5's mask whatever its tiling; it forms the dropped p for
+// dv and masks and scales dp before ds (:286-290). Dropout is a template
+// switch: the p = 0 kernels are the code they were.
 //
 // Bound on the H100 (GPT-2 124M, b = 24, s = 1024, h = 12, d = 64, bf16):
-// K5 moves ~151 MB and does ~39 GFLOP of causal score work: ~0.045 ms at
-// 3.35 TB/s or 989 TFLOP/s, a tie. K6 does ~2.5x the operations over ~302 MB,
-// ~0.1 ms. Both need the tensor cores to come near their bound.
+// K6 does ~5 products' worth of the ~39 GFLOP causal score work (~98 GFLOP)
+// over ~302 MB: ~0.1 ms. It needs the tensor cores to come near its bound.
 //
 // Design (simple and right first: fp32 FMA on CUDA cores, no tensor cores):
 //  * A CTA of 256 threads is a 16 x 16 grid; each thread owns a 4 x 4
 //    micro-tile of every 64 x 64 score tile (rows ty*4+i, columns tx+16*j)
-//    and the same 4 rows of every 64 x d product, so the online-softmax
-//    rescale and the row reductions (16-lane shuffles) stay in registers.
+//    and the same 4 keys of every 64 x d product.
 //  * Tiles live in shared memory as fp32; k and v tiles are stored
 //    transposed with a padded stride (65), so both the score product
-//    (lanes along keys) and p v or ds k (lanes along head_dim) read them
-//    without bank conflicts. The tile loads, products and softmax steps
-//    are shared with K1-K3 (csrc/flash_tile.cuh).
-//  * K5: one CTA per (64-row q tile, head, batch); it streams the 64-key
-//    k/v tiles up to the last key its rows can see (causal tiles above the
-//    diagonal are skipped), keeping (m, l, acc) per row.
-//  * K6: one CTA per (64-key block, head, batch); dk and dv accumulate in
+//    (lanes along keys) and ds k (lanes along head_dim) read them without
+//    bank conflicts. The tile loads and products are shared with K1-K3
+//    (csrc/flash_tile.cuh).
+//  * One CTA per (64-key block, head, batch); dk and dv accumulate in
 //    registers over the q tiles that can see the block, dq is added into an
 //    fp32 workspace with atomicAdd (so its summation order varies from run
 //    to run), and a cast pass writes dq in the input dtype. delta comes from
@@ -63,58 +58,6 @@ using namespace flash;
 
 constexpr int kM = 4;  // 64 x 64 tiles at every packed head dim (<= 128)
 constexpr int kBQ = Tile<kM>::B, kBK = Tile<kM>::B, kPad = Tile<kM>::Pad;
-
-// ---------------------------------------------------------------------------
-// K5: forward
-// ---------------------------------------------------------------------------
-template <typename T, int D, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-packed_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ bias,
-                  T* __restrict__ out, float* __restrict__ lse, int sq, int sk,
-                  int h, long long qsb, long long qss, long long ksb,
-                  long long kss, long long vsb, long long vss, float scale,
-                  int causal, Dropout drp) {
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [kBQ][D + 1] q rows, pre-scaled
-  float* kt = qs + kBQ * (D + 1);   // [D][kPad]  k tile, transposed
-  float* vt = kt + D * kPad;        // [D][kPad]  v tile, transposed
-  float* ps = vt + D * kPad;        // [kBQ][kPad] probabilities
-  uint8_t* kb = reinterpret_cast<uint8_t*>(ps + kBQ * kPad);  // keep bits
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int bb = blockIdx.z, hh = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const uint32_t bh = static_cast<uint32_t>(bb * h + hh);
-  const T* kbase = k + bb * ksb + hh * D;
-  const T* vbase = v + bb * vsb + hh * D;
-  // q is pre-scaled, so the logits take the scores as they are
-  const Logits lg{sq, sk, causal, 1.f, bias, sk};
-  load_rows<T, D, kM>(q + bb * qsb + hh * D, qss, q0, sq, D, scale, qs);
-  const int kend = lg.key_end(q0, kBQ);
-
-  float m[kM], l[kM], acc[kM][D / 16];
-#pragma unroll
-  for (int i = 0; i < kM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    __syncthreads();  // the previous tile is no longer read
-    load_kv_t<T, D, kM>(kbase, vbase, kss, vss, k0, sk, D, kt, vt);
-    if constexpr (DROP) fill_keep<kM>(drp, bh, q0, k0, kb);
-    __syncthreads();
-    float s[kM][kM];
-    score_tile<D, kM>(qs, kt, ty, tx, s);
-    lg.mask(s, q0, k0, ty, tx);
-    softmax_step<D, kM, DROP>(s, m, l, acc, ps, ty, tx, drp, kb);
-    __syncthreads();
-    acc_rows<D, kM>(ps, vt, ty, tx, acc);
-  }
-  store_out<T, D, kM>(acc, m, l, out, lse, bb, hh, h, q0, sq, D, ty, tx);
-}
 
 // ---------------------------------------------------------------------------
 // K6: backward (delta pre-pass, main sweep over k blocks, dq cast pass)
@@ -243,22 +186,6 @@ struct Args {
 };
 
 template <typename T, int D, bool DROP>
-cudaError_t fwd(const Args& a, void* out, float* lse, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * fwd_smem_floats<D, kM, DROP>();
-  auto kern = packed_fwd_kernel<T, D, DROP>;
-  static bool configured = false;
-  cudaError_t e = allow_smem(kern, smem, configured);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, a.b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.bias, static_cast<T*>(out), lse, a.sq,
-      a.sk, a.h, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.scale, a.causal,
-      a.drp);
-  return cudaGetLastError();
-}
-
-template <typename T, int D, bool DROP>
 cudaError_t bwd(const Args& a, const void* out, const void* dout,
                 const float* lse, float* delta, float* dq_ws, void* dq,
                 void* dk, void* dv, cudaStream_t stream) {
@@ -296,16 +223,6 @@ cudaError_t bwd(const Args& a, const void* out, const void* dout,
 }
 
 template <typename T, bool DROP>
-cudaError_t fwd_d(const Args& a, int d, void* out, float* lse, cudaStream_t s) {
-  switch (d) {
-    case 32: return fwd<T, 32, DROP>(a, out, lse, s);
-    case 64: return fwd<T, 64, DROP>(a, out, lse, s);
-    case 128: return fwd<T, 128, DROP>(a, out, lse, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T, bool DROP>
 cudaError_t bwd_d(const Args& a, int d, const void* out, const void* dout,
                   const float* lse, float* delta, float* dq_ws, void* dq,
                   void* dk, void* dv, cudaStream_t s) {
@@ -315,12 +232,6 @@ cudaError_t bwd_d(const Args& a, int d, const void* out, const void* dout,
     case 128: return bwd<T, 128, DROP>(a, out, dout, lse, delta, dq_ws, dq, dk, dv, s);
   }
   return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t fwd_t(const Args& a, int d, void* out, float* lse, cudaStream_t s) {
-  return a.drp.thr < 65536u ? fwd_d<T, true>(a, d, out, lse, s)
-                            : fwd_d<T, false>(a, d, out, lse, s);
 }
 
 template <typename T>
@@ -338,27 +249,6 @@ cudaError_t bwd_t(const Args& a, int d, const void* out, const void* dout,
 // Dropout: seed0, seed1 and the keep threshold thr of csrc/philox.cuh, and
 // inv_keep = 1 / (1 - p); thr = 65536 (no 16-bit value is below it) means
 // no dropout and takes the p = 0 kernels.
-extern "C" int ptt_flash_attention_packed_fwd(
-    const void* q, const void* k, const void* v, const void* bias, void* out,
-    void* lse, int b, int sq, int sk, int h, int d, long long qsb,
-    long long qss, long long ksb, long long kss, long long vsb, long long vss,
-    float scale, int causal, unsigned int seed0, unsigned int seed1,
-    unsigned int thr, float inv_keep, int dtype, void* stream) {
-  using namespace ptt;
-  if (b == 0 || sq == 0 || h == 0) return cudaSuccess;
-  const Args a{q, k, v, static_cast<const float*>(bias), b, sq, sk, h,
-               qsb, qss, ksb, kss, vsb, vss, scale, causal,
-               Dropout{seed0, seed1, thr, inv_keep}};
-  float* l = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32: return fwd_t<float>(a, d, out, l, s);
-    case kBFloat16: return fwd_t<__nv_bfloat16>(a, d, out, l, s);
-    case kFloat16: return fwd_t<__half>(a, d, out, l, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
 extern "C" int ptt_flash_attention_packed_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* out, const void* dout, const void* lse, void* delta,

@@ -1,11 +1,13 @@
 // The tensor-core tile scheme of the bf16/fp16 flash attention kernels K1
-// (forward) and K3 (dk/dv) in flash_attention.cu.
+// (forward, flash_attention.cu; it also runs the packed forward K5), K2 (dq,
+// flash_attention_dq.cu) and K3 (dk/dv, flash_attention_dkv.cu).
 //
-// A CTA of 4 warps owns a 64-row tile (query rows in K1, keys in K3), 16
-// rows a warp, as one m16 row block of mma.sync m16n8k16 (csrc/mma.cuh). The
-// warp's own operand rows (q in K1; k and v in K3) are loaded once as A
-// fragments and stay in registers; the streamed tiles (k and v in K1; q,
-// dout and out in K3) sit in shared memory in their input type, each row
+// A CTA of 4 warps owns a 64-row tile (query rows in K1 and K2, keys in
+// K3), 16 rows a warp, as one m16 row block of mma.sync m16n8k16
+// (csrc/mma.cuh). The warp's own operand rows (q in K1; q and dout in K2; k
+// and v in K3) are loaded once as A fragments and stay in registers; the
+// streamed tiles (k and v in K1 and K2; q, dout and out in K3) sit in
+// shared memory in their input type, each row
 // padded by 16 bytes (row stride D + 8 elements: 208 bytes at d = 96), so
 // the 8 row addresses of every ldmatrix fall in 8 different 16-byte bank
 // groups for every instantiated head dim (16, 32, 64, 80, 96, 128)

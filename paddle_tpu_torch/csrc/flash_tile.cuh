@@ -1,5 +1,6 @@
 // The FMA tile scheme shared by the flash attention kernels K1-K3
-// (flash_attention.cu) and K5/K6 (flash_attention_packed.cu): a CTA of 256
+// (flash_attention*.cu; K1 also runs K5) and K6 (flash_attention_packed.cu):
+// a CTA of 256
 // threads as a 16 x 16 grid, each thread an M x M micro-tile of every
 // 16M x 16M score tile (rows ty*M+i, keys tx+16*j) and the same M rows (or
 // keys) of every 16M x D product (columns tx+16*c, D/16 a thread). M is 4
@@ -13,6 +14,9 @@
 // D is the instantiated width; dn <= D is the head dim of the data. Columns
 // dn .. D - 1 are zero-filled on load (they add nothing to a dot product)
 // and skipped on store, so one instantiation serves every head dim up to D.
+// Above the widest width the head dim runs in D-column chunks: the score
+// products accumulate over the chunks (score_tile / score_tiles with ADD),
+// and a CTA writes the D output columns from c1 (store_out, store_dkv).
 //
 // Attention dropout (DROP): the keep bits of a tile, one byte a row and
 // 8-key group (csrc/philox.cuh), are drawn into shared memory beside the
@@ -175,6 +179,18 @@ __device__ __forceinline__ void load_rows(const T* src, long long rs, int r0, in
   }
 }
 
+// keys k0 .. k0 + 16M of one operand (row stride ss), transposed:
+// dst[c][key] (0 past sk and in columns >= dn)
+template <typename T, int D, int M>
+__device__ __forceinline__ void load_t(const T* src, long long ss, int k0, int sk,
+                                       int dn, float* dst) {
+  constexpr int B = Tile<M>::B, P = Tile<M>::Pad;
+  for (int idx = threadIdx.x; idx < B * D; idx += kThreads) {
+    const int key = idx / D, c = idx % D, j = k0 + key;
+    dst[c * P + key] = j < sk && c < dn ? to_f32(src[j * ss + c]) : 0.f;
+  }
+}
+
 // keys k0 .. k0 + 16M of k and v, transposed: kt[c][key], vt[c][key] (0
 // past sk and in columns >= dn)
 template <typename T, int D, int M>
@@ -212,15 +228,18 @@ __device__ __forceinline__ void row_delta(const T* ob, const T* gb, long long rs
   }
 }
 
-// s = a b^T over a tile: a rows at stride D + 1, b transposed
-template <int D, int M>
+// s = a b^T over a tile (ADD: s += a b^T): a rows at stride D + 1, b
+// transposed
+template <int D, int M, bool ADD = false>
 __device__ __forceinline__ void score_tile(const float* a, const float* bt, int ty,
                                            int tx, float (&s)[M][M]) {
   constexpr int P = Tile<M>::Pad;
+  if constexpr (!ADD) {
 #pragma unroll
-  for (int i = 0; i < M; ++i)
+    for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int j = 0; j < M; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < M; ++j) s[i][j] = 0.f;
+  }
 #pragma unroll 4
   for (int c = 0; c < D; ++c) {
     float x[M], y[M];
@@ -235,17 +254,20 @@ __device__ __forceinline__ void score_tile(const float* a, const float* bt, int 
   }
 }
 
-// s = q k^T and dp = dout v^T over a tile in one sweep over D
-template <int D, int M>
+// s = q k^T and dp = dout v^T over a tile in one sweep over D (ADD: added
+// to s and dp)
+template <int D, int M, bool ADD = false>
 __device__ __forceinline__ void score_tiles(const float* qs, const float* gs,
                                             const float* kt, const float* vt,
                                             int ty, int tx, float (&s)[M][M],
                                             float (&dp)[M][M]) {
   constexpr int P = Tile<M>::Pad;
+  if constexpr (!ADD) {
 #pragma unroll
-  for (int i = 0; i < M; ++i)
+    for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int j = 0; j < M; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < M; ++j) s[i][j] = dp[i][j] = 0.f;
+  }
 #pragma unroll 4
   for (int c = 0; c < D; ++c) {
     float x[M], g[M], kc[M], vc[M];
@@ -345,43 +367,46 @@ __device__ __forceinline__ void softmax_step(const float (&s)[M][M], float (&m)[
 }
 
 // the forward's outputs of the tile's rows: out = acc / l (0 on a row with
-// no visible key) into contiguous (b, sq, h, dn), lse = m + log l (-1e30 on
-// such a row) into (b, h, sq)
+// no visible key) into columns c1 .. c1 + D of contiguous (b, sq, h, dn),
+// lse = m + log l (-1e30 on such a row) into (b, h, sq) from the CTA of
+// columns 0
 template <typename T, int D, int M>
 __device__ __forceinline__ void store_out(const float (&acc)[M][D / 16],
                                           const float (&m)[M], const float (&l)[M],
                                           T* out, float* lse, int bb, int hh, int h,
-                                          int q0, int sq, int dn, int ty, int tx) {
+                                          int q0, int sq, int dn, int ty, int tx,
+                                          int c1 = 0) {
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     const int row = q0 + ty * M + i;
     if (row >= sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* orow = out + ((static_cast<long long>(bb) * sq + row) * h + hh) * dn;
+    T* orow = out + ((static_cast<long long>(bb) * sq + row) * h + hh) * dn + c1;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c)
-      if (tx + 16 * c < dn) orow[tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
-    if (tx == 0)
+      if (c1 + tx + 16 * c < dn) orow[tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
+    if (tx == 0 && c1 == 0)
       lse[(static_cast<long long>(bb) * h + hh) * sq + row] =
           m[i] + logf(l[i] > 0.f ? l[i] : 1.f);
   }
 }
 
-// dk and dv of the tile's keys into contiguous (b, sk, h, dn); dk scaled
+// dk and dv of the tile's keys into columns c1 .. c1 + D of contiguous (b,
+// sk, h, dn); dk scaled
 template <typename T, int D, int M>
 __device__ __forceinline__ void store_dkv(const float (&dka)[M][D / 16],
                                           const float (&dva)[M][D / 16], T* dk,
                                           T* dv, int bb, int hh, int h, int k0,
                                           int sk, int dn, float scale, int ty,
-                                          int tx) {
+                                          int tx, int c1 = 0) {
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     const int key = k0 + ty * M + i;
     if (key >= sk) continue;
-    const long long o = ((static_cast<long long>(bb) * sk + key) * h + hh) * dn;
+    const long long o = ((static_cast<long long>(bb) * sk + key) * h + hh) * dn + c1;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
-      if (tx + 16 * c >= dn) continue;
+      if (c1 + tx + 16 * c >= dn) continue;
       dk[o + tx + 16 * c] = from_f32<T>(dka[i][c] * scale);
       dv[o + tx + 16 * c] = from_f32<T>(dva[i][c]);
     }

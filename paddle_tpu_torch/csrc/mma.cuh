@@ -1,6 +1,6 @@
 // Tensor-core and asynchronous-copy primitives shared by the kernels that use
 // them: flash cross-entropy K9-K11 (fused_ce.cu) and the bf16/fp16 flash
-// attention forward K1 and dk/dv K3 (flash_attention.cu).
+// attention kernels K1-K3 (flash_attention*.cu).
 //  * copy_rows: rows of a row-major operand into shared memory with 16-byte
 //    cp.async (or, for a view that is not 16-byte aligned, plain loads),
 //    rows past the operand's end zero-filled;

@@ -59,7 +59,8 @@ _SIGNATURES = {
         [p, p, p, p, p, p, i32, i32, i32, i32, i32]
         + [i64] * 9 + [f32, i32, i32, p]),
     # q, k, v, bias, out, lse, b, sq, sk, h, d, q/k/v strides (b, s, h),
-    # bias strides (b, h, row), scale, causal, dropout, dtype, stream
+    # bias strides (b, h, row), scale, causal, dropout, dtype, stream (K1,
+    # and the packed forward K5 on its strides)
     "ptt_flash_attention_fwd": [p] * 6 + [i32] * 5 + [i64] * 12 + _ATTN_TAIL,
     # q, k, v, bias, out, dout, lse, dq, b, sq, sk, h, d, strides as above,
     # scale, causal, dropout, dtype, stream
@@ -67,10 +68,6 @@ _SIGNATURES = {
     # q, k, v, bias, out, dout, lse, dk, dv, b, sq, sk, h, d, strides as
     # above, scale, causal, dropout, dtype, stream
     "ptt_flash_attention_bwd_dkv": [p] * 9 + [i32] * 5 + [i64] * 12 + _ATTN_TAIL,
-    # q, k, v, bias, out, lse, b, sq, sk, h, d,
-    # q strides (b, s), k strides, v strides, scale, causal, dropout, dtype,
-    # stream
-    "ptt_flash_attention_packed_fwd": [p] * 6 + [i32] * 5 + [i64] * 6 + _ATTN_TAIL,
     # q, k, v, bias, out, dout, lse, delta, dq workspace, dq, dk, dv,
     # b, sq, sk, h, d, q/k/v strides (b, s), scale, causal, dropout, dtype,
     # stream

@@ -15,10 +15,10 @@ without a copy.
   autograd it saves q, k, v, the bias, the output and the fp32 logsumexp;
   the backward recomputes the probabilities from them, dq swept over key
   tiles (K2) and dk/dv over query tiles (K3): no atomics, the same bits
-  from run to run. bf16 and fp16 inputs up to head dim 128 run K1 and K3 on
-  the tensor cores (``mma.sync``), rounding p (and K3's ``ds * scale``) to
-  the input type before their products as the TPU kernels do; fp32 inputs,
-  head dims above 128, and K2 in every type, run fp32 FMA kernels
+  from run to run. bf16 and fp16 inputs up to head dim 128 run K1-K3 on
+  the tensor cores (``mma.sync``), rounding p (K1, K3) and ``ds * scale``
+  (K2, K3) to the input type before their products as the TPU kernels do;
+  fp32 inputs and head dims above 128 run fp32 FMA kernels
   (:func:`kernel_route`). A trainable bias gets its gradient from PyTorch
   operations on the saved residuals, as the JAX package computes it with
   XLA operations outside its kernels. The raw launchers
@@ -37,9 +37,11 @@ without a copy.
   holds no gradients through the cache, and on a CUDA tensor the wrapper
   raises rather than return an output that autograd cannot see.
 
-Both take every head dim up to :data:`MAX_HEAD_DIM`: a head dim runs in the
-smallest instantiated width at or above it (:data:`FLASH_WIDTHS` for
-K1-K3), the columns past it zero-filled inside the kernel.
+Both take every head dim, as the JAX kernels do: up to 256 a head dim runs
+in the smallest instantiated width at or above it (:data:`FLASH_WIDTHS` for
+K1-K3), the columns past it zero-filled inside the kernel; above 256 it
+runs in 256-column chunks (one chunked FMA kernel a type), the output
+columns split into 256-column slices over the grid.
 """
 from __future__ import annotations
 
@@ -55,13 +57,12 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_plain", "flash_attention_cached",
            "flash_attention_cached_plain", "supports", "kernel_route",
-           "MAX_HEAD_DIM", "FLASH_WIDTHS", "MAX_DROPOUT_HEADS", "NEG_INF"]
+           "FLASH_WIDTHS", "MAX_DROPOUT_HEADS", "NEG_INF"]
 
 NEG_INF = -1e30
-#: the widest head dim the kernels take
-MAX_HEAD_DIM = 256
 #: widths K1-K3 are instantiated at (csrc/flash_attention.cuh); K4 is at
-#: 32, 64, 96, 128 and 256 (csrc/flash_attention_cached.cu)
+#: 32, 64, 96, 128 and 256 (csrc/flash_attention_cached.cu); above 256 both
+#: run the head dim in 256-column chunks
 FLASH_WIDTHS = (16, 32, 64, 80, 96, 128, 256)
 #: the JAX kernels' in-kernel dropout takes fewer heads than this (their
 #: per-tile seed packs the head into 10 bits; flash_attention.py:754-759)
@@ -120,8 +121,8 @@ def flash_attention_cached_plain(q, k, v, q_pos, kv_len=None, scale=None):
 
 def _check_qkv(q, k, v, what):
     """``(b, sq, sk, h, d)`` of q, k and v as a kernel takes them: paddle
-    layout, one dtype and device, a contiguous head_dim and a head dim up to
-    :data:`MAX_HEAD_DIM`. Raises on anything else."""
+    layout, one dtype and device and a contiguous head_dim (any head dim, as
+    the JAX kernels take). Raises on anything else."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k, v must be (batch, seq, heads, head_dim); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}")
@@ -130,9 +131,8 @@ def _check_qkv(q, k, v, what):
     if k.shape != (b, sk, h, d) or v.shape != k.shape:
         raise ValueError(f"k/v must be ({b}, seq_k, {h}, {d}); got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{what} kernel takes head dims up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+    if d < 1:
+        raise ValueError(f"{what} kernel needs a head dim of at least 1")
     dtype_code(q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
@@ -175,7 +175,9 @@ def flash_attention_cached(q, k, v, q_pos, kv_len=None, *, scale=None):
         kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    ksplit = 4 if sq <= 8 else 1  # decode/verify: warps split the keys
+    # decode/verify: warps split the keys (the chunked kernel above head
+    # dim 256 takes one key part)
+    ksplit = 4 if sq <= 8 else 1
     check(library().ptt_flash_attention_cached_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
         None if kl is None else kl.data_ptr(), out.data_ptr(),
@@ -229,17 +231,19 @@ def _dropped(x, keep, dropout_p):
 
 
 def kernel_route(dtype, head_dim=None):
-    """The route K1 and K3 take on the card for inputs of ``dtype`` and
-    ``head_dim`` (csrc/flash_attention.cu's dispatch): ``"mma.sync"``
-    tensor-core tiles for bf16 and fp16 up to head dim 128, ``"fma"`` fp32
-    FMA for fp32 and wider heads. K2 is ``"fma"`` in every type."""
+    """The route K1, K2 and K3 (and the packed forward K5, which runs K1)
+    take on the card for inputs of ``dtype`` and ``head_dim`` (the dispatch
+    of csrc/flash_attention*.cu): ``"mma.sync"`` tensor-core tiles for bf16
+    and fp16 up to head dim 128, ``"fma"`` fp32 FMA for fp32 and wider
+    heads."""
     dtype_code(dtype)
     wide = head_dim is not None and head_dim > 128
     return "fma" if dtype == torch.float32 or wide else "mma.sync"
 
 
 def _rounds(t):
-    """Whether K1 and K3 round p (and ds * scale) to ``t``'s type."""
+    """Whether K1-K3 round p (K1, K3) and ds * scale (K2, K3) to ``t``'s
+    type: on the tensor-core route."""
     return kernel_route(t.dtype, t.shape[-1]) == "mma.sync"
 
 
@@ -285,8 +289,8 @@ def _probs_ds(q, k, v, out, lse, dout, bias, causal, scale, dropout_p=0.0,
     ``p = exp(s - lse)`` (0 where masked and on rows with no visible key),
     ``ds = p * (dp - rowsum(dout * out))``. With dropout, p comes back
     dropped (the dv operand) and dp is masked and scaled before ds
-    (flash_attention.py:246-251). K2's plain version and the bias gradient
-    use them unrounded; K3's rounds them."""
+    (flash_attention.py:246-251). The bias gradient uses them unrounded;
+    K2's and K3's plain versions round them on the tensor-core route."""
     s, ok = _scores(q, k, bias, causal, scale)
     lse_ = lse.float()[..., None]
     live = lse_ > NEG_INF * 0.5
@@ -304,11 +308,17 @@ def _probs_ds(q, k, v, out, lse, dout, bias, causal, scale, dropout_p=0.0,
 def flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, bias=None,
                                  causal=False, scale=None, dropout_p=0.0,
                                  seed=None):
-    """Plain version of K2: dq ``(b, sq, h, d)`` in q's dtype, fp32 math."""
+    """Plain version of K2: dq ``(b, sq, h, d)`` in q's dtype, fp32 math;
+    on K2's tensor-core route ``ds * scale`` is rounded to k's dtype before
+    ``ds k``, as K2 and the TPU kernel (flash_attention.py:207-209) do."""
     scale = _scale(q, scale)
     _, ds = _probs_ds(q, k, v, out, lse, dout, bias, causal, scale,
                       dropout_p, seed)
-    dq = torch.matmul(ds, k.float().transpose(1, 2)) * scale
+    kf = k.float().transpose(1, 2)
+    if _rounds(q):
+        dq = torch.matmul((ds * scale).to(k.dtype).float(), kf)
+    else:
+        dq = torch.matmul(ds, kf) * scale
     return dq.transpose(1, 2).to(q.dtype)
 
 

@@ -1,6 +1,16 @@
 """Packed (seq-major) flash attention: kernels K5 (forward) and K6 (backward)
 and their plain versions.
 
+K5 launches K1's forward (``csrc/flash_attention.cu``: ``mma.sync`` tensor
+cores at bf16 and fp16, fp32 FMA at fp32; :func:`~.flash_attention.kernel_route`):
+a ``(b, s, h·d)`` view read through its row stride is a ``(b, s, h, d)``
+view with head stride d, and the shared ``(sq, sk)`` bias is K1's bias with
+batch and head strides 0. Its plain version is K1's: the 64-key online
+softmax with p rounded to v's dtype before ``p v`` on the tensor-core route,
+as the TPU kernel rounds it (flash_attention_packed.py:149, :195). K6 is a
+kernel of its own (``csrc/flash_attention_packed.cu``), fp32 FMA, p and ds
+in fp32.
+
 Port of ``paddle_tpu/ops/pallas/flash_attention_packed.py``. q, k and v are
 ``(batch, seq, heads * head_dim)``: the reshaped views of one fused qkv
 projection go in without a copy (the kernels take batch and row strides) and
@@ -30,7 +40,8 @@ import torch
 
 from .. import philox
 from ._build import check, dtype_code, library, needs_grad, stream_of
-from .flash_attention import _dropped, _pick_block, dropout_seed_words
+from .flash_attention import (_dropped, _pick_block, dropout_seed_words,
+                              flash_attention_fwd_plain)
 
 __all__ = ["flash_attention_packed", "flash_attention_packed_plain",
            "flash_attention_packed_fwd", "flash_attention_packed_fwd_plain",
@@ -38,7 +49,8 @@ __all__ = ["flash_attention_packed", "flash_attention_packed_plain",
            "supports", "HEAD_DIMS", "NEG_INF"]
 
 NEG_INF = -1e30
-#: head dims the kernels are instantiated for
+#: head dims the packed route takes (K6 is instantiated for them; K5 runs
+#: K1's forward at their widths)
 HEAD_DIMS = (32, 64, 128)
 # the JAX kernel's gate constants, for the CPU route
 # (paddle_tpu/ops/pallas/flash_attention_packed.py)
@@ -108,23 +120,20 @@ def _keep(q, k, num_heads, dropout_p, seed):
 def flash_attention_packed_fwd_plain(q, k, v, num_heads, bias=None,
                                      causal=False, scale=None, dropout_p=0.0,
                                      seed=None):
-    """Plain version of K5: ``(out, lse)``, dense fp32 scores. out is in
-    q's dtype, lse fp32 ``(b, h, sq)``. With dropout the row sum takes the
-    undropped p and ``p v`` the kept p times ``1 / (1 - p)``
-    (flash_attention_packed.py:145, :189)."""
+    """Plain version of K5: ``(out, lse)``; out in q's dtype, lse fp32
+    ``(b, h, sq)``. K1's plain version on the ``(b, s, h, d)`` views with
+    the bias broadcast, as K5 runs K1's kernel: the 64-key online softmax,
+    p rounded to v's dtype before ``p v`` on the tensor-core route; with
+    dropout the row sum takes the undropped p and ``p v`` the kept p times
+    ``1 / (1 - p)`` (flash_attention_packed.py:145, :189). A row with no
+    visible key gives output 0 and lse -1e30."""
     b, sq, sk, h, d = _heads(q, k, num_heads)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    s, _ = _logits(q, k, num_heads, bias, causal, scale)
-    m = s.amax(-1, keepdim=True)
-    # rows with no visible key: output 0, lse -1e30 (_zero_masked_rows)
-    p = torch.where(m > NEG_INF * 0.5, torch.exp(s - m), 0.0)
-    l = p.sum(-1, keepdim=True)
-    l_safe = torch.where(l == 0.0, 1.0, l)
-    p = _dropped(p, _keep(q, k, num_heads, dropout_p, seed), dropout_p)
-    vf = v.float().reshape(b, sk, h, d).transpose(1, 2)
-    out = torch.matmul(p, vf) / l_safe
-    lse = (m + torch.log(l_safe)).squeeze(-1)
-    return out.transpose(1, 2).reshape(b, sq, h * d).to(q.dtype), lse
+    out, lse = flash_attention_fwd_plain(
+        q.reshape(b, sq, h, d), k.reshape(b, sk, h, d),
+        v.reshape(b, sk, h, d), None if bias is None else bias[None, None],
+        causal, scale, dropout_p, seed)
+    return out.reshape(b, sq, h * d), lse
 
 
 def flash_attention_packed_bwd_plain(q, k, v, out, lse, dout, num_heads,
@@ -202,7 +211,9 @@ def _tail(scale, causal, dropout_p, seed, dtype, t):
 def flash_attention_packed_fwd(q, k, v, num_heads, bias=None, causal=False,
                                scale=None, dropout_p=0.0, seed=None):
     """``(out, lse)``: CPU tensors take the plain version; CUDA tensors
-    launch kernel K5. ``bias`` is None or a contiguous fp32 ``(sq, sk)``;
+    launch kernel K5, K1's forward on the packed strides (q, k and v rows
+    at their row strides, heads d apart; the bias's rows sk apart, its batch
+    and head strides 0). ``bias`` is None or a contiguous fp32 ``(sq, sk)``;
     ``seed`` (two words) keys the dropout mask when ``dropout_p > 0``."""
     if q.device.type == "cpu":
         return flash_attention_packed_fwd_plain(q, k, v, num_heads, bias,
@@ -213,10 +224,11 @@ def flash_attention_packed_fwd(q, k, v, num_heads, bias=None, causal=False,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    check(library().ptt_flash_attention_packed_fwd(
+    strides = [st for t in (q, k, v) for st in (*t.stride()[:2], d)]
+    check(library().ptt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, sq, sk, h, d, *_strides(q, k, v),
+        lse.data_ptr(), b, sq, sk, h, d, *strides, 0, 0, sk,
         *_tail(scale, causal, dropout_p, seed, q.dtype, q)),
         "flash_attention_packed_fwd")
     flash_attention_packed_fwd.launches += 1

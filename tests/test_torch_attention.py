@@ -76,6 +76,25 @@ def test_k4_plain_without_kv_len_and_explicit_scale(
     np.testing.assert_allclose(got.numpy(), want, atol=FP32_TOL, rtol=0)
 
 
+def test_k4_plain_matches_pallas_cached_kernel_at_head_dim_320(
+        no_persistent_compile_cache):
+    """Above 256, where K4 runs q and K in 128-column chunks and its output
+    in 256-column slices: the plain version against the Pallas kernel at
+    d = 320, with a fully masked row and a partial kv_len."""
+    b, sq, sk, h, d = 2, 128, 128, 1, 320
+    q, k, v = _qkv(b, sq, sk, h, d, seed=3)
+    q_pos = np.broadcast_to(np.arange(sq, dtype=np.int32), (b, sq)).copy()
+    q_pos[1, 7] = -1
+    kv_len = np.array([100, 128], np.int32)
+    with interpret_mode():
+        want = np.asarray(flash_attention_cached(
+            *_j(q, k, v), jnp.asarray(q_pos), jnp.asarray(kv_len),
+            block_q=128, block_k=128))
+    got = k4.flash_attention_cached(*_t(q, k, v, q_pos, kv_len))
+    np.testing.assert_allclose(got.numpy(), want, atol=FP32_TOL, rtol=0)
+    assert np.all(got.numpy()[1, 7] == 0.0)
+
+
 @pytest.mark.parametrize("sq", [1, 5])  # decode, verify (spec_k = 4)
 def test_blockwise_matches_jax_scan(sq, no_persistent_compile_cache):
     b, sk, h, d = 3, 256, 2, 16

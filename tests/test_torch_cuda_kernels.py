@@ -11,8 +11,9 @@ is summed with atomics in an order that varies from run to run); bf16 and
 fp16 outputs round the same fp32 value once, so they agree to one step of
 the type: |Δ| <= 2^-7 · max(1, |ref|) for bf16, 2^-10 · max(1, |ref|) for
 fp16. K1-K3 (the layout-swapping flash attention) are held to the same
-limits (at bf16 and fp16 K1 and K3 round p, and K3 ds * scale, to the input
-type before their products, as do their plain versions), and their
+limits (at bf16 and fp16 up to head dim 128 K1 and K3 round p, and K2 and
+K3 ds * scale, to the input type before their products, as do their plain
+versions; K5 runs K1's forward and rounds p the same way), and their
 gradients, summed without atomics, must be the same bits from launch to
 launch. The one exception is K8's fp32 dgamma and dbeta:
 sums of one term a row, taken in another order than the plain version's,
@@ -111,6 +112,11 @@ _CASES = [
     (2, 40, 130, 2, 256, torch.bfloat16),
     (2, 9, 65, 2, 256, torch.float32),
     (2, 9, 65, 3, 20, torch.float16),
+    # above 256 (the chunked kernel: q and K in 128-column chunks, the
+    # output in 256-column slices): a ragged last chunk, two slices, decode
+    (2, 9, 65, 2, 320, torch.bfloat16),
+    (1, 40, 100, 2, 512, torch.float32),
+    (4, 1, 300, 2, 300, torch.float16),
 ]
 
 
@@ -400,6 +406,12 @@ _FLASH = [
     (2, 130, 100, 2, 256, torch.bfloat16, True, (2, 1)),
     (1, 70, 70, 2, 256, torch.float32, False, None),
     (1, 77, 77, 2, 20, torch.bfloat16, True, (1, 1)),
+    # above 256 (chunked FMA kernels in every type): a ragged last chunk
+    # with sq > sk and a bias, two output slices, a head dim not a multiple
+    # of 16
+    (1, 100, 90, 2, 320, torch.bfloat16, True, (1, 2)),
+    (1, 70, 130, 2, 512, torch.float16, False, None),
+    (1, 65, 65, 2, 300, torch.float32, True, None),
 ]
 
 
@@ -479,6 +491,11 @@ def test_flash_attention_reads_misaligned_views(dev, dtype):
                                            True)
     for a, w in zip(got, ref):
         _assert_close(a, w)
+    dq = k1.flash_attention_bwd_dq(q, k, v, out, lse, dout, None, True)
+    assert torch.equal(dq, k1.flash_attention_bwd_dq(qc, kc, vc, out, lse,
+                                                     dout, None, True))
+    _assert_close(dq, k1.flash_attention_bwd_dq_plain(q, k, v, out, lse,
+                                                      dout, None, True))
 
 
 def test_flash_attention_routes_by_dtype():
@@ -487,6 +504,7 @@ def test_flash_attention_routes_by_dtype():
     assert k1.kernel_route(torch.float32) == "fma"
     assert k1.kernel_route(torch.bfloat16, 128) == "mma.sync"
     assert k1.kernel_route(torch.bfloat16, 256) == "fma"
+    assert k1.kernel_route(torch.float16, 320) == "fma"
 
 
 # (b, sq, sk, h, d, dtype, causal, bias (B, H) or None) with dropout 0.3:
@@ -497,6 +515,7 @@ _FLASH_DROPOUT = [
     (1, 130, 100, 2, 64, torch.float32, True, (1, 2)),
     (2, 100, 130, 2, 32, torch.float16, False, None),
     (1, 90, 90, 2, 256, torch.bfloat16, True, None),
+    (1, 90, 80, 2, 320, torch.bfloat16, True, None),
 ]
 _SEED = (0x9E3779B9, 12345)
 
@@ -608,9 +627,6 @@ def test_flash_attention_autograd_matches_plain(dev, monkeypatch):
 
 
 def test_flash_attention_refuses_what_it_does_not_take(dev):
-    x = torch.randn(1, 64, 2, 257, device=dev)
-    with pytest.raises(ValueError, match="up to 256"):
-        k1.flash_attention_fwd(x, x, x)
     y = torch.randn(1, 64, 2, 96, device=dev)
     with pytest.raises(ValueError, match="bias"):
         k1.flash_attention_fwd(y, y, y, torch.zeros(1, 1, 64, 64, device=dev,

@@ -297,10 +297,14 @@ def test_jax_refusals_raise():
     with pytest.raises(ValueError, match="dropout_seed"):
         k5.flash_attention_packed(x.reshape(1, 64, 64), x.reshape(1, 64, 64),
                                   x.reshape(1, 64, 64), 2, dropout_p=0.1)
-    # the kernels' head-dim limit names itself
+    # the kernels take every head dim, as JAX's do: the check passes a head
+    # dim above 256 and names the one it refuses
     big = torch.zeros(1, 4, 1, 257)
-    with pytest.raises(ValueError, match="up to 256"):
-        k1._check_qkv(big, big, big, "flash_attention_fwd")
+    assert k1._check_qkv(big, big, big, "flash_attention_fwd") == (
+        1, 4, 4, 1, 257)
+    empty = torch.zeros(1, 4, 1, 0)
+    with pytest.raises(ValueError, match="head dim of at least 1"):
+        k1._check_qkv(empty, empty, empty, "flash_attention_fwd")
 
 
 # ---------------------------------------------------------------------------

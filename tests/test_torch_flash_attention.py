@@ -89,6 +89,10 @@ _CASES = {
     "bool_mask_d96": (2, 128, 128, 2, 96, False, "bool"),
     "cross_length_causal_d96": (1, 128, 256, 2, 96, True, None),
     "multi_kblock_causal_d96": (1, 512, 512, 2, 96, True, None),
+    # above 256, where the kernels run the head dim in 256-column chunks
+    # (a ragged last chunk of 64)
+    "causal_bias_head_d320": (1, 128, 128, 2, 320, True, "head"),
+    "full_d320": (1, 128, 128, 2, 320, False, None),
 }
 
 
@@ -198,14 +202,12 @@ def _bf16_close(got, want, name):
     assert rel <= BF16_STEP / 4, (name, rel)
 
 
-def test_bf16_plain_k1_k3_round_as_the_pallas_kernels(
-        no_persistent_compile_cache):
-    """bf16 at d = 96, causal, with a (1, H) bias: K1's plain version (p
-    rounded to bf16 before p v) and K3's (p and ds * scale rounded before
-    their products) against the Pallas kernels in interpret mode, which
-    round at the same places, on the same bf16 inputs."""
+def _bf16_pallas_and_port(seed):
+    """bf16 at d = 96, causal, with a (1, H) bias: the Pallas kernels'
+    (interpret mode) and the port's plain versions' output and dq, dk, dv
+    on the same bf16 inputs, ``{name: (port, pallas)}``."""
     b, s, h, d = 2, 256, 2, 96
-    q, k, v, co, rng = _qkv(b, s, s, h, d, seed=31)
+    q, k, v, co, rng = _qkv(b, s, s, h, d, seed=seed)
     bias = (rng.randn(1, h, s, s) * 0.5).astype(np.float32)
     ts = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, co)]
     jq, jk, jv, jco = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
@@ -218,16 +220,47 @@ def test_bf16_plain_k1_k3_round_as_the_pallas_kernels(
         return jnp.vdot(out.astype(jnp.float32),
                         jco.astype(jnp.float32)), out
 
-    (_, want), (_, want_dk, want_dv) = jax.value_and_grad(
+    (_, want), want_g = jax.value_and_grad(
         f, (0, 1, 2), has_aux=True)(jq, jk, jv)
     qt, kt, vt = (t.requires_grad_() for t in ts[:3])
     out = k1.flash_attention(qt, kt, vt, bias=torch.from_numpy(bias),
                              causal=True, bias_grad=False)
-    dk, dv = torch.autograd.grad(out, (kt, vt), ts[3])
-    assert out.dtype == dk.dtype == dv.dtype == torch.bfloat16
-    for name, got, ref in (("out", out, want), ("dk", dk, want_dk),
-                           ("dv", dv, want_dv)):
-        _bf16_close(got, ref, name)
+    got_g = torch.autograd.grad(out, (qt, kt, vt), ts[3])
+    assert all(t.dtype == torch.bfloat16 for t in (out, *got_g))
+    return dict(zip(("out", "dq", "dk", "dv"),
+                    zip((out, *got_g), (want, *want_g))))
+
+
+def test_bf16_plain_k1_k3_round_as_the_pallas_kernels(
+        no_persistent_compile_cache):
+    """bf16 at d = 96, causal, with a (1, H) bias: K1's plain version (p
+    rounded to bf16 before p v) and K3's (p and ds * scale rounded before
+    their products) against the Pallas kernels in interpret mode, which
+    round at the same places, on the same bf16 inputs."""
+    pairs = _bf16_pallas_and_port(seed=31)
+    for name in ("out", "dk", "dv"):
+        _bf16_close(*pairs[name], name)
+
+
+def test_bf16_plain_k2_rounds_as_the_pallas_kernel(
+        no_persistent_compile_cache):
+    """K2's plain version on its tensor-core route rounds ds * scale to
+    k's dtype before ds k, as K2 and the Pallas kernel do
+    (flash_attention.py:207-209): dq against the Pallas dq in interpret
+    mode on the same bf16 inputs, at the bf16 limits."""
+    pairs = _bf16_pallas_and_port(seed=32)
+    _bf16_close(*pairs["dq"], "dq")
+    assert k1.kernel_route(torch.bfloat16, 96) == "mma.sync"
+
+
+@pytest.mark.parametrize("d", [257, 320, 512, 1000])
+def test_kernel_checks_take_head_dims_above_256(d):
+    """The card path's checks (K1-K4 share them) pass every head dim, as
+    the JAX kernels take it; above 128 the route is FMA."""
+    q = torch.zeros(2, 5, 3, d, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 7, 3, d, dtype=torch.bfloat16)
+    assert k1._check_qkv(q, kv, kv, "flash_attention_fwd") == (2, 5, 7, 3, d)
+    assert k1.kernel_route(torch.bfloat16, d) == "fma"
 
 
 def test_wrapper_refuses_dropout_and_3d_masks():
@@ -350,6 +383,37 @@ def test_router_sends_head_dim_96_and_4d_masks_to_k1_k3(
     out.sum().backward()
     assert calls[-1][1:] == ((128, 128), True)
     assert trainable.grad is not None
+
+
+def test_router_sends_head_dim_320_to_k1_k3(monkeypatch,
+                                            no_persistent_compile_cache):
+    """A causal call at head dim 320 (no packed route: 320 is not a
+    128-lane group) on views of one fused qkv buffer reaches the K1-K3
+    wrapper on the CPU, as JAX sends it to its layout-swapping kernel;
+    output and gradients match JAX's route."""
+    calls = _spy(monkeypatch)
+    rng = np.random.RandomState(25)
+    qkv = (rng.randn(1, 128, 3, 2, 320) * 0.5).astype(np.float32)
+    co = rng.randn(1, 128, 2, 320).astype(np.float32)
+
+    def jf(qkv):
+        out = JA.scaled_dot_product_attention(
+            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], is_causal=True)
+        out = getattr(out, "_value", out)
+        return jnp.vdot(out, co), out
+
+    with interpret_mode():
+        (_, want), want_g = jax.value_and_grad(jf, has_aux=True)(
+            jnp.asarray(qkv))
+    qt = torch.from_numpy(qkv).requires_grad_()
+    got = PA.scaled_dot_product_attention(qt[:, :, 0], qt[:, :, 1],
+                                          qt[:, :, 2], is_causal=True)
+    (got_g,) = torch.autograd.grad(got, (qt,), torch.from_numpy(co))
+    assert calls == [((128 * 3 * 2 * 320, 3 * 2 * 320, 320, 1), None, False)]
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=OUT_TOL, rtol=OUT_TOL)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g),
+                               atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
 def test_router_sends_a_padding_bias_to_the_dense_path(

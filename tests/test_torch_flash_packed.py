@@ -99,6 +99,46 @@ def test_fully_masked_rows_give_zero_output_and_grads(
     assert bool((lse[:, :, :128] == k5.NEG_INF).all())
 
 
+BF16_STEP = 2.0 ** -7
+
+
+@pytest.mark.parametrize("causal,use_bias", [(True, False), (False, True)])
+def test_bf16_plain_k5_rounds_as_the_pallas_kernel(
+        causal, use_bias, no_persistent_compile_cache):
+    """K5's plain version is K1's (K5 runs K1's kernel): the 64-key online
+    softmax with p rounded to v's dtype before p v, as the Pallas packed
+    kernel rounds it (flash_attention_packed.py:149, :195). Against that
+    kernel in interpret mode (128-key blocks, so some roundings fall
+    elsewhere) on the same bf16 inputs: one bf16 step a element,
+    ``|d| <= 2^-7 max(1, |ref|)``, and a quarter step in relative L2 norm;
+    the logsumexp within 1e-5 (both fp32)."""
+    q, k, v, bias, _ = _inputs(256, 256, seed=5)
+    bias = bias if use_bias else None
+    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in ts)
+    want = np.asarray(jax_packed(jq, jk, jv, H, bias=bias, causal=causal,
+                                 block_q=128, block_k=128, interpret=True),
+                      np.float32)
+    got, lse = k5.flash_attention_packed_fwd_plain(
+        *ts, H, None if bias is None else torch.from_numpy(bias), causal)
+    assert got.dtype == torch.bfloat16
+    g = got.float().numpy()
+    err = np.abs(g - want)
+    assert np.all(err <= BF16_STEP * np.maximum(1.0, np.abs(want))), err.max()
+    rel = np.linalg.norm(g - want) / np.linalg.norm(want)
+    assert rel <= BF16_STEP / 4, rel
+    # the fp32 logsumexp of the same scores, from K1's plain version
+    s = (torch.einsum("bqhd,bkhd->bhqk", *(t.float().reshape(B, 256, H, D)
+                                             for t in ts[:2])) / D ** 0.5)
+    if bias is not None:
+        s = s + torch.from_numpy(bias)
+    if causal:
+        s = s.masked_fill(torch.ones(256, 256, dtype=torch.bool).triu(1),
+                          -1e30)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-5,
+                               rtol=1e-5)
+
+
 def test_shape_gate_mirrors_pallas_gate():
     for sq, sk, h, e in [(256, 256, 4, 256), (1024, 1024, 12, 768),
                          (100, 128, 2, 128), (256, 256, 3, 288),
