@@ -19,8 +19,13 @@
    dq is summed with atomics, K8's dgamma/dbeta over 24576 or 16384 rows,
    both in fp32: orders that differ far below a bf16 step). K5 runs K1's
    tensor-core forward and rounds p to bf16 before p v, as its plain
-   version does (K1's 64-key online softmax): also a quarter step in
-   relative L2 norm.
+   version does (K1's 64-key online softmax); K4 (prefill on K1's tiles,
+   decode and verify on split keys) and K6 (one tensor-core pass) round p
+   (K6 also ds * scale) where their plain versions do: also a quarter step
+   in relative L2 norm. K4's split-key cases give their key parts
+   (launched, live); K6 is timed beside K2 + K3 on the same packed strides
+   (the witness, held to K6's plain version) and beside SDPA's backward
+   timed before and after it.
 4. Serving phase (a main path): GPT-2 124M (vocab 50304, hidden 768, 12
    layers, 12 heads, 1024 positions) with random weights from
    ``torch.manual_seed(0)``, bf16 with fp32 LayerNorms, behind
@@ -85,9 +90,9 @@
    before ds k, as its plain version does), achieved TFLOP/s and share of
    its bound. Beside them SDPA's forward and backward at the train shape.
    Right after the build, ``cuobjdump -sass`` of the library must show
-   tensor-core instructions (HMMA, or HGMMA) in every bf16 K1, K2 and K3
-   tensor-core function, and ptxas's registers and spills of the bf16
-   attention kernels are printed.
+   tensor-core instructions (HMMA, or HGMMA) in every bf16 K1, K2, K3,
+   K4-prefill and K6 tensor-core function, and ptxas's registers and
+   spills of the bf16 attention kernels are printed.
    K7 and K8 at GPT-3 Large's LayerNorm shape (16384 rows of 1536, bf16 x,
    fp32 gamma and beta) within one bf16 step, beside ``F.layer_norm`` and
    ``native_layer_norm_backward``.
@@ -128,10 +133,10 @@
     one seed (both runs drop the same elements; losses within 2e-3), and a
     second kernel run whose first forward loss must equal the first run's
     bit for bit.
-12. Prints the ``kernels`` JSON line (K1-K11; K1-K3 and K5 with their
-    route by dtype, K1-K3 with their bf16 HMMA counts and ptxas registers
-    and spills, K1-K3 and K5/K6 with a ``dropout`` entry), then the result
-    line last.
+12. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
+    K1-K4 and K6 with their bf16 HMMA counts and ptxas registers and
+    spills, K4 with its key parts at decode, K6 with the K2 + K3 witness,
+    K1-K3 and K5/K6 with a ``dropout`` entry), then the result line last.
 
 Any failure raises and exits non-zero; nothing is printed as a result then.
 """
@@ -353,10 +358,20 @@ def kernel_phase(torch, timer):
                            H100_FP32_FLOPS if esz == 4 else H100_BF16_FLOPS)
         mask = ok[:, None]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        route = k4.cached_route(q.dtype, sq, d)
+        extra = {}
+        if route == "split":
+            # key parts: launched (the grid) and live (the rest exit at once)
+            need = torch.where(vis, col, -1).amax(-1) + 1           # [b]
+            extra = {"parts_launched": k4.split_parts(sk) * b * h,
+                     "parts_live": h * int(((need + k4.PART_KEYS - 1)
+                                            // k4.PART_KEYS).sum())}
+        if q.dtype != torch.float32:
+            extra["rel_l2_err"] = _rel_l2_err(got, want)
         fa_cases.append({
             "case": name, "shape": {"q": list(q.shape), "kv": list(k.shape),
                                     "dtype": str(q.dtype)},
-            "max_abs_err": err,
+            "route": route, **extra, "max_abs_err": err,
             "ms": timer(lambda: k4.flash_attention_cached(q, k, v, qp, kl)),
             "plain_ms": timer(
                 lambda: k4.flash_attention_cached_plain(q, k, v, qp, kl)),
@@ -450,6 +465,24 @@ def training_kernel_phase(torch, timer):
         want = k5.flash_attention_packed_bwd_plain(q, k, v, out, lse, dout, h,
                                                    bias, True)
         berr = max(_bf16_err(g, w) for g, w in zip(grads, want))
+        brel = max(_rel_l2_err(g, w) for g, w in zip(grads, want))
+        witness = None
+        if name == "train":
+            # the witness: K2 + K3 on the same packed strides, (b, s, h, d)
+            # views of q, k, v, out and dout, held to K6's plain version
+            wargs = (q.reshape(b, sq, h, d), k.reshape(b, sk, h, d),
+                     v.reshape(b, sk, h, d), out.reshape(b, sq, h, d), lse,
+                     dout.reshape(b, sq, h, d), None, True)
+            wgrads = (k1.flash_attention_bwd_dq(*wargs),
+                      *k1.flash_attention_bwd_dkv(*wargs))
+            for g, w in zip(wgrads, want):
+                _bf16_err(g.reshape(w.shape), w)
+                _rel_l2_err(g.reshape(w.shape), w)
+            del wgrads
+            witness = {
+                "k2_ms": timer(lambda: k1.flash_attention_bwd_dq(*wargs)),
+                "k3_ms": timer(lambda: k1.flash_attention_bwd_dkv(*wargs))}
+            witness["k2_plus_k3_ms"] = witness["k2_ms"] + witness["k3_ms"]
         if use_bias:
             masked = torch.zeros(sq, dtype=torch.bool, device="cuda")
             masked[:sq - sk] = True
@@ -499,15 +532,28 @@ def training_kernel_phase(torch, timer):
         lib_out = TF.scaled_dot_product_attention(
             ql, kl, vl, attn_mask=lib_mask, is_causal=lib_causal)
         gl = dout.reshape(b, sq, h, d).transpose(1, 2).contiguous()
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (ql, kl, vl), gl,
+                                       retain_graph=True)
+
+        # SDPA's backward timed before and after K6 (each after its
+        # warm-up): the library time is their mean
+        lib_before = timer(lib_bwd)
+        ms = timer(lambda: k5.flash_attention_packed_bwd(
+            q, k, v, out, lse, dout, h, bias, True))
+        lib_after = timer(lib_bwd)
         bwd_cases.append({
             "case": name, "shape": shape, "max_abs_err": berr,
-            "ms": timer(lambda: k5.flash_attention_packed_bwd(
-                q, k, v, out, lse, dout, h, bias, True)),
+            "rel_l2_err": brel, "route": k1.kernel_route(torch.bfloat16, d),
+            "ms": ms,
             "plain_ms": timer(lambda: k5.flash_attention_packed_bwd_plain(
                 q, k, v, out, lse, dout, h, bias, True)),
-            "library_ms": timer(lambda: torch.autograd.grad(
-                lib_out, (ql, kl, vl), gl, retain_graph=True)),
+            "library_ms": (lib_before + lib_after) / 2,
+            "library_ms_before_after": [lib_before, lib_after],
             "bound_ms": bb_, "bound_by": bby})
+        if witness is not None:
+            bwd_cases[-1]["witness_k2_k3"] = witness
         del ql, kl, vl, lib_out
 
     # GPT-2 124M's train shape, and GPT-3 Large's (batch 8 x 2048, width
@@ -737,6 +783,7 @@ def dropout_kernel_phase(torch, timer):
     want = k5.flash_attention_packed_bwd_plain(q, k, v, o, lse, dout, h,
                                                None, True, None, p, seed)
     err6 = max(_bf16_err(a, w) for a, w in zip(grads, want))
+    rel6 = max(_rel_l2_err(a, w) for a, w in zip(grads, want))
     del grads, want
     o0, lse0 = k5.flash_attention_packed_fwd(q, k, v, h, None, True)
     shape = {"q": [b, s, h * d], "kv": [b, s, h * d], "heads": h, "p": p}
@@ -751,6 +798,7 @@ def dropout_kernel_phase(torch, timer):
             q, k, v, h, None, True, None, p, seed), 5)}
     out["flash_attention_packed_bwd"] = {
         "case": "train_dropout", "shape": shape, "max_abs_err": err6,
+        "rel_l2_err": rel6,
         "ms": timer(lambda: k5.flash_attention_packed_bwd(
             q, k, v, o, lse, dout, h, None, True, None, p, seed)),
         "ms_dropout_0": timer(lambda: k5.flash_attention_packed_bwd(
@@ -1760,16 +1808,33 @@ def small_d96_reference(torch, np):
             "max_abs_diff": err}
 
 
-#: the tensor-core instantiations whose SASS must hold HMMA instructions
-#: (K1, which also runs K5; K2; K3)
-_TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel")
+#: the tensor-core kernels whose SASS must hold HMMA instructions: K1
+#: (which also runs K5), K2, K3, K4's prefill, K6
+_TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
+               "cached_tc_kernel", "packed_bwd_tc_kernel")
+
+
+def _tc_instantiations():
+    """``{kernel: bf16 instantiations}``: K1-K3 one a tensor-core width
+    (16..128) and dropout switch, K4's prefill one a width, K6 one a packed
+    head dim and dropout switch."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as k1
+    from paddle_tpu_torch.ops.cuda import flash_attention_packed as k5
+
+    widths = sum(1 for w in k1.FLASH_WIDTHS
+                 if k1.kernel_route(torch.bfloat16, w) == "mma.sync")
+    return {"fwd_tc_kernel": 2 * widths, "dq_tc_kernel": 2 * widths,
+            "dkv_tc_kernel": 2 * widths, "cached_tc_kernel": widths,
+            "packed_bwd_tc_kernel": 2 * len(k5.HEAD_DIMS)}
 
 
 def tensor_core_sass(path):
-    """HMMA (mma.sync) or HGMMA (wgmma) instructions in each bf16 K1, K2
-    and K3 tensor-core function of the built library, from ``cuobjdump
-    -sass``; fails if an instantiation (one a head dim and dropout switch)
-    has none."""
+    """HMMA (mma.sync) or HGMMA (wgmma) instructions in each bf16
+    tensor-core function (K1, K2, K3, K4's prefill, K6) of the built
+    library, from ``cuobjdump -sass``; fails if an instantiation has
+    none."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1785,14 +1850,7 @@ def tensor_core_sass(path):
                 counts[cur] = 0
         elif cur is not None and ("HMMA" in line or "HGMMA" in line):
             counts[cur] += 1
-    import torch
-
-    from paddle_tpu_torch.ops.cuda import flash_attention as k1
-
-    # one a tensor-core width (16..128), with and without dropout
-    want = 2 * sum(1 for w in k1.FLASH_WIDTHS
-                   if k1.kernel_route(torch.bfloat16, w) == "mma.sync")
-    for kern in _TC_KERNELS:
+    for kern, want in _tc_instantiations().items():
         found = {n: c for n, c in counts.items() if kern in n}
         _require(len(found) == want, f"{want} bf16 {kern} instantiations in "
                  f"the SASS ({len(found)})")
@@ -1803,7 +1861,8 @@ def tensor_core_sass(path):
 
 #: the attention kernels whose ptxas registers and spills are reported
 _PTXAS_KERNELS = _TC_KERNELS + ("fwd_wide_kernel", "dq_wide_kernel",
-                                "dkv_wide_kernel", "cached_fwd_kernel")
+                                "dkv_wide_kernel", "cached_fwd_kernel",
+                                "cached_split_kernel", "cached_merge_kernel")
 
 
 def ptxas_report(log):
@@ -1851,7 +1910,7 @@ def main():
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s (nvcc {build_info()['seconds']:.1f} s)")
     hmma = tensor_core_sass(build_info()["path"])
-    print(f"tensor-core SASS (HMMA/HGMMA a bf16 K1/K2/K3 function): "
+    print(f"tensor-core SASS (HMMA/HGMMA a bf16 K1/K2/K3/K4/K6 function): "
           f"{json.dumps(hmma)}")
     ptxas = ptxas_report(build_info().get("log", ""))
     print(f"ptxas [registers, spill bytes] of the bf16 attention kernels: "
@@ -2054,8 +2113,33 @@ def main():
         k["hmma_bf16"] = {n: c for n, c in hmma.items() if kern in n}
         k["ptxas_bf16"] = {n: r for n, r in ptxas.items()
                            if kern in n or wide in n}
+    # K4: its routes, the bf16 prefill's HMMA counts, every K4 function's
+    # registers and spills; the key parts of its split-key cases are in
+    # their cases
+    kernels[3]["kernel_route"] = {
+        "sq > 8, bf16/fp16, head dim <= 128": "mma.sync (cached_tc_kernel)",
+        "sq <= 8, head dim <= 256": "split (cached_split_kernel, "
+                                    "cached_merge_kernel)",
+        "fp32 at sq > 8, head dim 129-256 at sq > 8, above 256": "fma "
+                                                                 "(cached_fwd_kernel)"}
+    kernels[3]["hmma_bf16"] = {n: c for n, c in hmma.items()
+                               if "cached_tc_kernel" in n}
     kernels[3]["ptxas_bf16"] = {n: r for n, r in ptxas.items()
-                                if "cached_fwd_kernel" in n}
+                                if "cached_" in n}
+    kernels[3]["parts_at_decode"] = {
+        c["case"]: [c["parts_live"], c["parts_launched"]]
+        for c in kernels[3]["cases"] if "parts_live" in c}
+    # K6: its routes, HMMA counts and registers, and the K2 + K3 witness
+    kernels[5]["kernel_route"] = {
+        "bf16": "mma.sync (packed_bwd_tc_kernel)",
+        "fp16": "mma.sync (packed_bwd_tc_kernel)",
+        "fp32": "fma (packed_bwd_kernel)"}
+    kernels[5]["hmma_bf16"] = {n: c for n, c in hmma.items()
+                               if "packed_bwd_tc_kernel" in n}
+    kernels[5]["ptxas_bf16"] = {n: r for n, r in ptxas.items()
+                                if "packed_bwd_tc_kernel" in n}
+    kernels[5]["witness_k2_k3"] = next(
+        c["witness_k2_k3"] for c in k6_cases if "witness_k2_k3" in c)
     kernels[4]["kernel_route"] = routes
     kernels[4]["runs"] = ("K1's fwd_tc_kernel (bf16, fp16) or fwd_kernel "
                           "(fp32), csrc/flash_attention.cu")

@@ -217,108 +217,16 @@ fwd_wide_kernel(Args a, T* __restrict__ out, float* __restrict__ lse) {
 // K1 on the tensor cores (bf16, fp16)
 // ---------------------------------------------------------------------------
 // grid (query tiles, h, b): the CTAs of one (batch, head) run side by side
-// and share its k and v in L2; blockIdx.x = 0 takes the last (longest) tile
+// and share its k and v in L2; blockIdx.x = 0 takes the last (longest) tile.
+// The body (flash_attention.cuh::fwd_tc) also runs K4's prefill.
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kTcThreads, D <= 96 ? 3 : 2)
 fwd_tc_kernel(Args a, T* __restrict__ out, float* __restrict__ lse, int vec) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int S = tc_stride<D>(), KT = D / 16, NT = D / 8, kTile = kBK * S;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  T* const ring = reinterpret_cast<T*>(tc_smem);  // stage s: k tile, v tile
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int bb = blockIdx.z, hh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const uint32_t bh = static_cast<uint32_t>(bb * a.h + hh);
   const Slice<T> in(a, bb, hh);
-  const int nk = (in.lg.key_end(q0, kBQ) + kBK - 1) / kBK;
-  // this warp's keep bits: row r (of its 16) at kw + 8 r
-  uint8_t* const kw = tc_smem + qrow_ring_bytes<T, D>() + warp * kQRowKeepBytes;
-
-  // q lands in stage 1, is taken into registers, then the ring starts
-  T* qs = ring + 2 * kTile;
-  tile_rows<T, D>(qs, in.q, a.qs[1], q0, a.sq, a, vec);
-  if (nk > 0) load_kv_rows<T, D>(in, a, 0, vec, ring, ring + kTile);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-  uint32_t qf[KT][4];
-  load_a(qf, qs, warp * 16, S);
-  __syncthreads();
-
-  float acc[NT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int c = 0; c < NT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  for (int i = 0; i < nk; ++i) {
-    const int k0 = i * kBK;
-    if (i > 0) {
-      cp_wait<0>();     // tile i has landed
-      __syncthreads();  // ... for every thread, and tile i - 1 is no longer read
-    }
-    if (i + 1 < nk) {
-      T* nxt = ring + ((i + 1) & 1) * 2 * kTile;
-      load_kv_rows<T, D>(in, a, k0 + kBK, vec, nxt, nxt + kTile);
-    }
-    cp_commit();
-    const T* ks = ring + (i & 1) * 2 * kTile;
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_abt<T, KT, kBK / 8>(s, qf, ks, 0, S);
-
-    // keep bits of this thread's rows: byte j of keep[r] is key group j
-    uint2 keep[2];
-    if constexpr (DROP) row_keep_bits(a.drp, kw, k0, q0 + warp * 16, bh, keep);
-    log2_logits<T, kBK / 8>(s, in, a, q0, k0, row0);
-
-    // online softmax; l keeps this thread's partial row sums (summed over
-    // the quad at the end: every term shares the row's rescaling)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      const float m_new = fmaxf(m[r], quad_max(mx));
-      const bool live = m_new > 0.5f * kNegInf;
-      const float alpha = ex2(m[r] - m_new);
-      m[r] = m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          float p = live ? ex2(s[j][e] - m_new) : 0.f;
-          rs += p;
-          if constexpr (DROP) p = drop(a.drp, keep_group(keep[r], j), 2 * t + (e & 1), p);
-          s[j][e] = p;
-        }
-      l[r] = l[r] * alpha + rs;
-#pragma unroll
-      for (int c = 0; c < NT; ++c) {
-        acc[c][2 * r] *= alpha;
-        acc[c][2 * r + 1] *= alpha;
-      }
-    }
-    mma_pb<T, kBK / 16, NT>(acc, s, ks + kTile, 0, S);  // o += p v
-  }
-
-  // out = acc / l (0 on a row with no visible key), lse = m + log l
-  float mul[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float lr = quad_sum(l[r]);
-    mul[r] = lr > 0.f ? 1.f / lr : 0.f;
-    const int row = row0 + 8 * r;
-    if (t == 0 && row < a.sq)
-      lse[(static_cast<long long>(bb) * a.h + hh) * a.sq + row] =
-          lr > 0.f ? m[r] * kLn2 + logf(lr) : kNegInf;
-  }
-  const long long hd = static_cast<long long>(a.h) * a.dn;
-  store_acc<T, NT>(acc, mul, out + static_cast<long long>(bb) * a.sq * hd + hh * a.dn, hd,
-                   q0 + warp * 16, a.sq, a.dn);
+  const int row0 = q0 + (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  fwd_tc<T, D, DROP>(a, in, CausalBias{in.lg, q0, row0}, bb, hh, q0, out, lse, vec);
 }
 
 // ---------------------------------------------------------------------------

@@ -7,56 +7,124 @@
 //
 // Semantics (the LengthMask contract): key j attends to query row i of batch
 // b iff j <= q_pos[b, i] and j < kv_len[b] (kv_len absent: j < sk). Scores
-// and the online softmax (m, l, acc) are fp32; a row with no valid key
-// (l == 0) gives 0.
+// and the softmax are fp32; a row with no valid key gives 0. q, k and v are
+// read in the paddle layout [b, s, h, d] through their strides, so no
+// transposed copy is made and a cache row view is read in place; out is
+// contiguous [b, sq, h, d].
 //
 // Bound on the H100: at decode and verify, bytes: the valid prefix of every
 // slot's K/V rows is read once (up to 2 x 8 x 1024 x 12 x 64 x 2 B = 25 MB a
 // layer, ~7.5 us at 3.35 TB/s) for 1 to 5 query rows. At prefill (sq = sk =
 // 1024) the causal score work, 4*d flops a valid (q, k) pair, is about
-// 3.2 GFLOP a layer, which needs the tensor cores to approach its bound.
+// 3.2 GFLOP a layer: operations, which need the tensor cores.
 //
-// Design (simple and right first, plain FMA, no tensor cores):
-//  * One CTA of 4 warps per (q tile, head, batch). q, k and v are read in
-//    the paddle layout [b, s, h, d] through their strides, so no transposed
-//    copy is made and a cache row view is read in place.
-//  * Each warp owns RPW = 8 query rows and stages its own 32-key K/V tile in
-//    its private slice of shared memory (fp32; K rows padded to d + 1 floats
-//    so that the 32 lanes, one key each, hit 32 banks). Warps never wait for
-//    each other inside the loop.
+// Three routes, chosen by query rows, type and head dim in the launcher:
+//  * sq > 8 (prefill, chunked prefill), bf16 and fp16, widths 16-128:
+//    cached_tc_kernel, K1's tensor-core forward (flash_attention.cuh::
+//    fwd_tc: 64 query rows a CTA, 16 a warp, q fragments in registers; K/V
+//    64-key tiles through a two-stage cp.async ring in the input type,
+//    rows padded by 16 B; the online softmax in log2 units; p rounded to
+//    v's type as the A fragment of p v, as the TPU kernel rounds it, :575)
+//    under the LengthMask policy: each thread loads its two rows' q_pos
+//    once, the CTA takes the tile's largest, and the sweep stops at
+//    min(kv_len, that + 1). No lse. Misaligned views take plain loads.
+//  * sq <= 8 (decode, verify), every type, widths to 256: split keys
+//    (flash-decoding). Grid (key parts, heads, slots), kPartKeys keys a
+//    part; a part past its slot's last visible key exits at once, so the
+//    slot with the longest prefix no longer sets the pace of the launch.
+//    A CTA of 4 warps copies its part's K rows and V rows with 16-byte
+//    cp.async in two groups, kept in the input type, so the scores (FMA,
+//    lane = key, 32 keys a warp, bytes-bound: no tensor cores) run while V
+//    lands. Each warp's 32 keys take their own row maxima, p is rounded to
+//    v's type before p v; the 4 warps merge in shared memory and the part
+//    writes its (m, l, acc) to an fp32 workspace. A second launch merges
+//    the parts of each row in part order, so the bits repeat from run to
+//    run.
+//  * otherwise (fp32 and width 256 at sq > 8; every head dim above 256):
+//    fp32 FMA, below.
+//
+// The FMA route (simple and right first):
+//  * One CTA of 4 warps per (32-row q tile, head, batch); each warp owns 8
+//    query rows and stages its own 32-key K/V tile in its private slice of
+//    shared memory (fp32; K rows padded to d + 1 floats so that the 32
+//    lanes, one key each, hit 32 banks). Warps never wait for each other.
 //  * Scores: lane = key; the q rows are broadcast from shared memory. The
 //    online-softmax update uses warp shuffles; acc holds d / 32 columns a
-//    lane for each row.
-//  * A warp stops at the last tile any of its rows can see (max q_pos and
-//    kv_len), so causal prefill skips the upper triangle and decode reads
-//    only the written prefix of the cache.
-//  * KSPLIT = 4 (used when sq <= 8, i.e. decode and verify): the four warps
-//    hold the same 8 rows and take every fourth key tile; partial (m, l, acc)
-//    are merged through shared memory at the end. That gives each decode CTA
-//    four streams of loads in flight instead of one.
+//    lane for each row. A warp stops at the last tile any of its rows can
+//    see (max q_pos and kv_len).
 //  * Head dims: instantiated at widths 32, 64, 96, 128 and 256; a head dim d
 //    runs in the smallest width >= d, its columns >= d zero-filled on load
-//    and skipped on store (d = 80, GPT-3 2.7B's, runs at 96). At width 256
-//    the K tile is staged 128 columns at a time (the score sums the two
-//    halves), so four warps' tiles fit a CTA's shared memory. Above 256
-//    (WIDE, one instantiation a type, KSPLIT 1): q and K stream in
-//    128-column chunks over the whole head dim, staged in turn through the
-//    same buffers, and the output columns split over the grid's x dimension
-//    into 256-column slices, each CTA recomputing the scores for its slice
-//    of V and out. Rows whose base or stride is not 16-byte aligned, or
-//    whose head dim is not a whole number of 16-byte pieces, load element
-//    by element.
-#include <cstdint>
-
-#include "common.cuh"
+//    and skipped on store. At width 256 the K tile is staged 128 columns at
+//    a time (the score sums the two halves). Above 256 (WIDE, one
+//    instantiation a type): q and K stream in 128-column chunks over the
+//    whole head dim, staged in turn through the same buffers, and the output
+//    columns split over the grid's x dimension into 256-column slices, each
+//    CTA recomputing the scores for its slice of V and out. Rows whose base
+//    or stride is not 16-byte aligned, or whose head dim is not a whole
+//    number of 16-byte pieces, load element by element.
+#include "flash_attention.cuh"
 
 namespace ptt {
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRPW = 8;     // query rows a warp holds
-constexpr int kTile = 32;   // keys a tile (one a lane)
-constexpr float kNegInf = -1e30f;
+// ---------------------------------------------------------------------------
+// sq > 8 at bf16/fp16 to width 128: K1's tensor-core forward under the
+// length mask
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 96 ? 3 : 2)
+cached_tc_kernel(Args a, const int* __restrict__ q_pos, const int* __restrict__ kv_len,
+                 T* __restrict__ out, int vec) {
+  __shared__ int tile_max[kTcWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bb = blockIdx.z, hh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int* qp = q_pos + static_cast<long long>(bb) * a.sq;
+  const int klen = kv_len == nullptr ? a.sk : min(kv_len[bb], a.sk);
+  // the tile's largest position: each warp over its 16 rows, then the CTA
+  const int rw = q0 + warp * 16 + (lane & 15);
+  const int wmax = __reduce_max_sync(0xffffffffu, rw < a.sq ? qp[rw] : -1);
+  if (lane == 0) tile_max[warp] = wmax;
+  __syncthreads();
+  const int tmax = max(max(tile_max[0], tile_max[1]), max(tile_max[2], tile_max[3]));
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const LengthMask mk{max(0, min(klen, tmax + 1)), klen,
+                      {row0 < a.sq ? qp[row0] : -1, row0 + 8 < a.sq ? qp[row0 + 8] : -1},
+                      a.scale};
+  fwd_tc<T, D, false>(a, Slice<T>(a, bb, hh), mk, bb, hh, q0, out, nullptr, vec);
+}
+
+// ---------------------------------------------------------------------------
+// sq <= 8 to width 256, every type: split keys
+// ---------------------------------------------------------------------------
+constexpr int kDecodeRows = 8;   // query rows the split route takes
+constexpr int kSplitWarps = 4;   // 32 keys a warp, one a lane
+constexpr int kPartKeys = 32 * kSplitWarps;
+
+// K and V of a part in the input type (row stride tc_stride), then the
+// query rows in fp32; above 160 KB (fp32 at width 256) V reuses K's buffer
+// after the scores
+template <typename T, int D>
+__host__ __device__ constexpr int part_tile_bytes() {
+  return kPartKeys * tc_stride<D>() * static_cast<int>(sizeof(T));
+}
+template <typename T, int D>
+__host__ __device__ constexpr bool part_shares_kv() {
+  return 2 * part_tile_bytes<T, D>() > 160 * 1024;
+}
+template <typename T, int D>
+__host__ __device__ constexpr int split_smem_bytes() {
+  return (part_shares_kv<T, D>() ? 1 : 2) * part_tile_bytes<T, D>() +
+         kDecodeRows * D * static_cast<int>(sizeof(float));
+}
+
+// one past the last key any row of slot bb sees: max over its rows of
+// min(q_pos, klen - 1) + 1
+__device__ __forceinline__ int slot_need(const int* qp, int sq, int klen) {
+  int need = 0;
+  for (int r = 0; r < sq; ++r) need = max(need, min(qp[r], klen - 1) + 1);
+  return need;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -69,6 +137,200 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// the workspace record of (slot bb, head hh, part, row r): m (log2 units),
+// l, then dn accumulator columns
+__device__ __forceinline__ long long part_record(int bb, int hh, int part, int r,
+                                                 const Args& a, int parts) {
+  return ((static_cast<long long>(bb) * a.h + hh) * parts + part) * a.sq + r;
+}
+
+// grid (parts, h, b): the part-th kPartKeys keys of slot bb, head hh
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * kSplitWarps)
+cached_split_kernel(Args a, const int* __restrict__ q_pos, const int* __restrict__ kv_len,
+                    float* __restrict__ ws, int vec) {
+  static_assert(D % 8 == 0, "K rows go in 16-byte pieces");
+  constexpr int S = tc_stride<D>(), CPL = (D + 31) / 32;  // acc columns a lane
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte piece
+  constexpr bool kShare = part_shares_kv<T, D>();
+  extern __shared__ __align__(16) unsigned char sp_smem[];
+  T* const ks = reinterpret_cast<T*>(sp_smem);
+  T* const vs = kShare ? ks : ks + kPartKeys * S;
+  float* const qs =
+      reinterpret_cast<float*>(sp_smem + (kShare ? 1 : 2) * part_tile_bytes<T, D>());
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int part = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
+  const int sq = a.sq;
+  const int* qp = q_pos + static_cast<long long>(bb) * sq;
+  const int klen = kv_len == nullptr ? a.sk : min(kv_len[bb], a.sk);
+  const int need = slot_need(qp, sq, klen);
+  const int j0 = part * kPartKeys;
+  if (j0 >= need) return;  // no row of the slot sees a key of this part
+  const Slice<T> in(a, bb, hh);
+
+  // K, then V, rows j0 .. j0 + kPartKeys (zero-filled from need on)
+  copy_rows(ks, S, in.k, a.ks[1], j0, kPartKeys, need, D, 32 * kSplitWarps, vec, a.dn);
+  cp_commit();
+  if (!kShare)
+    copy_rows(vs, S, in.v, a.vs[1], j0, kPartKeys, need, D, 32 * kSplitWarps, vec, a.dn);
+  cp_commit();
+  // the query rows, times scale / ln 2 (logits in log2 units)
+  const float sl2 = a.scale * kLog2e;
+  for (int i = threadIdx.x; i < sq * D; i += 32 * kSplitWarps) {
+    const int r = i / D, c = i % D;
+    qs[r * D + c] = c < a.dn ? to_f32(in.q[r * a.qs[1] + c]) * sl2 : 0.f;
+  }
+  int pos[kDecodeRows];
+#pragma unroll
+  for (int r = 0; r < kDecodeRows; ++r) pos[r] = r < sq ? qp[r] : -1;
+  cp_wait<1>();  // K has landed
+  __syncthreads();
+
+  // scores of this lane's key against every row
+  const int kk = warp * 32 + lane, j = j0 + kk;
+  float s[kDecodeRows];
+#pragma unroll
+  for (int r = 0; r < kDecodeRows; ++r) s[r] = 0.f;
+  const T* krow = ks + kk * S;
+#pragma unroll 2
+  for (int c0 = 0; c0 < D; c0 += kPer) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(krow + c0);
+    const T* kv = reinterpret_cast<const T*>(&raw);
+    float kx[kPer];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) kx[e] = to_f32(kv[e]);
+#pragma unroll
+    for (int r = 0; r < kDecodeRows; ++r) {
+      if (r >= sq) break;
+      const float4* qr = reinterpret_cast<const float4*>(qs + r * D + c0);
+#pragma unroll
+      for (int e4 = 0; e4 < kPer / 4; ++e4) {
+        const float4 qv = qr[e4];
+        s[r] = fmaf(qv.x, kx[4 * e4], s[r]);
+        s[r] = fmaf(qv.y, kx[4 * e4 + 1], s[r]);
+        s[r] = fmaf(qv.z, kx[4 * e4 + 2], s[r]);
+        s[r] = fmaf(qv.w, kx[4 * e4 + 3], s[r]);
+      }
+    }
+  }
+  // the warp's 32 keys: their own row maxima, sums of the unrounded p, and p
+  // rounded to v's type for p v
+  float m[kDecodeRows], l[kDecodeRows], p[kDecodeRows];
+#pragma unroll
+  for (int r = 0; r < kDecodeRows; ++r) {
+    m[r] = kNegInf;
+    l[r] = p[r] = 0.f;
+    if (r >= sq) continue;
+    const float x = j <= pos[r] && j < klen ? s[r] : kNegInf;
+    m[r] = warp_max(x);
+    const float pr = m[r] > 0.5f * kNegInf ? ex2(x - m[r]) : 0.f;
+    l[r] = warp_sum(pr);
+    p[r] = to_f32(from_f32<T>(pr));
+  }
+  if (kShare) {
+    __syncthreads();  // every warp's scores are done with K
+    copy_rows(vs, S, in.v, a.vs[1], j0, kPartKeys, need, D, 32 * kSplitWarps, vec, a.dn);
+    cp_commit();
+  }
+  cp_wait<0>();  // V has landed
+  __syncthreads();
+
+  // acc[r][c] (columns lane + 32 c) = sum over the warp's keys of p v
+  float acc[kDecodeRows][CPL];
+#pragma unroll
+  for (int r = 0; r < kDecodeRows; ++r)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
+  const T* vw = vs + warp * 32 * S;
+#pragma unroll 4
+  for (int jj = 0; jj < 32; ++jj) {
+    float vv[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      vv[c] = lane + 32 * c < D ? to_f32(vw[jj * S + lane + 32 * c]) : 0.f;
+#pragma unroll
+    for (int r = 0; r < kDecodeRows; ++r) {
+      if (r >= sq) break;
+      const float pj = __shfl_sync(0xffffffffu, p[r], jj);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+    }
+  }
+
+  // merge the 4 warps through shared memory (K's buffer), warp by warp in
+  // order: warp w's m and l at red[w * 2 kDecodeRows ..], its acc rows after
+  __syncthreads();  // K and V are no longer read
+  float* const red = reinterpret_cast<float*>(sp_smem);
+  float* const racc = red + kSplitWarps * 2 * kDecodeRows;
+#pragma unroll
+  for (int r = 0; r < kDecodeRows; ++r) {
+    if (r >= sq) break;
+    if (lane == 0) {
+      red[(warp * 2) * kDecodeRows + r] = m[r];
+      red[(warp * 2 + 1) * kDecodeRows + r] = l[r];
+    }
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      if (lane + 32 * c < D) racc[(warp * kDecodeRows + r) * D + lane + 32 * c] = acc[r][c];
+  }
+  __syncthreads();
+  const int parts = gridDim.x;
+  for (int i = threadIdx.x; i < sq * a.dn; i += 32 * kSplitWarps) {
+    const int r = i / a.dn, c = i % a.dn;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) mx = fmaxf(mx, red[(w * 2) * kDecodeRows + r]);
+    float lsum = 0.f, asum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float f = ex2(red[(w * 2) * kDecodeRows + r] - mx);
+      lsum += red[(w * 2 + 1) * kDecodeRows + r] * f;
+      asum += racc[(w * kDecodeRows + r) * D + c] * f;
+    }
+    float* rec = ws + part_record(bb, hh, part, r, a, parts) * (a.dn + 2);
+    if (c == 0) {
+      rec[0] = mx;
+      rec[1] = lsum;
+    }
+    rec[2 + c] = asum;
+  }
+}
+
+// grid (h, b): the parts of each row of slot bb, head hh, merged in part
+// order into out (contiguous (b, sq, h, dn)); 0 on a row with no visible key
+template <typename T>
+__global__ void __launch_bounds__(128)
+cached_merge_kernel(Args a, const int* __restrict__ q_pos, const int* __restrict__ kv_len,
+                    const float* __restrict__ ws, int parts, T* __restrict__ out) {
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int* qp = q_pos + static_cast<long long>(bb) * a.sq;
+  const int klen = kv_len == nullptr ? a.sk : min(kv_len[bb], a.sk);
+  const int np = (slot_need(qp, a.sq, klen) + kPartKeys - 1) / kPartKeys;
+  for (int i = threadIdx.x; i < a.sq * a.dn; i += blockDim.x) {
+    const int r = i / a.dn, c = i % a.dn;
+    float mx = kNegInf;
+    for (int pt = 0; pt < np; ++pt)
+      mx = fmaxf(mx, ws[part_record(bb, hh, pt, r, a, parts) * (a.dn + 2)]);
+    float lsum = 0.f, asum = 0.f;
+    for (int pt = 0; pt < np; ++pt) {
+      const float* rec = ws + part_record(bb, hh, pt, r, a, parts) * (a.dn + 2);
+      const float f = ex2(rec[0] - mx);
+      lsum += rec[1] * f;
+      asum += rec[2 + c] * f;
+    }
+    out[((static_cast<long long>(bb) * a.sq + r) * a.h + hh) * a.dn + c] =
+        from_f32<T>(lsum > 0.f ? asum / lsum : 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the FMA route: fp32, width 256 at sq > 8, every head dim above 256
+// ---------------------------------------------------------------------------
+constexpr int kFmaWarps = 4;
+constexpr int kRPW = 8;     // query rows a warp holds
+constexpr int kTile = 32;   // keys a tile (one a lane)
 
 // 16 bytes of T -> floats
 template <typename T>
@@ -152,8 +414,8 @@ __device__ __forceinline__ void stage_kv(float* ks, float* vs, const T* kb, cons
   }
 }
 
-template <typename T, int D, int KSPLIT, bool WIDE>
-__global__ void __launch_bounds__(kWarps * 32)
+template <typename T, int D, bool WIDE>
+__global__ void __launch_bounds__(kFmaWarps * 32)
 cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ q_pos,
                   const int* __restrict__ kv_len, T* __restrict__ out,
@@ -162,26 +424,23 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   long long ksb, long long kss, long long ksh,
                   long long vsb, long long vss, long long vsh, float scale, int vec) {
   static_assert(D % 32 == 0 && D <= 256, "width must be a multiple of 32, at most 256");
-  static_assert(KSPLIT == 1 || KSPLIT == kWarps, "KSPLIT is 1 or 4");
-  static_assert(!WIDE || (D == 256 && KSPLIT == 1), "WIDE: width 256, one key part");
+  static_assert(!WIDE || D == 256, "WIDE: width 256");
   constexpr int DPL = D / 32;             // acc columns a lane
   constexpr int KC = k_chunk<D>();        // K columns staged at once
   constexpr int NKC = D / KC;             // K chunks a tile
-  constexpr int kRowGroups = kWarps / KSPLIT;
-  constexpr int QT = kRPW * kRowGroups;   // query rows a CTA
+  constexpr int QT = kRPW * kFmaWarps;    // query rows a CTA
 
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rg = warp % kRowGroups, kpart = warp / kRowGroups;
   const int bb = blockIdx.z, hh = blockIdx.y;
   // WIDE: the CTA's output columns c1 .. c1 + D (slice blockIdx.x % nsl),
   // and the K chunks of the whole head dim
   const int nsl = WIDE ? (dn + D - 1) / D : 1;
   const int c1 = WIDE ? static_cast<int>(blockIdx.x % nsl) * D : 0;
   const int nkc = WIDE ? (dn + KC - 1) / KC : NKC;
-  const int row0 = static_cast<int>(blockIdx.x / nsl) * QT + rg * kRPW;
-  // rows of this warp that exist (warp-uniform): decode has one, and the
-  // loops below skip the rest instead of computing masked rows
+  const int row0 = static_cast<int>(blockIdx.x / nsl) * QT + warp * kRPW;
+  // rows of this warp that exist (warp-uniform): the loops below skip the
+  // rest instead of computing masked rows
   const int nlive = max(0, min(kRPW, sq - row0));
 
   float* qs = smem + warp * warp_smem_floats<D>();
@@ -219,7 +478,7 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncwarp();
 
-  for (int t = kpart; t < ntiles; t += KSPLIT) {
+  for (int t = 0; t < ntiles; ++t) {
     const int j0 = t * kTile;
     float s[kRPW];
 #pragma unroll
@@ -288,138 +547,149 @@ cached_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long out_row = static_cast<long long>(h) * dn;
   T* ob = out + (static_cast<long long>(bb) * sq) * out_row + hh * dn + c1;
-  if constexpr (KSPLIT == 1) {
 #pragma unroll
-    for (int r = 0; r < kRPW; ++r) {
-      const int row = row0 + r;
-      if (row >= sq) continue;
-      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  for (int r = 0; r < kRPW; ++r) {
+    const int row = row0 + r;
+    if (row >= sq) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
-      for (int c = 0; c < DPL; ++c)
-        if (c1 + lane + 32 * c < dn)
-          ob[row * out_row + lane + 32 * c] = from_f32<T>(acc[r][c] * inv);
-    }
-  } else {
-    // merge the four key partitions: each warp parks (m, l, acc) in its own
-    // slice, then the CTA combines them row by row
-    __syncwarp();
-    float* part = qs;  // kRPW * (D + 2) floats fit in the warp's slice
-#pragma unroll
-    for (int r = 0; r < kRPW; ++r) {
-      if (lane == 0) {
-        part[r] = m[r];
-        part[kRPW + r] = l[r];
-      }
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) part[2 * kRPW + r * D + lane + 32 * c] = acc[r][c];
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kRPW * D; idx += kWarps * 32) {
-      const int r = idx / D, e = idx % D;
-      const int row = row0 + r;  // rg == 0 for every warp here
-      if (row >= sq || e >= dn) continue;
-      float mx = kNegInf;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, smem[w * warp_smem_floats<D>() + r]);
-      float den = 0.f, num = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float* pw = smem + w * warp_smem_floats<D>();
-        const float f = __expf(pw[r] - mx);
-        den += pw[kRPW + r] * f;
-        num += pw[2 * kRPW + r * D + e] * f;
-      }
-      ob[row * out_row + e] = from_f32<T>(den > 0.f ? num / den : 0.f);
-    }
+    for (int c = 0; c < DPL; ++c)
+      if (c1 + lane + 32 * c < dn)
+        ob[row * out_row + lane + 32 * c] = from_f32<T>(acc[r][c] * inv);
   }
 }
 
-template <typename T, int D, int KSPLIT, bool WIDE = false>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_len, void* out, int b,
-                   int sq, int sk, int h, int d, const long long* st, float scale,
-                   int vec, cudaStream_t stream) {
-  constexpr int QT = kRPW * (kWarps / KSPLIT);
-  const size_t smem = sizeof(float) * kWarps * warp_smem_floats<D>();
-  auto kern = cached_fwd_kernel<T, D, KSPLIT, WIDE>;
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+template <typename T, int D, bool WIDE = false>
+cudaError_t launch_fma(const Args& a, const int* q_pos, const int* kv_len, void* out,
+                       int vec, cudaStream_t stream) {
+  constexpr int QT = kRPW * kFmaWarps;
+  const size_t smem = sizeof(float) * kFmaWarps * warp_smem_floats<D>();
+  auto kern = cached_fwd_kernel<T, D, WIDE>;
   static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const int nsl = WIDE ? (d + D - 1) / D : 1;  // output slices
-  dim3 grid((sq + QT - 1) / QT * nsl, h, b);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, kv_len, static_cast<T*>(out), sq, sk, h, d,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, vec);
+  cudaError_t e = allow_smem(kern, smem, configured);
+  if (e != cudaSuccess) return e;
+  const int nsl = WIDE ? wide_slices(a.dn) : 1;  // output slices
+  dim3 grid((a.sq + QT - 1) / QT * nsl, a.h, a.b);
+  kern<<<grid, kFmaWarps * 32, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      q_pos, kv_len, static_cast<T*>(out), a.sq, a.sk, a.h, a.dn, a.qs[0], a.qs[1],
+      a.qs[2], a.ks[0], a.ks[1], a.ks[2], a.vs[0], a.vs[1], a.vs[2], a.scale, vec);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         const int* q_pos, const int* kv_len, void* out, int b,
-                         int sq, int sk, int h, int d, const long long* st,
-                         float scale, int ksplit, int vec, cudaStream_t stream) {
-  if (ksplit == kWarps)
-    return launch<T, D, kWarps>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, d, st, scale,
-                                vec, stream);
-  if (ksplit == 1)
-    return launch<T, D, 1>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, d, st, scale, vec,
-                           stream);
+cudaError_t launch_tc(const Args& a, const int* q_pos, const int* kv_len, void* out,
+                      cudaStream_t stream) {
+  const size_t smem = qrow_smem_bytes<T, D, false>();
+  auto kern = cached_tc_kernel<T, D>;
+  static bool configured = false;
+  cudaError_t e = allow_smem(kern, smem, configured);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, a.b);
+  kern<<<grid, kTcThreads, smem, stream>>>(a, q_pos, kv_len, static_cast<T*>(out),
+                                           rows_aligned(a));
+  return cudaGetLastError();
+}
+
+// the number of key parts of the split route (the workspace's third dim)
+int split_parts(int sk) { return sk > 0 ? (sk + kPartKeys - 1) / kPartKeys : 1; }
+
+// vec: cp.async of whole rows (kv_rows16 and the head dim the width D)
+template <typename T, int D>
+cudaError_t launch_split(const Args& a, const int* q_pos, const int* kv_len, void* out,
+                         float* ws, int vec, cudaStream_t stream) {
+  const size_t smem = split_smem_bytes<T, D>();
+  auto kern = cached_split_kernel<T, D>;
+  static bool configured = false;
+  cudaError_t e = allow_smem(kern, smem, configured);
+  if (e != cudaSuccess) return e;
+  const int parts = split_parts(a.sk);
+  kern<<<dim3(parts, a.h, a.b), 32 * kSplitWarps, smem, stream>>>(a, q_pos, kv_len, ws,
+                                                                  vec);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  cached_merge_kernel<T><<<dim3(a.h, a.b), 128, 0, stream>>>(a, q_pos, kv_len, ws, parts,
+                                                             static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+// whether every K and V row is whole 16-byte pieces at 16-byte aligned
+// addresses (bases and strides), the head dim a multiple of 16 bytes
+template <typename T>
+bool kv_rows16(const Args& a) {
+  const long long per16 = 16 / sizeof(T);
+  bool ok = aligned16(a.k) && aligned16(a.v) && a.dn % per16 == 0;
+  for (int i = 0; i < 3; ++i) ok = ok && a.ks[i] % per16 == 0 && a.vs[i] % per16 == 0;
+  return ok;
+}
+
+template <typename T>
+cudaError_t route(const Args& a, const int* q_pos, const int* kv_len, void* out, float* ws,
+                  cudaStream_t s) {
+  const int w = width_of(a.dn);
+  const int vec = kv_rows16<T>(a) ? 1 : 0;
+  if (w == 0)  // above 256: the chunked FMA kernel
+    return launch_fma<T, 256, true>(a, q_pos, kv_len, out, vec, s);
+  if (a.sq <= kDecodeRows) {  // split keys at K1's widths
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    switch (w) {
+#define PTT_CASE(D) \
+  case D: return launch_split<T, D>(a, q_pos, kv_len, out, ws, vec && a.dn == D, s);
+      PTT_FLASH_WIDTHS(PTT_CASE)
+#undef PTT_CASE
+    }
+    return cudaErrorInvalidValue;
+  }
+  if constexpr (sizeof(T) == 2) {
+    switch (w) {
+#define PTT_CASE(D) \
+  case D: return launch_tc<T, D>(a, q_pos, kv_len, out, s);
+      PTT_TC_WIDTHS(PTT_CASE)
+#undef PTT_CASE
+    }
+  }
+  // the FMA kernel's widths: 32, 64, 96, 128 (fp32), 256
+#define PTT_FMA(D) \
+  if (a.dn <= D) return launch_fma<T, D>(a, q_pos, kv_len, out, vec, s);
+  if constexpr (sizeof(T) == 4) {
+    PTT_FMA(32)
+    PTT_FMA(64)
+    PTT_FMA(96)
+    PTT_FMA(128)
+  }
+  PTT_FMA(256)
+#undef PTT_FMA
   return cudaErrorInvalidValue;
 }
-
-// the widths K4 is instantiated at; above 256 the chunked kernel with one
-// key part (ksplit is not used)
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v,
-                     const int* q_pos, const int* kv_len, void* out, int b,
-                     int sq, int sk, int h, int d, const long long* st,
-                     float scale, int ksplit, int vec, cudaStream_t stream) {
-#define PTT_CACHED(D)                                                                 \
-  if (d <= D)                                                                         \
-    return launch_split<T, D>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, d, st, scale, \
-                              ksplit, vec, stream);
-  PTT_CACHED(32)
-  PTT_CACHED(64)
-  PTT_CACHED(96)
-  PTT_CACHED(128)
-  PTT_CACHED(256)
-#undef PTT_CACHED
-  return launch<T, 256, 1, true>(q, k, v, q_pos, kv_len, out, b, sq, sk, h, d, st, scale,
-                                 vec, stream);
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 }  // namespace ptt
 
+// Strides (in elements): q, k and v each (batch, seq, head). ws: the split
+// route's fp32 workspace (sq <= 8 and d <= 256: b * h * parts * sq * (d + 2)
+// floats, parts = ceil(sk / 128)); nullptr otherwise.
 extern "C" int ptt_flash_attention_cached_fwd(
     const void* q, const void* k, const void* v, const void* q_pos,
-    const void* kv_len, void* out, int b, int sq, int sk, int h, int d,
+    const void* kv_len, void* out, void* ws, int b, int sq, int sk, int h, int d,
     long long qsb, long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, float scale,
-    int dtype, int ksplit, void* stream) {
+    int dtype, void* stream) {
   using namespace ptt;
   if (b == 0 || sq == 0 || h == 0) return cudaSuccess;
   if (d < 1) return cudaErrorInvalidValue;
-  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, 0, 0, 0};
+  const Args a = make_args(q, k, v, nullptr, b, sq, sk, h, d, st, scale, 0, 0u, 0u,
+                           65536u, 1.f);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kl = static_cast<const int*>(kv_len);
+  float* w = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte K/V loads: aligned bases and every (batch, seq, head) stride
-  // and the head dim a whole number of 16-byte pieces
-  const long long per16 = dtype == kFloat32 ? 4 : 8;
-  int vec = aligned16(k) && aligned16(v) && d % per16 == 0;
-  for (int i = 3; i < 9; ++i) vec = vec && st[i] % per16 == 0;
   switch (dtype) {
-    case kFloat32: return launch_d<float>(q, k, v, qp, kl, out, b, sq, sk, h, d, st, scale, ksplit, vec, s);
-    case kBFloat16: return launch_d<__nv_bfloat16>(q, k, v, qp, kl, out, b, sq, sk, h, d, st, scale, ksplit, vec, s);
-    case kFloat16: return launch_d<__half>(q, k, v, qp, kl, out, b, sq, sk, h, d, st, scale, ksplit, vec, s);
+    case kFloat32: return route<float>(a, qp, kl, out, w, s);
+    case kBFloat16: return route<__nv_bfloat16>(a, qp, kl, out, w, s);
+    case kFloat16: return route<__half>(a, qp, kl, out, w, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -141,164 +141,16 @@ dkv_wide_kernel(Args a, const T* __restrict__ out, const T* __restrict__ dout,
 // ---------------------------------------------------------------------------
 // K3 on the tensor cores (bf16, fp16)
 // ---------------------------------------------------------------------------
-// a K3 stage: q, dout and out tiles (row stride tc_stride), then the tile's
-// lse in log2 units and delta, kBQ floats each
-template <typename T, int D>
-__host__ __device__ constexpr int dkv_tc_stage_bytes() {
-  return 3 * kBQ * tc_stride<D>() * static_cast<int>(sizeof(T)) +
-         2 * kBQ * static_cast<int>(sizeof(float));
-}
-
-// K3's keep bits: a warp's 32 queries (a half tile) of 2 bytes (its 16 keys)
-constexpr int kDkvKeepBytes = 32 * 2;
-
-template <typename T, int D, bool DROP>
-__host__ __device__ constexpr int dkv_tc_smem_bytes() {
-  return 2 * dkv_tc_stage_bytes<T, D>() + (DROP ? kTcWarps * kDkvKeepBytes : 0);
-}
-
 // grid (key tiles, h, b): the CTAs of one (batch, head) share its q, dout
 // and out in L2; under causal masking the first key tiles are seen by the
-// most query tiles, and they go first
+// most query tiles, and they go first. The body (flash_attention.cuh::dkv_tc)
+// with its dq product is K6's one-pass backward.
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kTcThreads, 2)
 dkv_tc_kernel(Args a, const T* __restrict__ out, const T* __restrict__ dout,
               const float* __restrict__ lse, T* __restrict__ dk, T* __restrict__ dv,
               int vec) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int S = tc_stride<D>(), KT = D / 16, NT = D / 8, kTile = kBQ * S;
-  constexpr int kStage = dkv_tc_stage_bytes<T, D>();
-  static_assert(kStage % 16 == 0, "stages stay 16-byte aligned");
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bb = blockIdx.z, hh = blockIdx.y;
-  const int k0 = blockIdx.x * kBK;
-  const uint32_t bh = static_cast<uint32_t>(bb * a.h + hh);
-  const Slice<T> in(a, bb, hh);
-  const long long hd = static_cast<long long>(a.h) * a.dn;
-  const long long orow0 = static_cast<long long>(bb) * a.sq * hd + hh * a.dn;
-  const T* ob = out + orow0;
-  const T* gb = dout + orow0;
-  const float* lb = lse + (static_cast<long long>(bb) * a.h + hh) * a.sq;
-  const int qfirst = in.lg.first_q_tile(k0, kBQ);
-  const int nq = qfirst < a.sq ? (a.sq - qfirst + kBQ - 1) / kBQ : 0;
-  // this warp's keep bits: query c (of a half) at kw[c], byte e>>1 = key
-  // group of keys e>>1 ? 8..15 : 0..7 of the warp's 16
-  uint16_t* const kw =
-      reinterpret_cast<uint16_t*>(tc_smem + 2 * kStage + warp * kDkvKeepBytes);
-
-  auto tiles = [&](int st) { return reinterpret_cast<T*>(tc_smem + st * kStage); };
-  auto load_stage = [&](int st, int q0) {
-    T* d = tiles(st);
-    tile_rows<T, D>(d, in.q, a.qs[1], q0, a.sq, a, vec);
-    tile_rows<T, D>(d + kTile, gb, hd, q0, a.sq, a, vec);
-    tile_rows<T, D>(d + 2 * kTile, ob, hd, q0, a.sq, a, vec);
-  };
-  auto lse_at = [&](int row) { return row < a.sq ? lb[row] : kNegInf; };
-
-  // k and v land in stage 1, are taken into registers, then the ring starts
-  load_kv_rows<T, D>(in, a, k0, vec, tiles(1), tiles(1) + kTile);
-  if (nq > 0) load_stage(0, qfirst);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-  uint32_t kf[KT][4], vf[KT][4];
-  load_a(kf, tiles(1), warp * 16, S);
-  load_a(vf, tiles(1) + kTile, warp * 16, S);
-  __syncthreads();
-
-  float dka[NT][4], dva[NT][4];
-#pragma unroll
-  for (int c = 0; c < NT; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.f;
-  const float sl2 = a.scale * kLog2e;
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-  // the next tile's lse, a register a row (threads < kBQ), loaded a tile ahead
-  float lnext = threadIdx.x < kBQ && nq > 0 ? lse_at(qfirst + threadIdx.x) : 0.f;
-
-  for (int i = 0; i < nq; ++i) {
-    const int q0 = qfirst + i * kBQ;
-    cp_wait<0>();     // tile i has landed
-    __syncthreads();  // ... for every thread, and tile i - 1 is no longer read
-    if (i + 1 < nq) load_stage((i + 1) & 1, q0 + kBQ);
-    cp_commit();
-    const T* qs = tiles(i & 1);
-    const T* gs = qs + kTile;
-    const T* os = qs + 2 * kTile;
-    float* ls = reinterpret_cast<float*>(tiles(i & 1) + 3 * kTile);
-    float* dl = ls + kBQ;
-    // lse in log2 units, +inf on a row with no visible key or past sq (p = 0)
-    if (threadIdx.x < kBQ) {
-      ls[threadIdx.x] = lnext > 0.5f * kNegInf ? lnext * kLog2e : CUDART_INF_F;
-      if (i + 1 < nq) lnext = lse_at(q0 + kBQ + threadIdx.x);
-    }
-    {  // delta = rowsum(dout * out): two threads a row, 16-byte loads
-      const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * (D / 2);
-      float d = 0.f;
-#pragma unroll
-      for (int c = c0; c < c0 + D / 2; c += 8) {
-        const uint4 gv = *reinterpret_cast<const uint4*>(gs + r * S + c);
-        const uint4 ov = *reinterpret_cast<const uint4*>(os + r * S + c);
-        const T* gp = reinterpret_cast<const T*>(&gv);
-        const T* op = reinterpret_cast<const T*>(&ov);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) d = fmaf(to_f32(gp[e]), to_f32(op[e]), d);
-      }
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      if ((threadIdx.x & 1) == 0) dl[r] = d;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * (kBQ / 2);  // query rows q0 + c0 .. + 31
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      mma_abt<T, KT, 4>(s, kf, qs, c0, S);   // s^T = k q^T
-      mma_abt<T, KT, 4>(dp, vf, gs, c0, S);  // dp^T = v dout^T
-      if constexpr (DROP) {
-        __syncwarp();  // the previous half's bits are no longer read
-        const uint32_t grp = static_cast<uint32_t>(k0 + warp * 16) >> 3;
-        const uint32_t q = static_cast<uint32_t>(q0 + c0 + lane);
-        kw[lane] = static_cast<uint16_t>(keep_byte(a.drp, grp, q, bh) |
-                                         keep_byte(a.drp, grp + 1, q, bh) << 8);
-        __syncwarp();
-      }
-      const bool edge = a.bias != nullptr || k0 + kBK > a.sk ||
-                        (a.causal && k0 + kBK - 1 > q0 + c0 + (a.sk - a.sq));
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = c0 + j * 8 + 2 * t + (e & 1);
-          const int key = key0 + (e >> 1) * 8, row = q0 + qc;
-          float x = s[j][e] * sl2;
-          if (edge)
-            x = in.lg.visible(row, key) ? in.lg.at(s[j][e], row, key) * kLog2e : -CUDART_INF_F;
-          const float p = ex2(x - ls[qc]);
-          float pd = p, g_ = dp[j][e];
-          if constexpr (DROP) {
-            const uint32_t byte = kw[j * 8 + 2 * t + (e & 1)] >> (8 * (e >> 1));
-            pd = drop(a.drp, byte, g, p);
-            g_ = drop(a.drp, byte, g, g_);
-          }
-          s[j][e] = pd;
-          dp[j][e] = p * (g_ - dl[qc]) * a.scale;  // ds * scale
-        }
-      mma_pb<T, 2, NT>(dva, s, gs, c0, S);   // dv += p^T dout
-      mma_pb<T, 2, NT>(dka, dp, qs, c0, S);  // dk += (ds * scale)^T q
-    }
-  }
-  const float one[2] = {1.f, 1.f};
-  const long long krow0 = static_cast<long long>(bb) * a.sk * hd + hh * a.dn;
-  store_acc<T, NT>(dka, one, dk + krow0, hd, k0 + warp * 16, a.sk, a.dn);
-  store_acc<T, NT>(dva, one, dv + krow0, hd, k0 + warp * 16, a.sk, a.dn);
+  dkv_tc<T, D, DROP, false>(a, out, dout, lse, dk, dv, nullptr, vec);
 }
 
 template <typename T, int D, bool DROP>
@@ -337,7 +189,7 @@ template <typename T, int D, bool DROP>
 cudaError_t bwd_dkv_tc(const Args& a, const void* out, const void* dout,
                        const float* lse, void* dk, void* dv, int vec,
                        cudaStream_t stream) {
-  const size_t smem = dkv_tc_smem_bytes<T, D, DROP>();
+  const size_t smem = dkv_tc_smem_bytes<T, D, DROP, false>();
   auto kern = dkv_tc_kernel<T, D, DROP>;
   static bool configured = false;
   cudaError_t e = allow_smem(kern, smem, configured);

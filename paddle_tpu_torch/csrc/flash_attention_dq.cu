@@ -266,7 +266,7 @@ dq_tc_kernel(Args a, const T* __restrict__ out, const T* __restrict__ dout,
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
       mma_abt<T, KT, NJ>(s, qf, ks, kp, S);           // s = q k^T
       mma_abt<T, KT, NJ>(dp, gf, ks + kTile, kp, S);  // dp = dout v^T
-      log2_logits<T, NJ>(s, in, a, q0, k0 + kp, row0);
+      log2_logits<NJ>(s, CausalBias{in.lg, q0, row0}, k0 + kp, a.scale);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll

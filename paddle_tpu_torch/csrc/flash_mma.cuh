@@ -108,6 +108,33 @@ __device__ __forceinline__ void mma_pb(float (&acc)[NT][4], const float (&p)[2 *
   }
 }
 
+// acc (16 x 8 NC: n8 tiles from column n0) += A . B over 16 KS: A the warp's
+// rows r0 .. r0 + 15 of a tile stored transposed (at[k][row], row stride
+// SA), read with ldmatrix.trans; B the rows 0 .. 16 KS of a tile (row
+// stride S, columns contiguous), read transposed as in mma_pb. K6's dq =
+// (ds * scale) k, with ds stored as key rows.
+template <typename T, int KS, int NC>
+__device__ __forceinline__ void mma_atb(float (&acc)[NC][4], const T* at, int r0, int SA,
+                                        const T* tile, int n0, int S) {
+  static_assert(NC % 2 == 0, "n8 tiles go in pairs");
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+  // matrix mi of the x4 load: keys 8 (mi >> 1) .., rows 8 (mi & 1) ..
+  const T* ap = at + ((mi >> 1) * 8 + (lane & 7)) * SA + r0 + (mi & 1) * 8;
+  const T* bp = tile + (lane & 15) * S + n0 + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[4];
+    ldm_x4_trans(a, ap + kk * 16 * SA);
+#pragma unroll
+    for (int cp = 0; cp < NC / 2; ++cp) {
+      uint32_t b[4];
+      ldm_x4_trans(b, bp + kk * 16 * S + cp * 16);
+      mma16816<T>(acc[2 * cp], a, b[0], b[1]);
+      mma16816<T>(acc[2 * cp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // the warp's 16 x D accumulator, row g times mul[0] and row g + 8 times
 // mul[1], into rows r0 + g and r0 + g + 8 of dst (row stride rs elements;
 // rows >= n and columns >= dn are not written). Columns go in pairs with

@@ -53,11 +53,10 @@ _SIGNATURES = {
     # x_dtype, w_dtype, stream
     "ptt_layer_norm_bwd": [p, p, p, p, p, p, p, i32, i32, i32, f32, i32, i32,
                            p],
-    # q, k, v, q_pos, kv_len, out, b, sq, sk, h, d,
-    # q strides (b, s, h), k strides, v strides, scale, dtype, ksplit, stream
+    # q, k, v, q_pos, kv_len, out, split workspace, b, sq, sk, h, d,
+    # q strides (b, s, h), k strides, v strides, scale, dtype, stream
     "ptt_flash_attention_cached_fwd": (
-        [p, p, p, p, p, p, i32, i32, i32, i32, i32]
-        + [i64] * 9 + [f32, i32, i32, p]),
+        [p] * 7 + [i32] * 5 + [i64] * 9 + [f32, i32, p]),
     # q, k, v, bias, out, lse, b, sq, sk, h, d, q/k/v strides (b, s, h),
     # bias strides (b, h, row), scale, causal, dropout, dtype, stream (K1,
     # and the packed forward K5 on its strides)
@@ -69,10 +68,11 @@ _SIGNATURES = {
     # above, scale, causal, dropout, dtype, stream
     "ptt_flash_attention_bwd_dkv": [p] * 9 + [i32] * 5 + [i64] * 12 + _ATTN_TAIL,
     # q, k, v, bias, out, dout, lse, delta, dq workspace, dq, dk, dv,
-    # b, sq, sk, h, d, q/k/v strides (b, s), scale, causal, dropout, dtype,
-    # stream
+    # b, sq, sk, h, d, strides as K1's (the packed views' (b, s) strides and
+    # head stride d; the shared bias's 0, 0, sk), scale, causal, dropout,
+    # dtype, stream
     "ptt_flash_attention_packed_bwd": (
-        [p] * 12 + [i32] * 5 + [i64] * 6 + _ATTN_TAIL),
+        [p] * 12 + [i32] * 5 + [i64] * 12 + _ATTN_TAIL),
     # x, w, bias, label, loss, lse, tokens, vocab, hidden, dtype, stream
     "ptt_fused_ce_fwd": [p] * 6 + [i32] * 4 + [p],
     # x, w, bias, label, g, lse, out, db, tokens, vocab, hidden, mode,

@@ -35,7 +35,15 @@ without a copy.
   of batch ``b`` iff ``j <= q_pos[b, i]`` and, when ``kv_len`` is given,
   ``j < kv_len[b]``; a row with no valid key gives 0. Forward only: serving
   holds no gradients through the cache, and on a CUDA tensor the wrapper
-  raises rather than return an output that autograd cannot see.
+  raises rather than return an output that autograd cannot see. Three
+  routes (:func:`cached_route`): prefill and chunked prefill (more than
+  :data:`DECODE_ROWS` query rows) at bf16 and fp16 up to head dim 128 run
+  K1's tensor-core forward under the length mask, p rounded to v's dtype
+  before ``p v`` as the TPU kernel rounds it; decode and verify split the
+  keys into parts of :data:`PART_KEYS` (flash-decoding), each warp's 32
+  keys with their own row maxima and p rounded to v's dtype, merged in a
+  second launch in part order; fp32 prefill and head dims above 256 run
+  an fp32 FMA kernel. The plain version follows each route's order.
 
 Both take every head dim, as the JAX kernels do: up to 256 a head dim runs
 in the smallest instantiated width at or above it (:data:`FLASH_WIDTHS` for
@@ -57,13 +65,21 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_plain", "flash_attention_cached",
            "flash_attention_cached_plain", "supports", "kernel_route",
-           "FLASH_WIDTHS", "MAX_DROPOUT_HEADS", "NEG_INF"]
+           "cached_route", "split_parts", "FLASH_WIDTHS", "MAX_DROPOUT_HEADS",
+           "DECODE_ROWS", "PART_KEYS", "NEG_INF"]
 
 NEG_INF = -1e30
-#: widths K1-K3 are instantiated at (csrc/flash_attention.cuh); K4 is at
-#: 32, 64, 96, 128 and 256 (csrc/flash_attention_cached.cu); above 256 both
-#: run the head dim in 256-column chunks
+#: widths K1-K3 are instantiated at (csrc/flash_attention.cuh), and K4's
+#: tensor-core and split-key routes; K4's FMA route is at 32, 64, 96, 128
+#: and 256 (csrc/flash_attention_cached.cu); above 256 both run the head dim
+#: in 256-column chunks
 FLASH_WIDTHS = (16, 32, 64, 80, 96, 128, 256)
+#: K4 splits the keys (decode, verify) up to this many query rows
+DECODE_ROWS = 8
+#: keys a part of K4's split-key route (a CTA: 4 warps of 32 keys)
+PART_KEYS = 128
+#: keys that share their row maxima on K4's split-key route (a warp)
+_SPLIT_BLOCK = 32
 #: the JAX kernels' in-kernel dropout takes fewer heads than this (their
 #: per-tile seed packs the head into 10 bits; flash_attention.py:754-759)
 MAX_DROPOUT_HEADS = 1024
@@ -97,20 +113,86 @@ def supports(seq_q, seq_k):
             and _pick_block(seq_k, _DEFAULT_BLOCK) > 0)
 
 
+def cached_route(dtype, seq_q, head_dim):
+    """The route K4 takes on the card (the dispatch of
+    csrc/flash_attention_cached.cu): ``"split"`` split keys for up to
+    :data:`DECODE_ROWS` query rows at head dims to 256, ``"mma.sync"`` K1's
+    tensor-core forward for bf16 and fp16 prefill up to head dim 128,
+    ``"fma"`` the fp32 FMA kernel otherwise."""
+    dtype_code(dtype)
+    if seq_q <= DECODE_ROWS and head_dim <= 256:
+        return "split"
+    if dtype != torch.float32 and head_dim <= 128:
+        return "mma.sync"
+    return "fma"
+
+
+def split_parts(seq_k):
+    """Key parts of K4's split-key route over ``seq_k`` cache rows (the
+    grid's and the workspace's part dimension)."""
+    return max(1, -(-seq_k // PART_KEYS))
+
+
+def _length_ok(q_pos, kv_len, sk, device):
+    """``[b, 1, sq, sk]`` visibility of the LengthMask contract."""
+    col = torch.arange(sk, device=device, dtype=torch.int32)
+    ok = col[None, None, :] <= q_pos.to(device, torch.int32)[:, :, None]
+    if kv_len is not None:
+        ok = ok & (col[None, None, :]
+                   < kv_len.to(device, torch.int32)[:, None, None])
+    return ok[:, None]
+
+
+def _cached_split_plain(q, k, v, ok, scale):
+    """K4's split-key route: the keys in blocks of 32 (a warp's), each with
+    its own row maxima, ``p`` summed unrounded and rounded to v's dtype
+    before ``p v``; the blocks merged by their maxima."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pad = -sk % _SPLIT_BLOCK
+    nb = (sk + pad) // _SPLIT_BLOCK
+    qf = q.float().transpose(1, 2)
+    kf = torch.nn.functional.pad(k.float().transpose(1, 2), (0, 0, 0, pad))
+    vf = v.transpose(1, 2)
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, pad)).float()
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale    # [b,h,sq,sk']
+    ok = torch.nn.functional.pad(ok, (0, pad))
+    logits = torch.where(ok, logits, NEG_INF).reshape(b, h, sq, nb, -1)
+    m = logits.amax(-1, keepdim=True)                          # [b,h,sq,nb,1]
+    p = torch.where(m > NEG_INF * 0.5, torch.exp(logits - m), 0.0)
+    l = p.sum(-1)                                              # [b,h,sq,nb]
+    if v.dtype != torch.float32:
+        p = p.to(v.dtype).float()
+    acc = torch.einsum("bhqnk,bhnkd->bhqnd", p,
+                       vf.reshape(b, h, nb, _SPLIT_BLOCK, d))
+    m = m.squeeze(-1)
+    w = torch.exp(m - m.amax(-1, keepdim=True))               # [b,h,sq,nb]
+    lsum = (l * w).sum(-1, keepdim=True)
+    out = (acc * w[..., None]).sum(-2) / torch.where(lsum == 0.0, 1.0, lsum)
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def flash_attention_cached_plain(q, k, v, q_pos, kv_len=None, scale=None):
-    """Plain PyTorch version: dense fp32 scores under the length mask."""
+    """Plain version of K4 in the order of the route it takes
+    (:func:`cached_route`): on the split-key route at bf16 and fp16 the
+    32-key blocks merged by their maxima (:func:`_cached_split_plain`); on
+    the tensor-core route K1's plain version under the length mask (the
+    64-key online softmax, p rounded to v's dtype before ``p v``); else
+    (fp32, wide heads) dense fp32 scores under the length mask."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     s = scale if scale is not None else 1.0 / math.sqrt(d)
+    ok = _length_ok(q_pos, kv_len, sk, q.device)              # [b,1,sq,sk]
+    route = cached_route(q.dtype, sq, d)
+    if route == "split" and q.dtype != torch.float32:
+        return _cached_split_plain(q, k, v, ok, s)
+    if route == "mma.sync":
+        return flash_attention_fwd_plain(
+            q, k, v, torch.where(ok, 0.0, NEG_INF), False, s)[0]
     qf = q.float().transpose(1, 2)
     kf = k.float().transpose(1, 2)
     vf = v.float().transpose(1, 2)
     logits = torch.matmul(qf, kf.transpose(-1, -2)) * s      # [b,h,sq,sk]
-    col = torch.arange(sk, device=q.device, dtype=torch.int32)
-    ok = col[None, None, :] <= q_pos.to(torch.int32)[:, :, None]
-    if kv_len is not None:
-        ok = ok & (col[None, None, :] < kv_len.to(torch.int32)[:, None, None])
-    ok = ok[:, None]                                          # [b,1,sq,sk]
     logits = torch.where(ok, logits, NEG_INF)
     m = logits.amax(-1, keepdim=True)
     p = torch.where(ok, torch.exp(logits - m), 0.0)
@@ -175,14 +257,18 @@ def flash_attention_cached(q, k, v, q_pos, kv_len=None, *, scale=None):
         kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    # decode/verify: warps split the keys (the chunked kernel above head
-    # dim 256 takes one key part)
-    ksplit = 4 if sq <= 8 else 1
+    # the split-key route's parts: (m, l, acc) a row, merged by a second
+    # launch
+    ws = None
+    if cached_route(q.dtype, sq, d) == "split":
+        ws = torch.empty(b * h * split_parts(sk) * sq * (d + 2),
+                         dtype=torch.float32, device=q.device)
     check(library().ptt_flash_attention_cached_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
         None if kl is None else kl.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
         b, sq, sk, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(s), dtype_code(q.dtype), ksplit, stream_of(q)),
+        float(s), dtype_code(q.dtype), stream_of(q)),
         "flash_attention_cached")
     flash_attention_cached.launches += 1
     return out

@@ -7,9 +7,13 @@ a ``(b, s, h·d)`` view read through its row stride is a ``(b, s, h, d)``
 view with head stride d, and the shared ``(sq, sk)`` bias is K1's bias with
 batch and head strides 0. Its plain version is K1's: the 64-key online
 softmax with p rounded to v's dtype before ``p v`` on the tensor-core route,
-as the TPU kernel rounds it (flash_attention_packed.py:149, :195). K6 is a
-kernel of its own (``csrc/flash_attention_packed.cu``), fp32 FMA, p and ds
-in fp32.
+as the TPU kernel rounds it (flash_attention_packed.py:149, :195). K6
+(``csrc/flash_attention_packed.cu``) is one pass over key tiles on the same
+views: at bf16 and fp16 K3's tensor-core kernel with a dq product, p and
+``ds * scale`` rounded to the input dtype before their products as the TPU
+kernel rounds them (:295, :304, :312), dq added into an fp32 workspace
+with vector atomics; at fp32 an FMA kernel. Its plain version rounds at the
+same places on the tensor-core route.
 
 Port of ``paddle_tpu/ops/pallas/flash_attention_packed.py``. q, k and v are
 ``(batch, seq, heads * head_dim)``: the reshaped views of one fused qkv
@@ -41,7 +45,7 @@ import torch
 from .. import philox
 from ._build import check, dtype_code, library, needs_grad, stream_of
 from .flash_attention import (_dropped, _pick_block, dropout_seed_words,
-                              flash_attention_fwd_plain)
+                              flash_attention_fwd_plain, kernel_route)
 
 __all__ = ["flash_attention_packed", "flash_attention_packed_plain",
            "flash_attention_packed_fwd", "flash_attention_packed_fwd_plain",
@@ -140,8 +144,11 @@ def flash_attention_packed_bwd_plain(q, k, v, out, lse, dout, num_heads,
                                      bias=None, causal=False, scale=None,
                                      dropout_p=0.0, seed=None):
     """Plain version of K6: ``(dq, dk, dv)`` in the inputs' dtypes, from the
-    saved output and logsumexp, all in fp32. With dropout, dv takes the
-    dropped p and ds the masked and scaled dp (:286-290)."""
+    saved output and logsumexp, in fp32. With dropout, dv takes the dropped
+    p and ds the masked and scaled dp (:286-290). On K6's tensor-core route
+    (bf16, fp16) the dropped p is rounded to dout's dtype before ``p^T
+    dout`` and ``ds * scale`` to q's and k's before ``ds^T q`` and ``ds k``,
+    as K6 and the TPU kernel round them (:295, :304, :312)."""
     b, sq, sk, h, d = _heads(q, k, num_heads)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     s, ok = _logits(q, k, num_heads, bias, causal, scale)
@@ -155,10 +162,14 @@ def flash_attention_packed_bwd_plain(q, k, v, out, lse, dout, num_heads,
     delta = (gf * of).sum(-1, keepdim=True)
     dp = torch.matmul(gf, heads(v, sk).transpose(-1, -2))
     keep = _keep(q, k, num_heads, dropout_p, seed)
-    ds = p * (_dropped(dp, keep, dropout_p) - delta)
-    dq = torch.matmul(ds, heads(k, sk)) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), heads(q, sq)) * scale
-    dv = torch.matmul(_dropped(p, keep, dropout_p).transpose(-1, -2), gf)
+    ds = p * (_dropped(dp, keep, dropout_p) - delta) * scale
+    pd = _dropped(p, keep, dropout_p)
+    if kernel_route(q.dtype, d) == "mma.sync":
+        ds = ds.to(q.dtype).float()
+        pd = pd.to(dout.dtype).float()
+    dq = torch.matmul(ds, heads(k, sk))
+    dk = torch.matmul(ds.transpose(-1, -2), heads(q, sq))
+    dv = torch.matmul(pd.transpose(-1, -2), gf)
 
     def back(t, n, like):
         return t.transpose(1, 2).reshape(b, n, h * d).to(like.dtype)
@@ -197,8 +208,11 @@ def _check_operands(q, k, v, bias, num_heads, what, *others):
     return b, sq, sk, h, d
 
 
-def _strides(q, k, v):
-    return (*q.stride()[:2], *k.stride()[:2], *v.stride()[:2])
+def _strides(q, k, v, d, bias, sk):
+    """K1's strides on the packed views: q, k, v (batch, seq, head), heads
+    d apart; then the shared bias's (batch, head, row), 0, 0, sk."""
+    st = [x for t in (q, k, v) for x in (*t.stride()[:2], d)]
+    return st + [0, 0, sk if bias is not None else 0]
 
 
 def _tail(scale, causal, dropout_p, seed, dtype, t):
@@ -224,11 +238,10 @@ def flash_attention_packed_fwd(q, k, v, num_heads, bias=None, causal=False,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    strides = [st for t in (q, k, v) for st in (*t.stride()[:2], d)]
     check(library().ptt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, sq, sk, h, d, *strides, 0, 0, sk,
+        lse.data_ptr(), b, sq, sk, h, d, *_strides(q, k, v, d, bias, sk),
         *_tail(scale, causal, dropout_p, seed, q.dtype, q)),
         "flash_attention_packed_fwd")
     flash_attention_packed_fwd.launches += 1
@@ -240,9 +253,9 @@ def flash_attention_packed_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
                                causal=False, scale=None, dropout_p=0.0,
                                seed=None):
     """``(dq, dk, dv)`` from the forward's ``out`` and ``lse``: CPU tensors
-    take the plain version; CUDA tensors launch kernel K6 (with its delta
-    pre-pass and dq cast pass). dq is summed with atomics, so its last bits
-    vary from run to run."""
+    take the plain version; CUDA tensors launch kernel K6 (on the packed
+    strides, as K5; fp32 with a delta pre-pass; then a dq cast pass). dq is
+    summed with atomics, so its last bits vary from run to run."""
     if q.device.type == "cpu":
         return flash_attention_packed_bwd_plain(q, k, v, out, lse, dout,
                                                 num_heads, bias, causal, scale,
@@ -258,7 +271,11 @@ def flash_attention_packed_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
             or lse.device != q.device):
         raise ValueError(f"lse must be fp32 ({b}, {h}, {sq}) on {q.device}")
     out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # the FMA route's delta pre-pass (the tensor-core route recomputes delta
+    # a tile)
+    delta = None
+    if kernel_route(q.dtype, d) == "fma":
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq_ws = torch.empty((b, sq, h * d), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h * d), dtype=q.dtype, device=q.device)
@@ -266,9 +283,11 @@ def flash_attention_packed_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
     check(library().ptt_flash_attention_packed_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_ws.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(),
+        None if delta is None else delta.data_ptr(), dq_ws.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d,
-        *_strides(q, k, v), *_tail(scale, causal, dropout_p, seed, q.dtype, q)),
+        *_strides(q, k, v, d, bias, sk),
+        *_tail(scale, causal, dropout_p, seed, q.dtype, q)),
         "flash_attention_packed_bwd")
     flash_attention_packed_bwd.launches += 1
     flash_attention_packed_bwd.dropout_launches += int(bool(dropout_p))

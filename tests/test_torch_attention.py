@@ -1,7 +1,11 @@
-"""Cached attention of the port against the JAX package, on the CPU, fp32.
+"""Cached attention of the port against the JAX package, on the CPU.
 
 * K4's plain version against the Pallas ``flash_attention_cached`` in
-  interpret mode (partial ``kv_len``, a fully masked row);
+  interpret mode (partial ``kv_len``, a fully masked row), in fp32, and in
+  bf16 on its tensor-core route (p rounded as the Pallas kernel rounds it);
+  at bf16 decode and verify (its split-key route) against the JAX route
+  for them (``_sdpa_blockwise``); its split-key order against its dense
+  fp32 order;
 * the blockwise loop against ``_sdpa_blockwise`` at decode and verify
   shapes, and its backward against the JAX custom vjp's gradients;
 * the dense path against ``_sdpa_raw``;
@@ -11,7 +15,8 @@
 
 Tolerance: 1e-5 absolute on outputs of magnitude ~1 (the same fp32
 arithmetic in another order), 1e-4 on gradients relative to their largest
-entry.
+entry; bf16 outputs one bf16 step a element and a quarter step in relative
+L2 norm (p rounded to bf16 at other places or not at all).
 """
 import math
 
@@ -93,6 +98,101 @@ def test_k4_plain_matches_pallas_cached_kernel_at_head_dim_320(
     got = k4.flash_attention_cached(*_t(q, k, v, q_pos, kv_len))
     np.testing.assert_allclose(got.numpy(), want, atol=FP32_TOL, rtol=0)
     assert np.all(got.numpy()[1, 7] == 0.0)
+
+
+BF16_STEP = 2.0 ** -7
+
+
+def _bf16(*arrs):
+    """The same bf16 values as torch tensors and jax arrays."""
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+          for a in arrs]
+    return ts, [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in ts]
+
+
+def _bf16_close(got, want, rel_steps=0.25):
+    """One bf16 step a element, ``|d| <= 2^-7 max(1, |ref|)``, and
+    ``rel_steps`` of a step (a quarter by default) in relative L2 norm."""
+    g = got.float().numpy()
+    w = np.asarray(want, np.float32)
+    err = np.abs(g - w)
+    assert np.all(err <= BF16_STEP * np.maximum(1.0, np.abs(w))), err.max()
+    rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+    assert rel <= BF16_STEP * rel_steps, rel
+
+
+def test_bf16_plain_k4_rounds_as_the_pallas_cached_kernel(
+        no_persistent_compile_cache):
+    """K4's plain version on its tensor-core route (bf16 prefill: K1's
+    64-key online softmax under the length mask, p rounded to v's dtype
+    before p v) against the Pallas ``flash_attention_cached`` in interpret
+    mode, which rounds p the same way over 128-key blocks
+    (flash_attention.py:575), at a 128-aligned prefill with a q_pos -1 row
+    and a partial kv_len: one bf16 step a element, a quarter step in
+    relative L2 norm, the masked row exactly 0."""
+    b, sq, sk, h, d = 2, 128, 256, 2, 64
+    q, k, v = _qkv(b, sq, sk, h, d, seed=11)
+    q_pos = np.broadcast_to(np.arange(sq, dtype=np.int32) + 100,
+                            (b, sq)).copy()
+    q_pos[1, 9] = -1
+    kv_len = np.array([170, 256], np.int32)
+    (tq, tk, tv), (jq, jk, jv) = _bf16(q, k, v)
+    assert k4.cached_route(torch.bfloat16, sq, d) == "mma.sync"
+    with interpret_mode():
+        want = flash_attention_cached(jq, jk, jv, jnp.asarray(q_pos),
+                                      jnp.asarray(kv_len), block_q=128,
+                                      block_k=128)
+    got = k4.flash_attention_cached(tq, tk, tv, *_t(q_pos, kv_len))
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got, want)
+    assert bool((got[1, 9] == 0).all())
+
+
+@pytest.mark.parametrize("sq", [1, 5])  # decode, verify (spec_k = 4)
+def test_bf16_plain_k4_split_keys_match_the_jax_route(
+        sq, no_persistent_compile_cache):
+    """Decode and verify at bf16: K4's plain version on its split-key route
+    (32-key blocks with their own maxima, p rounded to v's dtype, merged)
+    against the JAX package's route for those calls, ``_sdpa_blockwise``
+    (``supports_cached`` takes 128-aligned blocks only), on the same bf16
+    inputs, with a kv_len 0 slot (exactly 0): one bf16 step a element and
+    half a step in relative L2 norm. The JAX route keeps p in fp32 where
+    the port rounds it to bf16, as the Pallas cached kernel does: without
+    that rounding the two outputs are the same bits here, with it they are
+    2.0e-3 to 2.3e-3 apart in relative L2 (three seeds), above a quarter
+    step (1.95e-3) and below half of one."""
+    b, sk, h, d = 4, 384, 2, 64
+    q, k, v = _qkv(b, sq, sk, h, d, seed=12)
+    pos0 = np.array([0, 100, 250, 379], np.int32)
+    q_pos = pos0[:, None] + np.arange(sq, dtype=np.int32)[None]
+    kv_len = np.array([0, 130, 256, 384], np.int32)
+    (tq, tk, tv), (jq, jk, jv) = _bf16(q, k, v)
+    assert k4.cached_route(torch.bfloat16, sq, d) == "split"
+    want = JA._sdpa_blockwise.raw(jq, jk, jv, jnp.asarray(q_pos),
+                                  jnp.asarray(kv_len), scale=1 / math.sqrt(d),
+                                  block_q=sq, block_k=128)
+    got = k4.flash_attention_cached(tq, tk, tv, *_t(q_pos, kv_len))
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got, want, rel_steps=0.5)
+    assert bool((got[0] == 0).all())
+
+
+def test_split_plain_equals_the_dense_plain_in_fp32():
+    """The part-merged plain version (32-key blocks with their own maxima)
+    is the dense one in another order: within 1e-5 in fp32, at decode and
+    verify, with an empty slot and a block with no visible key."""
+    b, sk, h, d = 3, 200, 2, 32
+    for sq in (1, 5):
+        q, k, v = _t(*_qkv(b, sq, sk, h, d, seed=13 + sq))
+        q_pos = torch.tensor([[3], [90], [199]], dtype=torch.int32) + \
+            torch.arange(sq, dtype=torch.int32)[None] - sq + 1
+        kv_len = torch.tensor([0, 91, 200], dtype=torch.int32)
+        ok = k4._length_ok(q_pos, kv_len, sk, q.device)
+        got = k4._cached_split_plain(q, k, v, ok, 0.3)
+        want = k4.flash_attention_cached_plain(q, k, v, q_pos, kv_len, 0.3)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=0)
+        assert bool((got[0] == 0).all())
 
 
 @pytest.mark.parametrize("sq", [1, 5])  # decode, verify (spec_k = 4)

@@ -15,7 +15,11 @@ limits (at bf16 and fp16 up to head dim 128 K1 and K3 round p, and K2 and
 K3 ds * scale, to the input type before their products, as do their plain
 versions; K5 runs K1's forward and rounds p the same way), and their
 gradients, summed without atomics, must be the same bits from launch to
-launch. The one exception is K8's fp32 dgamma and dbeta:
+launch. K4 (p rounded on its tensor-core prefill and its split-key
+decode) and K6 (p and ds * scale rounded on its tensor-core pass) are held
+to those limits too, and at 2-byte types also to a quarter step in
+relative L2 norm; K4's split-key merge runs in a fixed order and must give
+the same bits twice. The one exception is K8's fp32 dgamma and dbeta:
 sums of one term a row, taken in another order than the plain version's,
 where each addition rounds by up to 2^-24 of the running sum, so they are
 held to 1e-4 · max(1, |ref|) + 1e-7 · rows (about 3e-4 apart at 24576 rows
@@ -58,6 +62,19 @@ def _assert_close(got, want, fp32_atol=5e-5, fp32_rtol=0.0):
         tol = _STEP[got.dtype] * torch.clamp_min(w.abs(), 1.0)
     err = (g - w).abs()
     assert bool((err <= tol).all()), f"max err {err.max().item()}"
+
+
+def _assert_rel(got, want):
+    """2-byte outputs: a quarter of one step of the type in relative L2
+    norm (one rounding of each output gives far less; a dropped tile or a
+    wrong scale gives percents even where every value is below 1)."""
+    if got.dtype == torch.float32:
+        return
+    g, w = got.float(), want.float()
+    norm = float(w.norm())
+    if norm > 0:
+        rel = float((g - w).norm()) / norm
+        assert rel <= _STEP[got.dtype] / 4, f"relative L2 {rel}"
 
 
 def _param_grad_tol(rows):
@@ -134,13 +151,40 @@ def test_cached_attention_kernel_matches_plain(dev, b, sq, sk, h, d, dtype):
     got = k4.flash_attention_cached(q, k, v, q_pos, kv_len)
     torch.cuda.synchronize()
     assert k4.flash_attention_cached.launches == before + 1
-    _assert_close(got, k4.flash_attention_cached_plain(q, k, v, q_pos,
-                                                        kv_len))
+    want = k4.flash_attention_cached_plain(q, k, v, q_pos, kv_len)
+    _assert_close(got, want)
+    _assert_rel(got, want)
     assert bool((got[0, 0] == 0).all())
     got = k4.flash_attention_cached(q, k, v, q_pos, None,
                                     scale=0.5 / math.sqrt(d))
     _assert_close(got, k4.flash_attention_cached_plain(
         q, k, v, q_pos, None, scale=0.5 / math.sqrt(d)))
+
+
+@pytest.mark.parametrize("sq,d,dtype", [(1, 64, torch.bfloat16),
+                                        (5, 96, torch.bfloat16),
+                                        (1, 128, torch.float16),
+                                        (3, 64, torch.float32)])
+def test_cached_decode_parts_and_merge(dev, sq, d, dtype):
+    """The split-key route at slot prefixes of 0, 1, 255, 256, 257 and 2047
+    keys over a 2048-row cache: empty slots, parts that end at, one before
+    and one after a part boundary, and 16 parts; each against the plain
+    version, the empty slot exactly 0, and the merge of the parts (in part
+    order) the same bits on a second run."""
+    prefix = torch.tensor([0, 1, 255, 256, 257, 2047])
+    b, sk, h = len(prefix), 2048, 4
+    assert k4.cached_route(dtype, sq, d) == "split"
+    q, k, v = _qkv(dev, dtype, b, sq, sk, h, d, seed=sq + d)
+    # the last query row sits at the slot's last key; verify rows before it
+    q_pos = (prefix[:, None] - sq + torch.arange(sq)[None]).int().to(dev)
+    kv_len = prefix.int().to(dev)
+    got = k4.flash_attention_cached(q, k, v, q_pos, kv_len)
+    torch.cuda.synchronize()
+    want = k4.flash_attention_cached_plain(q, k, v, q_pos, kv_len)
+    _assert_close(got, want)
+    _assert_rel(got, want)
+    assert bool((got[0] == 0).all())
+    assert torch.equal(got, k4.flash_attention_cached(q, k, v, q_pos, kv_len))
 
 
 def test_cached_attention_reads_strided_views_in_place(dev):
@@ -186,11 +230,13 @@ def _packed_qkv(dev, dtype, b, sq, sk, h, d, seed):
 
 
 # (b, sq, sk, h, d, dtype, causal, bias): GPT-2 head shapes, then sq > sk
-# (rows 0..39 see no key; the boundary falls inside the first 64-row tile),
+# (rows 0..39 see no key; the boundary falls inside the first 64-row tile;
+# fp32 on K6's FMA route, bf16 on its tensor-core route),
 # sq < sk with ragged tiles, a bias that masks a whole row, and d = 32/128
 _PACKED = [
     (2, 256, 256, 4, 64, torch.bfloat16, True, False),
     (2, 100, 60, 2, 64, torch.float32, True, False),
+    (2, 100, 60, 2, 64, torch.bfloat16, True, False),
     (1, 70, 130, 3, 32, torch.float16, True, True),
     (2, 65, 65, 2, 128, torch.float32, False, True),
     (1, 128, 192, 2, 64, torch.bfloat16, True, True),
@@ -235,6 +281,7 @@ def test_packed_attention_kernels_match_plain(dev, b, sq, sk, h, d, dtype,
                                                bias, causal)
     for got, ref in zip(grads, want):
         _assert_close(got, ref)
+        _assert_rel(got, ref)
     assert bool((grads[0][:, masked.to(dev)] == 0).all())
 
 

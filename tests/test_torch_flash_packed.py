@@ -139,6 +139,62 @@ def test_bf16_plain_k5_rounds_as_the_pallas_kernel(
                                rtol=1e-5)
 
 
+def _bf16_close(got, want, name):
+    """One bf16 step a element, ``|d| <= 2^-7 max(1, |ref|)``, and a
+    quarter step in relative L2 norm."""
+    g = got.float().numpy()
+    w = np.asarray(want, np.float32)
+    err = np.abs(g - w)
+    assert np.all(err <= BF16_STEP * np.maximum(1.0, np.abs(w))), (
+        name, err.max())
+    rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+    assert rel <= BF16_STEP / 4, (name, rel)
+
+
+# (sq, sk, causal, bias): causal; a shared bias; sq 256 > sk 128 causal,
+# where rows 0..127 see no key
+_K6_BF16 = {"causal": (256, 256, True, False),
+            "shared_bias": (256, 256, False, True),
+            "dead_rows": (256, 128, True, False)}
+
+
+@pytest.mark.parametrize("case", sorted(_K6_BF16))
+def test_bf16_plain_k6_rounds_as_the_pallas_kernel(
+        case, no_persistent_compile_cache):
+    """K6's plain version on its tensor-core route rounds the dropped p to
+    dout's dtype before p^T dout and ds * scale to q's and k's before ds^T
+    q and ds k, as the Pallas ``_bwd_fused_kernel`` does
+    (flash_attention_packed.py:295, :304, :312): dq, dk and dv through the
+    differentiable wrapper against ``jax.grad`` of the Pallas kernel in
+    interpret mode (128-row blocks) on the same bf16 inputs, at one bf16
+    step a element and a quarter step in relative L2 norm; dead rows give
+    exactly 0 in dq."""
+    sq, sk, causal, use_bias = _K6_BF16[case]
+    q, k, v, bias, co = _inputs(sq, sk, seed=7)
+    bias = bias if use_bias else None
+    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, co)]
+    jq, jk, jv, jco = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                       for t in ts)
+
+    def f(q_, k_, v_):
+        out = jax_packed(q_, k_, v_, H, bias=bias, causal=causal,
+                         block_q=128, block_k=128, bwd_block=128,
+                         interpret=True)
+        return jnp.vdot(out.astype(jnp.float32), jco.astype(jnp.float32))
+
+    want = jax.grad(f, (0, 1, 2))(jq, jk, jv)
+    qt, kt, vt = (t.requires_grad_() for t in ts[:3])
+    out = k5.flash_attention_packed(
+        qt, kt, vt, H, None if bias is None else torch.from_numpy(bias),
+        causal=causal)
+    got = torch.autograd.grad(out, (qt, kt, vt), ts[3])
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _bf16_close(g, w, name)
+    if sq > sk:
+        assert bool((got[0][:, :sq - sk] == 0).all())
+
+
 def test_shape_gate_mirrors_pallas_gate():
     for sq, sk, h, e in [(256, 256, 4, 256), (1024, 1024, 12, 768),
                          (100, 128, 2, 128), (256, 256, 3, 288),
