@@ -22,8 +22,11 @@
    version does (K1's 64-key online softmax); K4 (prefill on K1's tiles,
    decode and verify on split keys) and K6 (one tensor-core pass) round p
    (K6 also ds * scale) where their plain versions do: also a quarter step
-   in relative L2 norm. K4's split-key cases give their key parts
-   (launched, live); K6 is timed beside K2 + K3 on the same packed strides
+   in relative L2 norm. K4's split-key cases give their key parts as
+   measured (launched: the grid its launcher reports; live: the parts
+   that wrote a record into a NaN-filled workspace), which must match
+   the plain version's part rule, and the merge's bits on a second
+   launch; K6 is timed beside K2 + K3 on the same packed strides
    (the witness, held to K6's plain version) and beside SDPA's backward
    timed before and after it.
 4. Serving phase (a main path): GPT-2 124M (vocab 50304, hidden 768, 12
@@ -358,14 +361,32 @@ def kernel_phase(torch, timer):
                            H100_FP32_FLOPS if esz == 4 else H100_BF16_FLOPS)
         mask = ok[:, None]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        route = k4.cached_route(q.dtype, sq, d)
+        # the route as the kernel library plans it, which must be the one
+        # the plain version followed
+        route, parts, _ = k4.cached_plan(b, sq, sk, h, d, q.dtype)
+        if route != k4.cached_route(q.dtype, sq, d):
+            raise RuntimeError(f"K4 {name}: the library routes {route}, the "
+                               f"plain version {k4.cached_route(q.dtype, sq, d)}")
         extra = {}
         if route == "split":
-            # key parts: launched (the grid) and live (the rest exit at once)
+            # key parts, measured: launched (the split kernel's grid, as its
+            # launcher reports it) and live (the parts that wrote their
+            # records into a NaN-filled workspace; the rest exit at once)
+            probe, launched, live = k4.flash_attention_cached_parts(
+                q, k, v, qp, kl)
             need = torch.where(vis, col, -1).amax(-1) + 1           # [b]
-            extra = {"parts_launched": k4.split_parts(sk) * b * h,
-                     "parts_live": h * int(((need + k4.PART_KEYS - 1)
-                                            // k4.PART_KEYS).sum())}
+            want_live = h * int(((need + k4.PART_KEYS - 1)
+                                 // k4.PART_KEYS).sum())
+            if (launched != k4.split_parts(sk) * b * h or parts
+                    != k4.split_parts(sk) or live != want_live):
+                raise RuntimeError(
+                    f"K4 {name}: {launched} parts launched and {live} live, "
+                    f"the plain version's rule gives "
+                    f"{k4.split_parts(sk) * b * h} and {want_live}")
+            if not torch.equal(probe, got):
+                raise RuntimeError(f"K4 {name}: the part merge gave other "
+                                   "bits on a second launch")
+            extra = {"parts_launched": launched, "parts_live": live}
         if q.dtype != torch.float32:
             extra["rel_l2_err"] = _rel_l2_err(got, want)
         fa_cases.append({

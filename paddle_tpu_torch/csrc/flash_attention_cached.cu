@@ -600,16 +600,17 @@ int split_parts(int sk) { return sk > 0 ? (sk + kPartKeys - 1) / kPartKeys : 1; 
 // vec: cp.async of whole rows (kv_rows16 and the head dim the width D)
 template <typename T, int D>
 cudaError_t launch_split(const Args& a, const int* q_pos, const int* kv_len, void* out,
-                         float* ws, int vec, cudaStream_t stream) {
+                         float* ws, int vec, long long* ctas, cudaStream_t stream) {
   const size_t smem = split_smem_bytes<T, D>();
   auto kern = cached_split_kernel<T, D>;
   static bool configured = false;
   cudaError_t e = allow_smem(kern, smem, configured);
   if (e != cudaSuccess) return e;
   const int parts = split_parts(a.sk);
-  kern<<<dim3(parts, a.h, a.b), 32 * kSplitWarps, smem, stream>>>(a, q_pos, kv_len, ws,
-                                                                  vec);
+  const dim3 grid(parts, a.h, a.b);
+  kern<<<grid, 32 * kSplitWarps, smem, stream>>>(a, q_pos, kv_len, ws, vec);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (ctas != nullptr) *ctas = static_cast<long long>(grid.x) * grid.y * grid.z;
   cached_merge_kernel<T><<<dim3(a.h, a.b), 128, 0, stream>>>(a, q_pos, kv_len, ws, parts,
                                                              static_cast<T*>(out));
   return cudaGetLastError();
@@ -625,29 +626,60 @@ bool kv_rows16(const Args& a) {
   return ok;
 }
 
+enum Route { kRouteFma = 0, kRouteTc = 1, kRouteSplit = 2 };
+
+bool tc_width(int w) {
+  switch (w) {
+#define PTT_CASE(D) \
+  case D: return true;
+    PTT_TC_WIDTHS(PTT_CASE)
+#undef PTT_CASE
+  }
+  return false;
+}
+
+// the one place K4's route is chosen: split keys up to kDecodeRows query
+// rows at K1's widths, K1's tensor-core forward for 2-byte prefill at its
+// tensor-core widths, the FMA kernel else (fp32, width 256 at sq > 8, and
+// every head dim above 256)
+Route route_of(int sq, int d, int dtype) {
+  const int w = width_of(d);
+  if (w == 0) return kRouteFma;
+  if (sq <= kDecodeRows) return kRouteSplit;
+  if (dtype != kFloat32 && tc_width(w)) return kRouteTc;
+  return kRouteFma;
+}
+
+// floats of the split route's workspace: an (m, l, acc) record for each
+// (slot, head, part, row)
+long long split_ws_floats(int b, int sq, int sk, int h, int d) {
+  return static_cast<long long>(b) * h * split_parts(sk) * sq * (d + 2);
+}
+
 template <typename T>
-cudaError_t route(const Args& a, const int* q_pos, const int* kv_len, void* out, float* ws,
-                  cudaStream_t s) {
+cudaError_t route(const Args& a, Route r, const int* q_pos, const int* kv_len, void* out,
+                  float* ws, long long* ctas, cudaStream_t s) {
   const int w = width_of(a.dn);
   const int vec = kv_rows16<T>(a) ? 1 : 0;
   if (w == 0)  // above 256: the chunked FMA kernel
     return launch_fma<T, 256, true>(a, q_pos, kv_len, out, vec, s);
-  if (a.sq <= kDecodeRows) {  // split keys at K1's widths
-    if (ws == nullptr) return cudaErrorInvalidValue;
+  if (r == kRouteSplit) {  // split keys at K1's widths
     switch (w) {
 #define PTT_CASE(D) \
-  case D: return launch_split<T, D>(a, q_pos, kv_len, out, ws, vec && a.dn == D, s);
+  case D: return launch_split<T, D>(a, q_pos, kv_len, out, ws, vec && a.dn == D, ctas, s);
       PTT_FLASH_WIDTHS(PTT_CASE)
 #undef PTT_CASE
     }
     return cudaErrorInvalidValue;
   }
   if constexpr (sizeof(T) == 2) {
-    switch (w) {
+    if (r == kRouteTc) {
+      switch (w) {
 #define PTT_CASE(D) \
   case D: return launch_tc<T, D>(a, q_pos, kv_len, out, s);
-      PTT_TC_WIDTHS(PTT_CASE)
+        PTT_TC_WIDTHS(PTT_CASE)
 #undef PTT_CASE
+      }
     }
   }
   // the FMA kernel's widths: 32, 64, 96, 128 (fp32), 256
@@ -667,18 +699,41 @@ cudaError_t route(const Args& a, const int* q_pos, const int* kv_len, void* out,
 }  // namespace
 }  // namespace ptt
 
+// K4's route for these shapes (0 FMA, 1 tensor cores, 2 split keys) and,
+// on the split route, its key parts and workspace floats (0 otherwise): the
+// wrapper sizes the workspace from this, so the part rule lives here only.
+extern "C" int ptt_flash_attention_cached_plan(int b, int sq, int sk, int h, int d,
+                                               int dtype, int* route, int* parts,
+                                               long long* ws_floats) {
+  using namespace ptt;
+  if (d < 1 || (dtype != kFloat32 && dtype != kBFloat16 && dtype != kFloat16))
+    return cudaErrorInvalidValue;
+  const Route r = route_of(sq, d, dtype);
+  *route = r;
+  *parts = r == kRouteSplit ? split_parts(sk) : 0;
+  *ws_floats = r == kRouteSplit ? split_ws_floats(b, sq, sk, h, d) : 0;
+  return cudaSuccess;
+}
+
 // Strides (in elements): q, k and v each (batch, seq, head). ws: the split
-// route's fp32 workspace (sq <= 8 and d <= 256: b * h * parts * sq * (d + 2)
-// floats, parts = ceil(sk / 128)); nullptr otherwise.
+// route's fp32 workspace of ws_floats floats (ptt_flash_attention_cached_plan
+// gives the size; a smaller one is refused); ctas: if not null, set to the
+// split kernel's grid size (0 on the other routes).
 extern "C" int ptt_flash_attention_cached_fwd(
     const void* q, const void* k, const void* v, const void* q_pos,
-    const void* kv_len, void* out, void* ws, int b, int sq, int sk, int h, int d,
+    const void* kv_len, void* out, void* ws, long long ws_floats, long long* ctas,
+    int b, int sq, int sk, int h, int d,
     long long qsb, long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, float scale,
     int dtype, void* stream) {
   using namespace ptt;
+  if (ctas != nullptr) *ctas = 0;
   if (b == 0 || sq == 0 || h == 0) return cudaSuccess;
   if (d < 1) return cudaErrorInvalidValue;
+  const Route r = route_of(sq, d, dtype);
+  if (r == kRouteSplit &&
+      (ws == nullptr || ws_floats < split_ws_floats(b, sq, sk, h, d)))
+    return cudaErrorInvalidValue;
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, 0, 0, 0};
   const Args a = make_args(q, k, v, nullptr, b, sq, sk, h, d, st, scale, 0, 0u, 0u,
                            65536u, 1.f);
@@ -687,9 +742,9 @@ extern "C" int ptt_flash_attention_cached_fwd(
   float* w = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return route<float>(a, qp, kl, out, w, s);
-    case kBFloat16: return route<__nv_bfloat16>(a, qp, kl, out, w, s);
-    case kFloat16: return route<__half>(a, qp, kl, out, w, s);
+    case kFloat32: return route<float>(a, r, qp, kl, out, w, ctas, s);
+    case kBFloat16: return route<__nv_bfloat16>(a, r, qp, kl, out, w, ctas, s);
+    case kFloat16: return route<__half>(a, r, qp, kl, out, w, ctas, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -53,10 +53,13 @@ _SIGNATURES = {
     # x_dtype, w_dtype, stream
     "ptt_layer_norm_bwd": [p, p, p, p, p, p, p, i32, i32, i32, f32, i32, i32,
                            p],
-    # q, k, v, q_pos, kv_len, out, split workspace, b, sq, sk, h, d,
-    # q strides (b, s, h), k strides, v strides, scale, dtype, stream
+    # b, sq, sk, h, d, dtype, out: route, key parts, workspace floats
+    "ptt_flash_attention_cached_plan": [i32] * 6 + [p] * 3,
+    # q, k, v, q_pos, kv_len, out, split workspace, its floats, out: the
+    # split kernel's CTAs, b, sq, sk, h, d, q strides (b, s, h), k strides,
+    # v strides, scale, dtype, stream
     "ptt_flash_attention_cached_fwd": (
-        [p] * 7 + [i32] * 5 + [i64] * 9 + [f32, i32, p]),
+        [p] * 7 + [i64, p] + [i32] * 5 + [i64] * 9 + [f32, i32, p]),
     # q, k, v, bias, out, lse, b, sq, sk, h, d, q/k/v strides (b, s, h),
     # bias strides (b, h, row), scale, causal, dropout, dtype, stream (K1,
     # and the packed forward K5 on its strides)

@@ -43,7 +43,11 @@ without a copy.
   keys into parts of :data:`PART_KEYS` (flash-decoding), each warp's 32
   keys with their own row maxima and p rounded to v's dtype, merged in a
   second launch in part order; fp32 prefill and head dims above 256 run
-  an fp32 FMA kernel. The plain version follows each route's order.
+  an fp32 FMA kernel. The plain version follows each route's order. On
+  the card the kernel library chooses the route and sizes the split
+  workspace (:func:`cached_plan`); :func:`cached_route`,
+  :data:`DECODE_ROWS` and :data:`PART_KEYS` are the plain version's copy of
+  that rule, held to the library's by the card tests and ``chip_smoke.py``.
 
 Both take every head dim, as the JAX kernels do: up to 256 a head dim runs
 in the smallest instantiated width at or above it (:data:`FLASH_WIDTHS` for
@@ -53,6 +57,7 @@ columns split into 256-column slices over the grid.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -64,8 +69,9 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_plain", "flash_attention_cached",
-           "flash_attention_cached_plain", "supports", "kernel_route",
-           "cached_route", "split_parts", "FLASH_WIDTHS", "MAX_DROPOUT_HEADS",
+           "flash_attention_cached_plain", "flash_attention_cached_parts",
+           "cached_plan", "supports", "kernel_route", "cached_route",
+           "split_parts", "FLASH_WIDTHS", "MAX_DROPOUT_HEADS",
            "DECODE_ROWS", "PART_KEYS", "NEG_INF"]
 
 NEG_INF = -1e30
@@ -227,6 +233,62 @@ def _check_qkv(q, k, v, what):
     return b, sq, sk, h, d
 
 
+#: the C side's route codes (csrc/flash_attention_cached.cu ``Route``)
+_CACHED_ROUTES = ("fma", "mma.sync", "split")
+
+
+def cached_plan(b, seq_q, seq_k, heads, head_dim, dtype):
+    """K4's plan as the kernel library makes it: ``(route, parts,
+    workspace_floats)``, the route as :func:`cached_route` names it, and on
+    the split-key route its key parts and the fp32 workspace it needs (0
+    and 0 on the others). Builds the library at first use."""
+    route, parts, floats = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    check(library().ptt_flash_attention_cached_plan(
+        b, seq_q, seq_k, heads, head_dim, dtype_code(dtype),
+        ctypes.byref(route), ctypes.byref(parts), ctypes.byref(floats)),
+        "flash_attention_cached_plan")
+    return _CACHED_ROUTES[route.value], parts.value, floats.value
+
+
+def _cached_launch(q, k, v, q_pos, kv_len, scale, probe):
+    """Launch K4; returns ``(out, ctas, ws)``: the split kernel's CTAs as
+    the launcher reports them (0 on the other routes) and the workspace
+    (None off the split route). ``probe`` sets the workspace to NaN first,
+    so the records the kernel wrote can be counted."""
+    if needs_grad(q, k, v):
+        raise RuntimeError("flash_attention_cached is forward-only: its "
+                           "kernel's output is not recorded by autograd")
+    b, sq, sk, h, d = _check_qkv(q, k, v, "cached attention")
+    if tuple(q_pos.shape) != (b, sq):
+        raise ValueError(f"q_pos must be ({b}, {sq}), got {tuple(q_pos.shape)}")
+    qp = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
+    kl = None
+    if kv_len is not None:
+        if tuple(kv_len.shape) != (b,):
+            raise ValueError(f"kv_len must be ({b},), got {tuple(kv_len.shape)}")
+        kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    # the split-key route's parts: (m, l, acc) a row, merged by a second
+    # launch; sized by the library, which refuses a smaller one
+    _, _, floats = cached_plan(b, sq, sk, h, d, q.dtype)
+    ws = None
+    if floats:
+        ws = (torch.full if probe else torch.empty)(
+            (floats,), *((math.nan,) if probe else ()), dtype=torch.float32,
+            device=q.device)
+    ctas = ctypes.c_longlong()
+    check(library().ptt_flash_attention_cached_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
+        None if kl is None else kl.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), floats, ctypes.byref(ctas),
+        b, sq, sk, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        float(s), dtype_code(q.dtype), stream_of(q)),
+        "flash_attention_cached")
+    flash_attention_cached.launches += 1
+    return out, ctas.value, ws
+
+
 def flash_attention_cached(q, k, v, q_pos, kv_len=None, *, scale=None):
     """Length-masked attention over a static-shape KV cache.
 
@@ -243,35 +305,24 @@ def flash_attention_cached(q, k, v, q_pos, kv_len=None, *, scale=None):
         return flash_attention_cached_plain(q, k, v, q_pos, kv_len, scale)
     if q.device.type != "cuda":
         raise ValueError(f"cached attention kernel needs CUDA, got {q.device}")
-    if needs_grad(q, k, v):
-        raise RuntimeError("flash_attention_cached is forward-only: its "
-                           "kernel's output is not recorded by autograd")
-    b, sq, sk, h, d = _check_qkv(q, k, v, "cached attention")
-    if tuple(q_pos.shape) != (b, sq):
-        raise ValueError(f"q_pos must be ({b}, {sq}), got {tuple(q_pos.shape)}")
-    qp = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
-    kl = None
-    if kv_len is not None:
-        if tuple(kv_len.shape) != (b,):
-            raise ValueError(f"kv_len must be ({b},), got {tuple(kv_len.shape)}")
-        kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
-    s = scale if scale is not None else 1.0 / math.sqrt(d)
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    # the split-key route's parts: (m, l, acc) a row, merged by a second
-    # launch
-    ws = None
-    if cached_route(q.dtype, sq, d) == "split":
-        ws = torch.empty(b * h * split_parts(sk) * sq * (d + 2),
-                         dtype=torch.float32, device=q.device)
-    check(library().ptt_flash_attention_cached_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
-        None if kl is None else kl.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        b, sq, sk, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(s), dtype_code(q.dtype), stream_of(q)),
-        "flash_attention_cached")
-    flash_attention_cached.launches += 1
-    return out
+    return _cached_launch(q, k, v, q_pos, kv_len, scale, probe=False)[0]
+
+
+def flash_attention_cached_parts(q, k, v, q_pos, kv_len=None, *, scale=None):
+    """K4 on the card with its split-key parts counted: ``(out, launched,
+    live)``, the split kernel's CTAs as its launcher reports them and the
+    parts that wrote their records (the rest exit at once); ``(out, 0, 0)``
+    off the split route. One launch, counted as any other."""
+    if q.device.type != "cuda":
+        raise ValueError(f"cached attention kernel needs CUDA, got {q.device}")
+    out, ctas, ws = _cached_launch(q, k, v, q_pos, kv_len, scale, probe=True)
+    if ws is None:
+        return out, 0, 0
+    # each record is m, l, then head_dim columns, sq records a part; a live
+    # part writes every one of them, so its first row's m says
+    sq, d = q.shape[1], q.shape[3]
+    m = ws.view(-1, sq, d + 2)[:, 0, 0]
+    return out, ctas, int((~torch.isnan(m)).sum())
 
 
 flash_attention_cached.launches = 0

@@ -177,6 +177,41 @@ def test_bf16_plain_k4_split_keys_match_the_jax_route(
     assert bool((got[0] == 0).all())
 
 
+@pytest.mark.parametrize("seed", range(20, 36))
+@pytest.mark.parametrize("sq", [1, 5])  # decode, verify (spec_k = 4)
+def test_bf16_split_keys_stay_within_half_a_step_of_the_jax_route_per_slot(
+        sq, seed, no_persistent_compile_cache):
+    """The distance the port's bf16 decode and verify keep from the JAX
+    package's decode route (``_sdpa_blockwise``, p in fp32) by rounding p
+    to bf16 as the Pallas cached kernel does, slot by slot, over 16 seeds:
+    prefixes of 0 (exactly 0 on both), 1 (p = 1: the same bits), one before,
+    at and one after the 128-key part edges, and a full 512-key cache; each
+    slot within one bf16 step a element and half a step in relative L2
+    norm. Run with ``-s`` to print each slot's distance in bf16 steps."""
+    b, sk, h, d = 8, 512, 2, 64
+    q, k, v = _qkv(b, sq, sk, h, d, seed=seed)
+    kv_len = np.array([0, 1, 127, 128, 129, 256, 257, 512], np.int32)
+    q_pos = (kv_len - sq)[:, None] + np.arange(sq, dtype=np.int32)[None]
+    (tq, tk, tv), (jq, jk, jv) = _bf16(q, k, v)
+    want = np.asarray(JA._sdpa_blockwise.raw(
+        jq, jk, jv, jnp.asarray(q_pos), jnp.asarray(kv_len),
+        scale=1 / math.sqrt(d), block_q=sq, block_k=128), np.float32)
+    got = k4.flash_attention_cached(tq, tk, tv, *_t(q_pos, kv_len))
+    steps = []
+    for i in range(b):
+        if kv_len[i] == 0:
+            assert bool((got[i] == 0).all()) and not want[i].any()
+            steps.append(0.0)
+            continue
+        _bf16_close(got[i], want[i], rel_steps=0.5)
+        g = got[i].float().numpy()
+        steps.append(float(np.linalg.norm(g - want[i])
+                           / np.linalg.norm(want[i]) / BF16_STEP))
+    assert steps[1] == 0.0                       # one key: p = 1 exactly
+    print(f"sq {sq} seed {seed} relative L2 in bf16 steps by slot "
+          f"{dict(zip(kv_len.tolist(), np.round(steps, 3).tolist()))}")
+
+
 def test_split_plain_equals_the_dense_plain_in_fp32():
     """The part-merged plain version (32-key blocks with their own maxima)
     is the dense one in another order: within 1e-5 in fp32, at decode and

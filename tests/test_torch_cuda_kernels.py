@@ -185,6 +185,58 @@ def test_cached_decode_parts_and_merge(dev, sq, d, dtype):
     _assert_rel(got, want)
     assert bool((got[0] == 0).all())
     assert torch.equal(got, k4.flash_attention_cached(q, k, v, q_pos, kv_len))
+    # parts: 16 launched for each (slot, head); live as far as each prefix
+    # reaches (none for the empty slot)
+    again, launched, live = k4.flash_attention_cached_parts(
+        q, k, v, q_pos, kv_len)
+    assert torch.equal(again, got)
+    assert launched == 16 * b * h
+    assert live == h * (0 + 1 + 2 + 2 + 3 + 16)
+
+
+def test_cached_plan_of_the_library_matches_the_plain_version(dev):
+    """The library's route and key parts for K4 (which size the split
+    workspace) are the ones the plain version follows, across the route
+    edges: 8 and 9 query rows, widths 128/129 and 256/257, every type, and
+    caches of 0, 1, 127, 128, 129 and 2047 rows."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for sq in (1, 5, 8, 9, 64):
+            for d in (32, 64, 80, 96, 128, 129, 256, 257, 320):
+                for sk in (0, 1, 127, 128, 129, 2047):
+                    route, parts, floats = k4.cached_plan(2, sq, sk, 3, d,
+                                                          dtype)
+                    assert route == k4.cached_route(dtype, sq, d)
+                    split = route == "split"
+                    assert parts == (k4.split_parts(sk) if split else 0)
+                    assert floats == (2 * 3 * parts * sq * (d + 2)
+                                      if split else 0)
+
+
+def test_cached_split_refuses_a_short_workspace(dev):
+    """The split-key entry checks the workspace's size against its own part
+    rule: one float short is refused before any launch."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.cuda._build import dtype_code, library, stream_of
+    b, sq, sk, h, d = 2, 1, 300, 4, 64
+    q, k, v = _qkv(dev, torch.bfloat16, b, sq, sk, h, d, seed=7)
+    qp = torch.full((b, sq), sk - 1, dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    _, _, floats = k4.cached_plan(b, sq, sk, h, d, q.dtype)
+    ws = torch.empty(floats, dtype=torch.float32, device=dev)
+    args = (b, sq, sk, h, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], 0.125, dtype_code(q.dtype), stream_of(q))
+    lib = library()
+    ctas = ctypes.c_longlong(-1)
+    assert lib.ptt_flash_attention_cached_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), None,
+        out.data_ptr(), ws.data_ptr(), floats - 1, ctypes.byref(ctas),
+        *args) != 0
+    assert ctas.value == 0
+    assert lib.ptt_flash_attention_cached_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), None,
+        out.data_ptr(), ws.data_ptr(), floats, ctypes.byref(ctas), *args) == 0
+    assert ctas.value == 3 * b * h
 
 
 def test_cached_attention_reads_strided_views_in_place(dev):
