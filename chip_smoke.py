@@ -97,8 +97,14 @@
    K4-prefill and K6 tensor-core function, and ptxas's registers and
    spills of the bf16 attention kernels are printed.
    K7 and K8 at GPT-3 Large's LayerNorm shape (16384 rows of 1536, bf16 x,
-   fp32 gamma and beta) within one bf16 step, beside ``F.layer_norm`` and
-   ``native_layer_norm_backward``.
+   fp32 gamma and beta) and at 2048 rows of 5120 (wider than 4096: the
+   general kernels) within one bf16 step, beside ``F.layer_norm`` and
+   ``native_layer_norm_backward``. Every K7/K8 case gives the library's
+   kernel for it (``kernel_plan``) and its share of the bound; K8's cases
+   give its row kernel's and its column reduction's device time apart
+   (``torch.profiler`` kernel names) and must give the same bits on a
+   second launch; ptxas's registers and spills of the K7/K8
+   instantiations on the paths are printed after the build.
 9. GPT-3 Large phase (the main path of this slice): GPT-3 Large (Brown et
    al. 2020, Table 2.1: 24 layers, d_model 1536, 16 heads of 96, context
    2048; vocab 50304) built in fp32 from ``torch.manual_seed(0)``, the
@@ -261,7 +267,9 @@ def kernel_phase(torch, timer):
             "ms": timer(lambda: k7.layer_norm(x, g, b)),
             "plain_ms": timer(lambda: k7.layer_norm_plain(x, g, b)),
             "library_ms": timer(lambda: TF.layer_norm(x, (768,), gl, bl)),
-            "bound_ms": bound, "bound_by": by})
+            "bound_ms": bound, "bound_by": by,
+            "kernel_plan": k7.kernel_plan(x)})
+        ln_cases[-1]["share_of_bound"] = bound / ln_cases[-1]["ms"]
 
     h, d = 12, 64
 
@@ -416,7 +424,10 @@ def _packed_inputs(torch, gen, b, sq, sk, h, d):
 def _layer_norm_train_cases(torch, timer, gen, rows, feat, name):
     """K7 and K8 against their plain versions at a train step's shape (bf16
     x and dy, fp32 gamma and beta), beside ``F.layer_norm`` and
-    ``native_layer_norm_backward`` on bf16 copies of gamma and beta."""
+    ``native_layer_norm_backward`` on bf16 copies of gamma and beta, and
+    K8's dgamma and dbeta held to the same bits on a second launch. K8's
+    case keeps its call (``_split``) to time its row kernel and its column
+    reduction apart at the end of the run."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.cuda import layer_norm as k7
@@ -434,10 +445,14 @@ def _layer_norm_train_cases(torch, timer, gen, rows, feat, name):
         "ms": timer(lambda: k7.layer_norm(x, g, bt)),
         "plain_ms": timer(lambda: k7.layer_norm_plain(x, g, bt)),
         "library_ms": timer(lambda: TF.layer_norm(x, (feat,), gl, bl)),
-        "bound_ms": bound, "bound_by": by}
+        "bound_ms": bound, "bound_by": by, "kernel_plan": k7.kernel_plan(x)}
+    fwd["share_of_bound"] = bound / fwd["ms"]
     got = k7.layer_norm_bwd(x, g, dy)
     want = k7.layer_norm_bwd_plain(x, g, dy)
     err = max(_bf16_err(a, w) for a, w in zip(got, want))
+    again = k7.layer_norm_bwd(x, g, dy)
+    _require(all(torch.equal(a, b) for a, b in zip(got, again)),
+             f"K8 gives the same bits twice at {name}")
     # x and dy read, dx written, gamma read, dgamma and dbeta written
     bound, by = _bound(rows * feat * 2 * 3 + 3 * feat * 4, rows * feat * 20,
                        H100_FP32_FLOPS)
@@ -448,8 +463,41 @@ def _layer_norm_train_cases(torch, timer, gen, rows, feat, name):
         "plain_ms": timer(lambda: k7.layer_norm_bwd_plain(x, g, dy)),
         "library_ms": timer(lambda: torch.ops.aten.native_layer_norm_backward(
             dy, x, [feat], mean, rstd, gl, bl, [True, True, True])),
-        "bound_ms": bound, "bound_by": by}
+        "bound_ms": bound, "bound_by": by,
+        "kernel_plan": k7.kernel_plan(x, dy)}
+    bwd["share_of_bound"] = bound / bwd["ms"]
+    # timed apart at the end of the run (the profiler stays out of the
+    # phases' timings)
+    bwd["_split"] = lambda: k7.layer_norm_bwd(x, g, dy)
     return fwd, bwd
+
+
+def _k8_launches_apart(torch, timer, fn, iters=20):
+    """K8's two launches apart: device ms of its row kernel (dx, and a
+    workspace row of dgamma/dbeta partials a CTA) and of its column
+    reduction, from ``torch.profiler``'s kernel names over ``iters`` calls
+    of ``fn`` (L2 flushed before each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        key = ("row_kernel_ms" if "ln_bwd_rows" in e.key
+               or "ln_bwd_general" in e.key else
+               "reduce_ms" if "ln_bwd_reduce" in e.key else None)
+        if key is not None:
+            total = getattr(e, "device_time_total", None)
+            if total is None:
+                total = getattr(e, "cuda_time_total", 0)
+            out[key] = total / e.count / 1e3
+    _require(len(out) == 2 and all(v > 0 for v in out.values()),
+             f"the profiler times K8's two launches ({out})")
+    return out
 
 
 def training_kernel_phase(torch, timer):
@@ -457,7 +505,8 @@ def training_kernel_phase(torch, timer):
     versions at GPT-2 124M's train-step shapes (batch 24 x 1024: 24576
     rows, 12 heads of 64), bf16, plus one small packed-attention case with
     sq > sk and a bias that masks a row (zero output and gradients); K7
-    and K8 also at GPT-3 Large's (16384 rows of 1536)."""
+    and K8 also at GPT-3 Large's (16384 rows of 1536) and at 2048 rows of
+    5120 (wider than 4096: the general kernels)."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.cuda import flash_attention as k1
@@ -578,9 +627,11 @@ def training_kernel_phase(torch, timer):
         del ql, kl, vl, lib_out
 
     # GPT-2 124M's train shape, and GPT-3 Large's (batch 8 x 2048, width
-    # 1536): 49 launches each a step on its path
+    # 1536): 49 launches each a step on its path; width 5120 (above 4096,
+    # C5: the general kernels) at 2048 rows
     for rows, feat, name in ((24 * 1024, 768, "rows=24576"),
-                             (8 * 2048, 1536, "rows=16384x1536")):
+                             (8 * 2048, 1536, "rows=16384x1536"),
+                             (2048, 5120, "rows=2048x5120")):
         f, b = _layer_norm_train_cases(torch, timer, gen, rows, feat, name)
         ln_fwd.append(f)
         ln_bwd.append(b)
@@ -1884,25 +1935,42 @@ def tensor_core_sass(path):
 _PTXAS_KERNELS = _TC_KERNELS + ("fwd_wide_kernel", "dq_wide_kernel",
                                 "dkv_wide_kernel", "cached_fwd_kernel",
                                 "cached_split_kernel", "cached_merge_kernel")
+#: K7's and K8's kernels (row kernels <type, accesses a lane, vectors>,
+#: general kernels <type, vectors>, K8's reduction <gamma's type>)
+_LN_KERNELS = ("ln_fwd_rows", "ln_bwd_rows", "ln_fwd_general",
+               "ln_bwd_general", "ln_bwd_reduce")
 
 
-def ptxas_report(log):
+def _ln_on_paths(name):
+    """K7/K8 instantiations the paths run: bf16 x on 16-byte vectors, 3
+    (width 768) or 6 (1536) a lane in the row kernels, the general
+    kernels (K7 at decode, width 5120), and the reduction into fp32
+    gamma."""
+    return "ln_bwd_reduceIf" in name or "bfloat16" in name and (
+        "Li3ELb1E" in name or "Li6ELb1E" in name
+        or "generalI13__nv_bfloat16Lb1E" in name)
+
+
+def ptxas_report(log, kernels=_PTXAS_KERNELS,
+                 keep=lambda name: "bfloat16" in name):
     """``{kernel<type,widths,switches>: [registers, spill store bytes]}``
-    of the bf16 instantiations of the attention kernels, from the build's
-    ``-Xptxas -v`` report."""
+    of the ``kernels`` instantiations that ``keep`` takes (the bf16
+    attention kernels by default), from the build's ``-Xptxas -v``
+    report."""
     import re
 
     out, cur, spill = {}, None, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            kern = next((k for k in _PTXAS_KERNELS if k in name), None)
+            kern = next((k for k in kernels if k in name), None)
             cur = None
-            if kern is not None and "bfloat16" in name:
+            if kern is not None and keep(name):
                 args = name.split(kern, 1)[1]
                 ints = re.findall(r"Li(\d+)E", args)
                 flags = re.findall(r"Lb([01])E", args)
-                cur = f"{kern}<bf16,{','.join(ints + flags)}>"
+                dt = "bf16" if "bfloat16" in name else "fp32"
+                cur = f"{kern}<{','.join([dt] + ints + flags)}>"
         elif cur is not None and "spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif cur is not None and "registers" in line and "Used" in line:
@@ -1936,6 +2004,11 @@ def main():
     ptxas = ptxas_report(build_info().get("log", ""))
     print(f"ptxas [registers, spill bytes] of the bf16 attention kernels: "
           f"{json.dumps(ptxas)}")
+    ptxas_ln = ptxas_report(build_info().get("log", ""), _LN_KERNELS,
+                            _ln_on_paths)
+    print(f"ptxas [registers, spill bytes] of the K7/K8 kernels on the "
+          f"paths (<type, accesses a lane, 16-byte vectors>): "
+          f"{json.dumps(ptxas_ln)}")
     timer = _Timer(torch)
     # bring the clocks up before the first timing: half a second of work
     t0 = time.perf_counter()
@@ -1960,7 +2033,10 @@ def main():
         route = (f" [{c['route']}, {c['tflops']:.1f} TFLOP/s, "
                  f"{100 * c['share_of_bound']:.1f} % of bound]"
                  if "tflops" in c else
-                 f" [{c['route']}]" if "route" in c else "")
+                 f" [{c['route']}]" if "route" in c else
+                 f" [{c['kernel_plan']['kernel']}, "
+                 f"{100 * c['share_of_bound']:.1f} % of bound]"
+                 if "kernel_plan" in c else "")
         print(f"kernel {c['case']}: {c['ms']:.4f} ms (plain "
               f"{c['plain_ms']:.4f}, library {lib}, bound "
               f"{c['bound_ms']:.4f} by {c['bound_by']}) err "
@@ -2049,6 +2125,10 @@ def main():
     print(f"gpt3_large vs plain: {json.dumps(large_plain)}")
     small_d96 = small_d96_reference(torch, np)
     print(f"small d96 reference: {json.dumps(small_d96)}")
+    for c in k8_cases:
+        c.update(_k8_launches_apart(torch, timer, c.pop("_split")))
+    print("K8's launches apart (torch.profiler, device ms): " + json.dumps(
+        {c["case"]: [c["row_kernel_ms"], c["reduce_ms"]] for c in k8_cases}))
 
     def entry(name, source, replaces, cases, main_case, launches):
         top = next(c for c in cases if c["case"] == main_case)
@@ -2162,6 +2242,15 @@ def main():
     kernels[5]["witness_k2_k3"] = next(
         c["witness_k2_k3"] for c in k6_cases if "witness_k2_k3" in c)
     kernels[4]["kernel_route"] = routes
+    # K7/K8: the library's kernel for each width (cases' kernel_plan) and
+    # the registers and spills of the instantiations on the paths
+    kernels[6]["ptxas_bf16"] = {n: r for n, r in ptxas_ln.items()
+                                if "ln_fwd" in n}
+    kernels[7]["ptxas_bf16"] = {n: r for n, r in ptxas_ln.items()
+                                if "ln_bwd" in n}
+    for k in kernels[6:8]:
+        k["kernel_route"] = {c["case"]: c["kernel_plan"]["kernel"]
+                             for c in k["cases"]}
     kernels[4]["runs"] = ("K1's fwd_tc_kernel (bf16, fp16) or fwd_kernel "
                           "(fp32), csrc/flash_attention.cu")
     # with in-kernel dropout (p = 0.1): time, dropout-0 time on the same

@@ -53,6 +53,9 @@ _SIGNATURES = {
     # x_dtype, w_dtype, stream
     "ptt_layer_norm_bwd": [p, p, p, p, p, p, p, i32, i32, i32, f32, i32, i32,
                            p],
+    # x, y or dx, dy (null for K7), rows, features, x_dtype, bwd, out:
+    # kernel kind, accesses a lane, CTAs
+    "ptt_layer_norm_plan": [p, p, p, i32, i32, i32, i32, p],
     # b, sq, sk, h, d, dtype, out: route, key parts, workspace floats
     "ptt_flash_attention_cached_plan": [i32] * 6 + [p] * 3,
     # q, k, v, q_pos, kv_len, out, split workspace, its floats, out: the

@@ -12,21 +12,21 @@ see, so on a CUDA tensor they raise when asked to record a gradient.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ._build import check, dtype_code, library, needs_grad, stream_of
 
 __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_bwd",
-           "layer_norm_bwd_plain", "supports", "LANES"]
+           "layer_norm_bwd_plain", "supports", "kernel_plan", "LANES"]
 
 #: the JAX gate's lane width: the router sends a LayerNorm here only when
 #: its feature count is a multiple of it (``_pallas_ln_ok``)
 LANES = 128
-#: the kernels hold at most 16 values in each of their 256 threads
-MAX_FEATURES = 4096
-#: CTAs a streaming multiprocessor gets in K8 (each keeps fp32 partials of
-#: dgamma and dbeta for the rows it visits)
-_K8_CTAS_PER_SM = 4
+#: ``kernel_plan``'s names of the library's kernel kinds
+_KINDS = ("rows, 16-byte vectors", "rows, single elements",
+          "general, 16-byte vectors", "general, single elements")
 
 
 def supports(features):
@@ -76,9 +76,8 @@ def _check_cuda(x, gamma, what, *others):
         raise ValueError(f"gamma must be ({feat},), got {tuple(gamma.shape)}")
     if gamma.device != x.device:
         raise ValueError("x and gamma must be on one device")
-    if not 0 < feat <= MAX_FEATURES:
-        raise ValueError(f"{what} kernel takes 1..{MAX_FEATURES} features, "
-                         f"got {feat}")
+    if feat < 1:
+        raise ValueError(f"{what} kernel takes 1 feature or more, got {feat}")
     if not (x.is_contiguous() and gamma.is_contiguous()):
         raise ValueError(f"{what} kernel needs contiguous x and gamma")
     return feat, x.numel() // feat
@@ -119,8 +118,9 @@ def layer_norm_bwd(x, gamma, dy, eps=1e-5):
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)
     dbeta = torch.empty_like(gamma)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    parts = min(rows, _K8_CTAS_PER_SM * sms)
+    # the row kernel writes dx and one workspace row of dgamma/dbeta
+    # partials a CTA; a second launch sums them per column
+    parts = _plan(x, dx, dy, rows, feat)[2]
     partials = torch.empty((2, max(parts, 1), feat), dtype=torch.float32,
                            device=x.device)
     check(library().ptt_layer_norm_bwd(
@@ -130,6 +130,32 @@ def layer_norm_bwd(x, gamma, dy, eps=1e-5):
         stream_of(x)), "layer_norm_bwd")
     layer_norm_bwd.launches += 1
     return dx, dgamma, dbeta
+
+
+def _plan(x, out, dy, rows, feat):
+    """The library's ``(kind, accesses a lane, CTAs)`` for a K7 (``dy``
+    None) or K8 launch on these tensors."""
+    plan = (ctypes.c_int * 3)()
+    check(library().ptt_layer_norm_plan(
+        x.data_ptr(), out.data_ptr(), None if dy is None else dy.data_ptr(),
+        rows, feat, dtype_code(x.dtype), int(dy is not None),
+        ctypes.byref(plan)),
+        "layer_norm plan")
+    return tuple(plan)
+
+
+def kernel_plan(x, dy=None):
+    """How the library runs K7 (or K8, given ``dy``) on the CUDA tensor
+    ``x``: ``{"kernel", "accesses_per_lane", "ctas"}``. The row kernels
+    take one warp a row and hold a lane's columns as 16-byte vectors (single
+    elements where the width or a pointer does not allow vectors); wider
+    rows, and K7 on as many rows as the card has SMs or fewer, take the
+    general kernels (a CTA a row)."""
+    feat = x.shape[-1]
+    kind, accesses, ctas = _plan(x, torch.empty_like(x), dy,
+                                 x.numel() // feat, feat)
+    return {"kernel": _KINDS[kind], "accesses_per_lane": accesses,
+            "ctas": ctas}
 
 
 class _LayerNorm(torch.autograd.Function):

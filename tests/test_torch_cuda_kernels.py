@@ -23,7 +23,7 @@ the same bits twice. The one exception is K8's fp32 dgamma and dbeta:
 sums of one term a row, taken in another order than the plain version's,
 where each addition rounds by up to 2^-24 of the running sum, so they are
 held to 1e-4 · max(1, |ref|) + 1e-7 · rows (about 3e-4 apart at 24576 rows
-on an H100). K9-K11 at bf16 hold their fp32 loss and logsumexp to one bf16
+on an H100); summed in a fixed order, they must be the same bits twice. K9-K11 at bf16 hold their fp32 loss and logsumexp to one bf16
 step of the largest value (the tile products are exact products summed in
 fp32 in another order) and their bf16 gradients to one bf16 step.
 """
@@ -83,8 +83,17 @@ def _param_grad_tol(rows):
     return {"fp32_atol": 1e-7 * rows, "fp32_rtol": 1e-4}
 
 
+# rows not a multiple of a CTA's 8 warps; widths above 4096 (C5: GPT-NeoX
+# 20B's 6144 and GPT-3 175B's 12288 class) take the general kernels, and
+# above 24576 the general K8 sums its partials in device memory
+_LN_WIDE = [(1, 4224), (7, 4224), (1, 5120), (7, 5120), (1, 12288),
+            (7, 12288), (3, 25600)]
+
+
 @pytest.mark.parametrize("rows,feat", [(1, 768), (8, 768), (1000, 768),
-                                       (5, 128), (3, 4096), (7, 100)])
+                                       (5, 128), (3, 4096), (7, 100),
+                                       (7, 768), (9, 1536), (333, 1536),
+                                       (1000, 100), *_LN_WIDE])
 @pytest.mark.parametrize("xdt,wdt", [
     (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
     (torch.float16, torch.float16), (torch.bfloat16, torch.bfloat16)])
@@ -358,7 +367,8 @@ def test_packed_attention_autograd_matches_plain(dev):
 
 
 @pytest.mark.parametrize("rows,feat", [(1, 768), (7, 768), (24576, 768),
-                                       (300, 128), (5, 100)])
+                                       (300, 128), (5, 100), (1000, 768),
+                                       (9, 1536), *_LN_WIDE])
 @pytest.mark.parametrize("xdt,wdt", [
     (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
     (torch.float16, torch.float16)])
@@ -375,6 +385,50 @@ def test_layer_norm_bwd_kernel_matches_plain(dev, rows, feat, xdt, wdt):
     _assert_close(dx, want[0])
     _assert_close(dgamma, want[1], **_param_grad_tol(rows))
     _assert_close(dbeta, want[2], **_param_grad_tol(rows))
+
+
+@pytest.mark.parametrize("rows,feat,accesses", [(24576, 768, 3),
+                                                (16384, 1536, 6)])
+def test_layer_norm_bwd_gives_the_same_bits_twice(dev, rows, feat, accesses):
+    """K8 at the train shapes runs the row kernel on 16-byte vectors and
+    sums dgamma/dbeta in a fixed order: two launches, the same bits."""
+    g = torch.Generator(device="cpu").manual_seed(feat)
+    x = (torch.randn(rows, feat, generator=g) * 2).to(dev, torch.bfloat16)
+    gamma = (1 + 0.1 * torch.randn(feat, generator=g)).to(dev)
+    dy = torch.randn(rows, feat, generator=g).to(dev, torch.bfloat16)
+    plan = k7.kernel_plan(x, dy)
+    assert plan["kernel"] == "rows, 16-byte vectors"
+    assert plan["accesses_per_lane"] == accesses
+    first = k7.layer_norm_bwd(x, gamma, dy, 1e-5)
+    second = k7.layer_norm_bwd(x, gamma, dy, 1e-5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows,feat,kernel", [
+    (1000, 100, "rows, single elements"),
+    (9, 768, "general, single elements"),
+    (7, 5120, "general, single elements")])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+def test_layer_norm_kernels_read_a_view_at_an_odd_offset(dev, rows, feat,
+                                                         kernel, xdt):
+    """Contiguous views one element into their storage are not 16-byte
+    aligned: K7 and K8 read them one element an access."""
+    g = torch.Generator(device="cpu").manual_seed(rows * feat)
+    buf = (torch.randn(rows * feat + 1, generator=g) * 3 + 1).to(dev, xdt)
+    dbuf = torch.randn(rows * feat + 1, generator=g).to(dev, xdt)
+    x, dy = buf[1:].view(rows, feat), dbuf[1:].view(rows, feat)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    gamma = (1 + 0.1 * torch.randn(feat, generator=g)).to(dev)
+    beta = (0.1 * torch.randn(feat, generator=g)).to(dev)
+    assert k7.kernel_plan(x)["kernel"] == kernel
+    _assert_close(k7.layer_norm(x, gamma, beta, 1e-5),
+                  k7.layer_norm_plain(x, gamma, beta, 1e-5))
+    got = k7.layer_norm_bwd(x, gamma, dy, 1e-5)
+    want = k7.layer_norm_bwd_plain(x, gamma, dy, 1e-5)
+    _assert_close(got[0], want[0])
+    _assert_close(got[1], want[1], **_param_grad_tol(rows))
+    _assert_close(got[2], want[2], **_param_grad_tol(rows))
 
 
 def test_layer_norm_grad_on_the_card_equals_plain(dev):

@@ -8,6 +8,8 @@ reduction order); dgamma and dbeta are fp32 sums over every row, held to
 fp32 and round once to bf16, so they agree to one bf16 step:
 |Δ| <= 2^-7 · max(1, |y|).
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -78,10 +80,11 @@ def test_leading_dims_flatten_like_jax(no_persistent_compile_cache):
     np.testing.assert_allclose(got.numpy(), want, atol=FP32_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("feat", [256, 100])
+@pytest.mark.parametrize("feat", [256, 100, 5120])
 def test_router_matches_jax_layer_norm(feat, no_persistent_compile_cache):
     """The router sends a 128-multiple width to K7's wrapper and any other
-    width to the plain expression — both agree with the JAX router."""
+    width to the plain expression — both agree with the JAX router, whose
+    Pallas kernel takes widths above 4096 too (5120)."""
     import paddle_tpu as paddle
     from paddle_tpu.nn import functional as JF
 
@@ -112,10 +115,13 @@ def _close_sums(got, want):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("rows", [300, 7])   # not multiples of 256
-def test_k8_plain_matches_pallas_grads_fp32(rows, no_persistent_compile_cache):
-    x, g, b = _inputs(rows, 256, seed=4)
-    dy = np.random.RandomState(5).randn(rows, 256).astype(np.float32)
+# rows not multiples of 256; 5120 is wider than 4096 (C5)
+@pytest.mark.parametrize("rows,feat", [(300, 256), (7, 256), (7, 5120)],
+                         ids=["300", "7", "7-5120"])
+def test_k8_plain_matches_pallas_grads_fp32(rows, feat,
+                                            no_persistent_compile_cache):
+    x, g, b = _inputs(rows, feat, seed=4)
+    dy = np.random.RandomState(5).randn(rows, feat).astype(np.float32)
     want = _jax_grads(jnp.asarray(x), g, b, jnp.asarray(dy))
     got = k7.layer_norm_bwd(torch.from_numpy(x), torch.from_numpy(g),
                             torch.from_numpy(dy))
@@ -183,6 +189,14 @@ def test_layer_norm_module_defaults():
     x = torch.randn(3, 256)
     want = k7.layer_norm_plain(x, ln.weight, ln.bias)
     torch.testing.assert_close(ln(x).detach(), want.detach(), atol=0, rtol=0)
+
+
+def test_wrapper_sets_no_width_limit():
+    """K7 and K8 take every width of at least 1, as the Pallas kernel takes
+    any width the router sends it: the wrapper refuses none by a constant
+    (widths above the row kernels' registers go to the general kernels)."""
+    assert not hasattr(k7, "MAX_FEATURES")
+    assert "4096" not in inspect.getsource(k7)
 
 
 def test_wrapper_refuses_a_non_cuda_device():
