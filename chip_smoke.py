@@ -63,9 +63,12 @@
    versions at the train step's shape (24576 tokens, hidden 768, vocab
    50304, bf16) and at an odd shape (300 tokens, vocab 1000, hidden 128,
    bias, two ignored labels; bf16 and fp32): within one bf16 step of the
-   largest reference value for bf16, 5e-5 absolute for fp32. Beside them,
-   the chunked loop the flag replaces, forward and backward ms and peak
-   memory.
+   largest reference value for bf16, 5e-5 absolute for fp32. Each K10/K11
+   case gives the library's plan for it (``kernel_plan``: route, CTAs of a
+   cluster, slice columns) and its share of the bound; at the train shape
+   K10 and K11 must give the same bits (dx, dW, db) on a second launch.
+   Beside them, the chunked loop the flag replaces, forward and backward
+   ms and peak memory, and K10 + K11 against its backward.
 7. Recipe phase (the main path of the pretraining slice): GPT-3 Small's
    recipe (Brown et al. 2020, Table 2.1, Appendix B) on GPT-2 124M built in
    fp32 from ``torch.manual_seed(0)``: ``amp.decorate(O2, bf16)``,
@@ -94,8 +97,9 @@
    its bound. Beside them SDPA's forward and backward at the train shape.
    Right after the build, ``cuobjdump -sass`` of the library must show
    tensor-core instructions (HMMA, or HGMMA) in every bf16 K1, K2, K3,
-   K4-prefill and K6 tensor-core function, and ptxas's registers and
-   spills of the bf16 attention kernels are printed.
+   K4-prefill and K6 tensor-core function and HGMMA (wgmma) in every bf16
+   K10/K11 cluster kernel, and ptxas's registers and spills of the bf16
+   attention and K10/K11 cluster kernels are printed.
    K7 and K8 at GPT-3 Large's LayerNorm shape (16384 rows of 1536, bf16 x,
    fp32 gamma and beta) and at 2048 rows of 5120 (wider than 4096: the
    general kernels) within one bf16 step, beside ``F.layer_norm`` and
@@ -144,7 +148,8 @@
     bit for bit.
 12. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
     K1-K4 and K6 with their bf16 HMMA counts and ptxas registers and
-    spills, K4 with its key parts at decode, K6 with the K2 + K3 witness,
+    spills, K10/K11 with their plan a case and their bf16 cluster kernels'
+    HGMMA counts and registers and spills, K4 with its key parts at decode, K6 with the K2 + K3 witness,
     K1-K3 and K5/K6 with a ``dropout`` entry), then the result line last.
 
 Any failure raises and exits non-zero; nothing is printed as a result then.
@@ -990,16 +995,18 @@ def fused_ce_kernel_phase(torch, timer):
             "plain_ms": timer(lambda: k9.ce_forward_plain(x, w, b, y), 5),
             "library_ms": None, "bound_ms": bound, "bound_by": by})
         args = (x, w, b, y, g, lse)
-        err = _max_rel_err(k9.ce_backward_dx(*args),
-                           k9.ce_backward_dx_plain(*args), dt)
+        dx = k9.ce_backward_dx(*args)
+        err = _max_rel_err(dx, k9.ce_backward_dx_plain(*args), dt)
         # x, w, labels, g, lse read; dx written; the logits recomputed
         bound, by = _bound(io_b + 2 * n * 4 + n * h * esz, 4 * n * v * h,
                            peak)
+        ms = timer(lambda: k9.ce_backward_dx(*args))
         dx_cases.append({
-            "case": name, "shape": shape, "max_abs_err": err,
-            "ms": timer(lambda: k9.ce_backward_dx(*args)),
+            "case": name, "shape": shape, "max_abs_err": err, "ms": ms,
             "plain_ms": timer(lambda: k9.ce_backward_dx_plain(*args), 5),
-            "library_ms": None, "bound_ms": bound, "bound_by": by})
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "kernel_plan": _ce_plan(k9, n, v, h, tdt, 0),
+            "share_of_bound": bound / ms})
         dw, db = k9.ce_backward_dw(*args)
         want_dw, want_db = k9.ce_backward_dw_plain(*args)
         err = _max_rel_err(dw, want_dw, dt)
@@ -1007,16 +1014,39 @@ def fused_ce_kernel_phase(torch, timer):
             err = max(err, _max_rel_err(db, want_db, dt))
         bound, by = _bound(io_b + 2 * n * 4 + v * h * esz
                            + (v * 4 if use_bias else 0), 4 * n * v * h, peak)
+        ms = timer(lambda: k9.ce_backward_dw(*args))
         dw_cases.append({
-            "case": name, "shape": shape, "max_abs_err": err,
-            "ms": timer(lambda: k9.ce_backward_dw(*args)),
+            "case": name, "shape": shape, "max_abs_err": err, "ms": ms,
             "plain_ms": timer(lambda: k9.ce_backward_dw_plain(*args), 5),
-            "library_ms": None, "bound_ms": bound, "bound_by": by})
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "kernel_plan": _ce_plan(k9, n, v, h, tdt, 1),
+            "share_of_bound": bound / ms})
+        if name == "train":
+            # no atomics, every sum in a fixed order: the same bits again
+            dx2 = k9.ce_backward_dx(*args)
+            dw2, db2 = k9.ce_backward_dw(*args)
+            _require(torch.equal(dx, dx2) and torch.equal(dw, dw2)
+                     and (db is None or torch.equal(db, db2)),
+                     "K10 and K11 give the same bits on a second launch")
+            dx_cases[-1]["same_bits_twice"] = True
+            dw_cases[-1]["same_bits_twice"] = True
+            del dx2, dw2, db2
         if name == "train":
             chunked = _chunked_loop(torch, timer, fused, x, w, y)
-        del x, w, b, y, g, loss, lse, args, dw, db, want, want_dw, want_db
+        del x, w, b, y, g, loss, lse, args, dx, dw, db, want, want_dw, want_db
         torch.cuda.empty_cache()
     return fwd, dx_cases, dw_cases, chunked
+
+
+def _ce_plan(k9, n, v, h, dtype, mode):
+    """The library's K10 (mode 0) / K11 (mode 1) plan for a case, with a
+    one-line name: route, CTAs of a cluster, slice columns."""
+    plan = k9.library_plan(n, v, h, dtype, mode)
+    _require(plan == k9.kernel_plan(n, v, h, dtype, mode),
+             f"the library's K10/K11 plan is kernel_plan's ({plan})")
+    plan["kernel"] = (f"{plan['route']} C={plan['cluster']} slice "
+                      f"{plan['slice']}")
+    return plan
 
 
 def _chunked_loop(torch, timer, fused, x, w, y):
@@ -1880,10 +1910,12 @@ def small_d96_reference(torch, np):
             "max_abs_diff": err}
 
 
-#: the tensor-core kernels whose SASS must hold HMMA instructions: K1
-#: (which also runs K5), K2, K3, K4's prefill, K6
+#: the tensor-core kernels whose SASS must hold HMMA (or HGMMA)
+#: instructions: K1 (which also runs K5), K2, K3, K4's prefill, K6, and
+#: K10/K11's cluster kernel (wgmma: HGMMA)
 _TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
-               "cached_tc_kernel", "packed_bwd_tc_kernel")
+               "cached_tc_kernel", "packed_bwd_tc_kernel",
+               "ce_bwd_cluster_kernel")
 
 
 def _tc_instantiations():
@@ -1897,9 +1929,12 @@ def _tc_instantiations():
 
     widths = sum(1 for w in k1.FLASH_WIDTHS
                  if k1.kernel_route(torch.bfloat16, w) == "mma.sync")
+    from paddle_tpu_torch.ops.cuda import fused_ce as k9
+
     return {"fwd_tc_kernel": 2 * widths, "dq_tc_kernel": 2 * widths,
             "dkv_tc_kernel": 2 * widths, "cached_tc_kernel": widths,
-            "packed_bwd_tc_kernel": 2 * len(k5.HEAD_DIMS)}
+            "packed_bwd_tc_kernel": 2 * len(k5.HEAD_DIMS),
+            "ce_bwd_cluster_kernel": len(k9.SLICE_CHUNKS)}
 
 
 def tensor_core_sass(path):
@@ -1920,7 +1955,9 @@ def tensor_core_sass(path):
                    and "bfloat16" in name else None)
             if cur is not None:
                 counts[cur] = 0
-        elif cur is not None and ("HMMA" in line or "HGMMA" in line):
+        elif cur is not None and (
+                "HGMMA" in line
+                or "HMMA" in line and "ce_bwd_cluster_kernel" not in cur):
             counts[cur] += 1
     for kern, want in _tc_instantiations().items():
         found = {n: c for n, c in counts.items() if kern in n}
@@ -1999,11 +2036,11 @@ def main():
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s (nvcc {build_info()['seconds']:.1f} s)")
     hmma = tensor_core_sass(build_info()["path"])
-    print(f"tensor-core SASS (HMMA/HGMMA a bf16 K1/K2/K3/K4/K6 function): "
-          f"{json.dumps(hmma)}")
+    print(f"tensor-core SASS (HMMA/HGMMA a bf16 K1/K2/K3/K4/K6 function, "
+          f"HGMMA a bf16 K10/K11 cluster function): {json.dumps(hmma)}")
     ptxas = ptxas_report(build_info().get("log", ""))
-    print(f"ptxas [registers, spill bytes] of the bf16 attention kernels: "
-          f"{json.dumps(ptxas)}")
+    print(f"ptxas [registers, spill bytes] of the bf16 attention and "
+          f"K10/K11 cluster kernels: {json.dumps(ptxas)}")
     ptxas_ln = ptxas_report(build_info().get("log", ""), _LN_KERNELS,
                             _ln_on_paths)
     print(f"ptxas [registers, spill bytes] of the K7/K8 kernels on the "
@@ -2049,6 +2086,10 @@ def main():
               f"{c['max_abs_err']:.3g}{rel}")
     print(f"philox: {json.dumps(philox_check)}")
     print(f"chunked loss loop at the train shape: {json.dumps(chunked)}")
+    k10_k11 = sum(next(c["ms"] for c in cases if c["case"] == "train")
+                  for cases in (k10_cases, k11_cases))
+    print(f"K10 + K11 at the train shape: {k10_k11:.4f} ms; the chunked "
+          f"loop's backward: {chunked['backward_ms']:.4f} ms")
     print(f"build seconds a source: {json.dumps(build_info().get('per_source', {}))}")
     serve = serving_phase(torch, np)
     print(f"serving: {json.dumps(serve)}")
@@ -2263,6 +2304,15 @@ def main():
                                 bound_by=k["bound_by"],
                                 launches=drop["dropout_launches"][k["name"]])
     kernels[4]["dropout"]["philox"] = philox_check
+    # K10/K11: the library's plan for each case, the bf16 cluster
+    # instantiations' HGMMA counts and registers and spills
+    for k in kernels[-2:]:
+        k["kernel_route"] = {c["case"]: c["kernel_plan"]["kernel"]
+                             for c in k["cases"]}
+        k["hgmma_bf16"] = {n: c for n, c in hmma.items()
+                           if "ce_bwd_cluster_kernel" in n}
+        k["ptxas_bf16"] = {n: r for n, r in ptxas.items()
+                           if "ce_bwd_cluster_kernel" in n}
     # the loop the flag replaces (cuBLAS products), at the train shape
     kernels[-3]["chunked_loop_ms"] = chunked["forward_ms"]
     kernels[-2]["chunked_loop_ms"] = chunked["backward_ms"]

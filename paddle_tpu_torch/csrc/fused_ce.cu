@@ -19,7 +19,40 @@
 // 989 TFLOP/s) and each backward kernel twice that (recompute + product);
 // x (38 MB) and w (77 MB) are read far below the byte bound.
 //
-// Design: every CTA (256 threads, 8 warps) holds one resident block R of
+// K10 and K11 at bf16/fp16 (ce_bwd_cluster_kernel, one template for both
+// modes; mode 0 = K10: R = x, T = w; mode 1 = K11: R = w, T = x): a
+// thread-block cluster of C CTAs owns 64 R rows, and each CTA a slice of
+// the hidden width (128, 256 or 384 columns; C = hidden / slice <= 8). So
+// the streamed operand is read once per 64 R rows, and the 64 x slice fp32
+// output accumulator fits two warpgroups' registers. A producer warpgroup
+// (one working warp, its registers given to the consumers) loads the CTA's
+// R slice once and streams its slice of each 64-row T block with TMA (64 x
+// 64-element tiles, 128-byte swizzle) into a ring that fills the rest of
+// shared memory (12-19 tiles), guarded by full and empty mbarriers, with
+// the T rows' per-token terms beside them. Two consumer warpgroups, per T
+// block j:
+//  1. the CTA's S partial (64 R x 64 T over the slice), computed during
+//     block j - 1 with wgmma m64n32k16, each warpgroup 32 of the T rows;
+//  2. with C > 1 every CTA has stored its partial into each partner's
+//     receive slot (st.async, completing on the partner's mbarrier) and
+//     sums the C partials in cluster-rank order, so all hold the same S;
+//  3. dl = (exp(s + b - lse) - onehot(y)) * g in fp32, masked at the edges,
+//     row sums for K11's db in a fixed order, rounded to the operand type
+//     into a swizzled shared tile (two buffers);
+//  4. out_slice += dl . T_slice with wgmma m64n64k16, T read as the
+//     MN-major operand from the ring, each warpgroup half of the slice,
+//     in flight together with the next block's S.
+// The epilogue stages the output through shared memory for coalesced
+// rows; cluster rank 0 writes db. No atomics, every sum in a fixed order:
+// the bits repeat from launch to launch. ptt_fused_ce_plan names the route
+// of every width and type (the Python copy: ops/cuda/fused_ce.py::
+// kernel_plan). What bounds it on the H100, measured: the T stream from L2
+// (each 64 R rows meet all of T: 29.7 GB a call at the train shape; TMA
+// delivers about 2.4 TB/s in this pattern) and, with C > 1, the exchange of
+// the 16 KB partials between the cluster's CTAs.
+//
+// K9, and the other routes of K10/K11: every CTA (256 threads, 8 warps)
+// holds one resident block R of
 // 32 rows x H in shared memory and streams blocks T of 32 rows x H through
 // one or two shared buffers (cp.async; two when they fit). Each step forms
 // the 32 x 32 tile S = R . T^T with warp-level tensor-core products
@@ -32,25 +65,25 @@
 //  - K9: R = x tokens, T = w vocab blocks. 8 threads a token row keep the
 //    running max, sum and picked logit with shuffles; loss and lse are
 //    written once a row.
-//  - K10: R = x tokens, T = w vocab blocks. dl (32 tokens x 32 vocab) goes
-//    to shared memory in the operand type, then dx[32 x H] += dl . T, the
-//    32 x H fp32 accumulator spread over the 8 warps' registers (H/8
-//    values a thread).
-//  - K11: R = w vocab rows, T = x token blocks: the same loop on the
+//  - K10 (fp32): R = x tokens, T = w vocab blocks. dl (32 tokens x 32
+//    vocab) goes to shared memory, then dx[32 x H] += dl . T, the 32 x H
+//    fp32 accumulator spread over the 8 warps' registers (H/8 values a
+//    thread).
+//  - K11 (fp32): R = w vocab rows, T = x token blocks: the same loop on the
 //    transposed tile (dl^T), dw[32 x H] += dl^T . T, and db from the fp32
 //    dl summed in a fixed order.
 // Each CTA owns its output rows, so there are no atomics and every result
 // is deterministic; the TPU kernels' sequential-grid scratch becomes the
 // CTA's loop over T blocks.
-// Widths whose R block and T buffers do not fit a CTA's shared memory (above
-// 1024; fp32 above 768 in the backward) stream the hidden width instead:
+// Widths whose R block and T buffers do not fit a CTA's shared memory (K9
+// above 1024; the fp32 backward above 768; 2-byte backward widths with no
+// cluster split, such as 1408 or 4096) stream the hidden width instead:
 // each T block's S is accumulated over 256-column chunks of R and T staged
 // in turn (the same per-warp split, summed in a fixed order, so the bits
 // repeat), and the backward splits its output columns over a second grid
 // dimension in pieces of up to 768 (a piece's 32 x piece accumulator is
 // what one CTA's registers hold): each piece's CTA recomputes S and dl and
 // multiplies dl by the staged T columns of its piece.
-// bf16 and fp16 take the tensor cores (mma.sync m16n8k16 of either type).
 // fp32 operands (the CPU-parity model, and a mixed x/w pair that the
 // wrapper widens) run the same loops with plain FMA in place of mma.sync;
 // round_dl rounds dl to bf16 or fp16 there when the reference casts dl to
@@ -60,6 +93,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace ptt {
@@ -631,6 +665,432 @@ __global__ void __launch_bounds__(kThreads)
     db[rr] = db_acc;
 }
 
+// ---------------------------------------------------------------------------
+// K10 / K11 at bf16 and fp16: the cluster kernel
+// ---------------------------------------------------------------------------
+constexpr int kCRows = 64;            // R rows a cluster, rows a T block
+constexpr int kCThreads = 384;        // two consumer warpgroups, a producer warpgroup
+constexpr int kTile = 64 * 64 * 2;    // bytes of a 64 x 64 two-byte TMA tile
+constexpr int kSpStride = 72;         // fp32 row stride of a received S partial
+constexpr int kRxSlot = kCRows * kSpStride * 4;  // bytes of a received partial
+constexpr int kMaxCluster = 8;        // portable cluster size
+constexpr int kTermBufs = 4;          // T blocks of per-row terms in flight
+
+// Shared memory of a CTA with NC 64-column chunks a slice in a cluster of C,
+// from a 1024-byte aligned base: R slice (NC tiles), dl (2 tiles), T-row
+// terms (4 blocks of 64 x {lse, g, label, bias}), db exchange, mbarriers,
+// the S partials received from the C - 1 partners, then the ring: as many T
+// tiles as the rest holds (17 at NC 6 and C 2, 12 at C 4), so the loads run
+// more than a block ahead of the products.
+struct ClusterLayout {
+  int dl, terms, db, bars, rx, ring, slots;
+  __host__ __device__ constexpr ClusterLayout(int nc, int c)
+      : dl(nc * kTile),
+        terms(dl + 2 * kTile),
+        db(terms + kTermBufs * kCRows * 16),
+        bars(db + 2 * kCRows * 4),
+        rx(bars + 512),
+        ring((rx + (c - 1) * kRxSlot + 1023) / 1024 * 1024),
+        slots((static_cast<int>(kMaxSmem) - 1024 - ring) / kTile) {}
+  // dynamic shared memory to ask for (+ 1024 to align the base)
+  __host__ __device__ constexpr int bytes() const { return ring + slots * kTile + 1024; }
+};
+
+// the cluster kernel takes (NC, C) when its ring holds two T blocks
+__host__ __device__ constexpr bool cluster_fits(int nc, int c) {
+  return c >= 1 && c <= kMaxCluster && ClusterLayout(nc, c).slots >= 2 * nc;
+}
+
+// The ring position of a T block's first tile: its slot and how often the
+// ring had wrapped before it (the parity of its tiles' mbarrier phases),
+// advanced a block at a time without a division.
+struct RingPos {
+  int slot, wraps;
+  __device__ __forceinline__ void tile(int c, int slots, int& s, unsigned& parity) const {
+    s = slot + c;
+    parity = wraps & 1;
+    if (s >= slots) {
+      s -= slots;
+      parity ^= 1;
+    }
+  }
+  __device__ __forceinline__ RingPos next(int nc, int slots) const {
+    return slot + nc >= slots ? RingPos{slot + nc - slots, wraps + 1} : RingPos{slot + nc, wraps};
+  }
+};
+
+// Start (and commit) S of the T block at ring position pos: the warpgroup's
+// 32 T rows (wg) against the CTA's 64 R rows over the slice, into s; each
+// ring tile is waited for before its products. The caller has fenced s and
+// run wgmma.fence.
+template <typename T, int NC>
+__device__ __forceinline__ void s_start(float (&s)[16], const unsigned char* Rs,
+                                        const unsigned char* ring, uint64_t* full, int slots,
+                                        RingPos pos, int wg) {
+  using namespace hopper;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    int slot;
+    unsigned parity;
+    pos.tile(c, slots, slot, parity);
+    mbar_wait(full + slot, parity);
+    const unsigned char* tile = ring + slot * kTile;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n32k16<T, 0>(s, sw128_desc(Rs + c * kTile + kk * 32),
+                            sw128_desc(tile + wg * 4096 + kk * 32), (c | kk) != 0);
+  }
+  wg_commit();
+}
+
+// s = the sum of the cluster's partials at the thread's positions, in rank
+// order (the thread's own from its registers, the partners' from the
+// receive slots, slot q - (q > rank) for rank q): the same bits in every CTA
+__device__ __forceinline__ void s_gather(float (&s)[16], const float* rx, int ra, int c0,
+                                         int csize, int rank) {
+  float tot[16];
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q) {
+    if (q >= csize) break;
+    float part[16];
+    if (q == rank) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) part[e] = s[e];
+    } else {
+      const float* sp = rx + (q - (q > rank)) * (kRxSlot / 4);
+#pragma unroll
+      for (int jt = 0; jt < 4; ++jt) {
+        const int col = c0 + jt * 8;
+        const float2 v0 = *reinterpret_cast<const float2*>(sp + ra * kSpStride + col);
+        const float2 v1 = *reinterpret_cast<const float2*>(sp + (ra + 8) * kSpStride + col);
+        part[4 * jt] = v0.x;
+        part[4 * jt + 1] = v0.y;
+        part[4 * jt + 2] = v1.x;
+        part[4 * jt + 3] = v1.y;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) tot[e] = q == 0 ? part[e] : tot[e] + part[e];
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) s[e] = tot[e];
+}
+
+// mode 0 (K10): R = x, T = w, out = dx [n_tok, h].
+// mode 1 (K11): R = w, T = x, out = dw [vocab, h], db [vocab] (or null).
+// rmap / tmap: tensor maps of R and T ([rows, h], 64 x 64 boxes, 128-byte
+// swizzle). Cluster CTA `rank` owns hidden columns [rank, rank + 1) * 64 NC
+// of the cluster's 64 R rows.
+// The producer warpgroup (one working warp) runs ahead through the ring,
+// throttled only by free tiles and term buffers. The consumers' loop is
+// software-pipelined: S of block j + 1 and block j's output product are in
+// flight together; S(j + 1) is pushed to the partners while the product
+// runs, and block j's tiles are released when it is done. With C > 1 every
+// CTA stores its S partial into each partner's receive slot with st.async,
+// which completes on the partner's `rx` mbarrier; a partner, having read
+// it, arrives on the sender's `sfree` before the next partial is sent. The
+// cluster barrier runs only at the start (barriers initialised) and at the
+// end (no CTA leaves while a partner may still arrive on it).
+template <typename T, int NC>
+__global__ void __launch_bounds__(kCThreads, 1)
+    ce_bwd_cluster_kernel(const __grid_constant__ CUtensorMap rmap,
+                          const __grid_constant__ CUtensorMap tmap,
+                          const float* __restrict__ bias, const int* __restrict__ label,
+                          const float* __restrict__ g, const float* __restrict__ lse,
+                          T* __restrict__ out, float* __restrict__ db, int n_tok, int vocab,
+                          int h, int mode, int csize) {
+  using namespace hopper;
+  constexpr int kHalf = NC / 2;  // output chunks a consumer warpgroup
+  const ClusterLayout L(NC, csize);
+  const int slots = L.slots;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* rfull = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* full = rfull + 1;             // [slots]: ring tile landed
+  uint64_t* empty = full + slots;         // [slots]: both warpgroups done with it
+  uint64_t* tfull = empty + slots;        // [4]: T-row terms written
+  uint64_t* tempty = tfull + kTermBufs;   // [4]: T-row terms read
+  uint64_t* rx = tempty + kTermBufs;      // the partners' partials received
+  uint64_t* sfree = rx + 1;               // the partners read this CTA's partial
+  float4* terms_base = reinterpret_cast<float4*>(sm + L.terms);
+  const bool dx_mode = mode == 0;
+  const int r_total = dx_mode ? n_tok : vocab;
+  const int t_total = dx_mode ? vocab : n_tok;
+  const int rank = static_cast<int>(cluster_rank());
+  const int r0 = static_cast<int>(cluster_id()) * kCRows;
+  const int col0 = rank * NC * 64;
+  // T blocks, rounded up to even: the consumers take blocks in pairs and
+  // always start the next block's S, so no wgmma is under a branch; the
+  // blocks past the tensor are TMA's zero fill, their dl masked to 0
+  const int nt = (t_total + 2 * kCRows - 1) / (2 * kCRows) * 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(rfull, 1);
+    for (int i = 0; i < slots; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2);
+    }
+    for (int i = 0; i < kTermBufs; ++i) {
+      mbar_init(tfull + i, 32);
+      mbar_init(tempty + i, 1);
+    }
+    mbar_init(rx, 1);
+    mbar_init(sfree, csize > 1 ? csize - 1 : 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (csize > 1) cluster_sync();  // every CTA's barriers initialised
+
+  if (warp >= 8) {
+    // ---- producer warpgroup: TMA and the T rows' terms (warp 8) ----
+    setmaxnreg_dec<40>();
+    if (warp == 8) {
+      if (lane == 0) {
+        mbar_expect_tx(rfull, NC * kTile);
+        for (int c = 0; c < NC; ++c)
+          tma_load_2d(sm + c * kTile, &rmap, rfull, col0 + 64 * c, r0);
+      }
+      int slot = 0, wraps = 0;  // the next tile's ring slot
+      for (int j = 0; j <= nt; ++j) {  // block nt: S only
+        for (int c = 0; c < NC; ++c) {
+          if (wraps > 0) mbar_wait(empty + slot, (wraps - 1) & 1);
+          if (lane == 0) {
+            mbar_expect_tx(full + slot, kTile);
+            tma_load_2d(sm + L.ring + slot * kTile, &tmap, full + slot, col0 + 64 * c,
+                        j * kCRows);
+          }
+          if (++slot == slots) {
+            slot = 0;
+            ++wraps;
+          }
+        }
+        if (j == nt) break;
+        // terms of T rows j * 64 + i: lse, g, label (K11's tokens), bias
+        // (K10's vocab)
+        const int tb = j % kTermBufs;
+        if (j >= kTermBufs) mbar_wait(tempty + tb, (j / kTermBufs - 1) & 1);
+        for (int i = lane; i < kCRows; i += 32) {
+          const int t = j * kCRows + i;
+          const bool ok = t < t_total;
+          float4 v = make_float4(0.f, 0.f, __int_as_float(-1), 0.f);
+          if (dx_mode) {
+            v.w = ok && bias != nullptr ? bias[t] : 0.f;
+          } else if (ok) {
+            v.x = lse[t];
+            v.y = g[t];
+            v.z = __int_as_float(label[t]);
+          }
+          terms_base[tb * kCRows + i] = v;
+        }
+        mbar_arrive(tfull + tb);
+        __syncwarp();
+      }
+    }
+    if (csize > 1) cluster_sync();  // the end
+    return;
+  }
+
+  // ---- two consumer warpgroups ----
+  setmaxnreg_inc<232>();
+  const int wg = warp >> 2, tid = threadIdx.x & 127;
+  const int ra = (warp & 3) * 16 + (lane >> 2);  // rows ra, ra + 8 of the block
+  const int cq = 2 * (lane & 3);                 // column pair in an n8 tile
+  const int c0 = wg * 32 + cq;                   // the thread's first S column
+  // the R rows' terms: K10's tokens (lse, g, label), K11's vocab rows (bias)
+  float rl[2] = {0.f, 0.f}, rgv[2] = {0.f, 0.f}, rb[2] = {0.f, 0.f};
+  int rlab[2] = {-1, -1};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int rr = r0 + ra + 8 * q;
+    if (rr < r_total) {
+      if (dx_mode) {
+        rl[q] = lse[rr];
+        rgv[q] = g[rr];
+        rlab[q] = label[rr];
+      } else if (bias != nullptr) {
+        rb[q] = bias[rr];
+      }
+    }
+  }
+  constexpr float kLog2e = 1.4426950408889634f;
+  float dbs[2] = {0.f, 0.f};  // K11: this warpgroup's db of rows ra, ra + 8
+  float acc[kHalf][32];
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+  const unsigned char* Rs = sm;
+  const unsigned char* ring = sm + L.ring;
+  float* rx_base = reinterpret_cast<float*>(sm + L.rx);
+
+  // S(j) in sn, complete: stored into every partner's receive slot for this
+  // rank, once the partners have read S(j - 1)
+  auto publish = [&](float (&sn)[16], int j) {
+    if (j >= 1) mbar_wait_cluster(sfree, (j - 1) & 1);
+    for (int q = 0; q < csize; ++q) {
+      if (q == rank) continue;
+      float* sp = rx_base + (rank - (rank > q)) * (kRxSlot / 4);
+#pragma unroll
+      for (int jt = 0; jt < 4; ++jt) {
+        const int col = c0 + jt * 8;
+        st_async_f2(sp + ra * kSpStride + col, make_float2(sn[4 * jt], sn[4 * jt + 1]), rx, q);
+        st_async_f2(sp + (ra + 8) * kSpStride + col, make_float2(sn[4 * jt + 2], sn[4 * jt + 3]),
+                    rx, q);
+      }
+    }
+  };
+  RingPos pos{0, 0};  // block j's first tile
+  // one T block: S(j) in sc (this CTA's partial, complete); starts S(j + 1)
+  // into sn. Two register sets taken in turn, so no accumulator is copied
+  // while its products are in flight.
+  auto block = [&](float (&sc)[16], float (&sn)[16], int j) {
+    const RingPos next = pos.next(NC, slots);
+    const int half = j & 1;
+    // S(j): the cluster's sum
+    if (csize > 1) {
+      if (threadIdx.x == 0) mbar_expect_tx(rx, (csize - 1) * kCRows * kCRows * 4);
+      mbar_wait_cluster(rx, j & 1);
+      s_gather(sc, rx_base, ra, c0, csize, rank);
+    }
+    // dl(j), rounded into the swizzled dl tile; K11's row sums
+    const int tb = j % kTermBufs;
+    mbar_wait(tfull + tb, (j / kTermBufs) & 1);
+    const float4* terms = terms_base + tb * kCRows;
+    unsigned char* dlt = sm + L.dl + half * kTile;
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jt = 0; jt < 4; ++jt) {
+      const int t = c0 + jt * 8;  // and t + 1
+      const float4 tv[2] = {terms[t], terms[t + 1]};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int r = ra + 8 * q, rr = r0 + r;
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int tt = j * kCRows + t + e;
+          float v = 0.f;
+          if (rr < r_total && tt < t_total) {
+            const float lv = dx_mode ? rl[q] : tv[e].x;
+            const float gv = dx_mode ? rgv[q] : tv[e].y;
+            const int lab = dx_mode ? rlab[q] : __float_as_int(tv[e].z);
+            const float bv = dx_mode ? tv[e].w : rb[q];
+            const int voc = dx_mode ? tt : rr;
+            const float sv = sc[4 * jt + 2 * q + e] + bv;
+            v = (exp2_approx((sv - lv) * kLog2e) - (voc == lab ? 1.f : 0.f)) * gv;
+          }
+          d[e] = v;
+          rsum[q] += v;
+        }
+        *reinterpret_cast<uint32_t*>(dlt + r * 128 + (((wg * 4 + jt) ^ (r & 7)) << 4) +
+                                     (lane & 3) * 4) = pack2<T>(d[0], d[1]);
+      }
+    }
+    if (!dx_mode) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float v = rsum[q];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        dbs[q] += v;
+      }
+    }
+    fence_proxy_async();
+    named_sync(1, 256);
+    // the terms and (C > 1) the partners' partials of block j are read
+    if (threadIdx.x == 0) {
+      mbar_arrive(tempty + tb);
+      if (csize > 1)
+        for (int q = 0; q < csize; ++q)
+          if (q != rank) mbar_arrive_remote(sfree, q);
+    }
+    // out_slice[:, this warpgroup's half] += dl(j) . T_slice(j), then S(j + 1)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sn[e] = 0.f;
+    fence_regs(sn);
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) fence_regs(acc[i]);
+    wg_fence();
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      int slot;
+      unsigned parity;
+      pos.tile(wg * kHalf + i, slots, slot, parity);
+      const unsigned char* tile = ring + slot * kTile;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16<T, 1>(acc[i], sw128_desc(dlt + kk * 32), sw128_desc(tile + kk * 2048),
+                              1);
+    }
+    wg_commit();
+    s_start<T, NC>(sn, Rs, ring, full, slots, next, wg);
+    wg_wait<1>();
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) fence_regs(acc[i]);
+    // block j's tiles are free once both warpgroups' products are done
+    if (tid == 0)
+      for (int c = 0; c < NC; ++c) {
+        int slot;
+        unsigned parity;
+        pos.tile(c, slots, slot, parity);
+        mbar_arrive(empty + slot);
+      }
+    wg_wait<0>();
+    fence_regs(sn);
+    if (csize > 1 && j + 1 < nt) publish(sn, j + 1);
+    pos = next;
+  };
+  float sa[16], sb[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) sa[e] = 0.f;
+  mbar_wait(rfull, 0);
+  fence_regs(sa);
+  wg_fence();
+  s_start<T, NC>(sa, Rs, ring, full, slots, pos, wg);
+  wg_wait<0>();
+  fence_regs(sa);
+  if (csize > 1) publish(sa, 0);
+  for (int j = 0; j < nt; j += 2) {
+    block(sa, sb, j);
+    block(sb, sa, j + 1);
+  }
+
+  // epilogue: the accumulator rounded into a staging tile in the ring (both
+  // warpgroups' products done), then whole rows to device memory
+  named_sync(1, 256);
+  unsigned char* stage = sm + L.ring;
+  const int stride = NC * 64 * 2 + 16;  // staged row bytes: 16 of padding
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i)
+#pragma unroll
+    for (int jt = 0; jt < 8; ++jt) {
+      const int col = (wg * kHalf + i) * 64 + jt * 8 + cq;
+      *reinterpret_cast<uint32_t*>(stage + ra * stride + col * 2) =
+          pack2<T>(acc[i][4 * jt], acc[i][4 * jt + 1]);
+      *reinterpret_cast<uint32_t*>(stage + (ra + 8) * stride + col * 2) =
+          pack2<T>(acc[i][4 * jt + 2], acc[i][4 * jt + 3]);
+    }
+  if (!dx_mode && (lane & 3) == 0) {
+    float* dbx = reinterpret_cast<float*>(sm + L.db);
+    dbx[wg * kCRows + ra] = dbs[0];
+    dbx[wg * kCRows + ra + 8] = dbs[1];
+  }
+  named_sync(1, 256);
+  constexpr int kPieces = NC * 8;  // 16-byte pieces a staged row
+  const int ct = threadIdx.x;      // 0 .. 255
+  for (int p = ct; p < kCRows * kPieces; p += 256) {
+    const int row = p / kPieces, pc = p % kPieces;
+    if (r0 + row < r_total)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(r0 + row) * h + col0 + pc * 8) =
+          *reinterpret_cast<const uint4*>(stage + row * stride + pc * 16);
+  }
+  if (!dx_mode && db != nullptr && rank == 0 && ct < kCRows && r0 + ct < r_total) {
+    const float* dbx = reinterpret_cast<const float*>(sm + L.db);
+    db[r0 + ct] = dbx[ct] + dbx[kCRows + ct];
+  }
+  if (csize > 1) cluster_sync();  // the end
+}
+
 // the widths whose R block stays in shared memory: up to 1024, where the
 // buffers fit
 template <typename T>
@@ -677,31 +1137,31 @@ int launch_fwd(const void* x, const void* w, const void* bias, const void* label
 }
 
 template <typename T, int NT>
-int launch_bwd_nt(const void* x, const void* w, const void* bias, const void* label,
-                  const void* g, const void* lse, void* out, void* db, int n_tok,
-                  int vocab, int h, int mode, int round_dl, bool res, cudaStream_t s) {
-  const int rows = mode == 0 ? n_tok : vocab;
-  const unsigned grid = (rows + kRows - 1) / kRows;
-  cudaError_t e;
-  if (res) {  // NT = h / 64
-    const int nbuf = pick_nbuf<T>(h, true);
-    const size_t bytes = smem_bytes<T>(h, nbuf, true);
-    e = cudaFuncSetAttribute(ce_bwd_kernel<T, NT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    ce_bwd_kernel<T, NT><<<grid, kThreads, bytes, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<const float*>(bias), static_cast<const int*>(label),
-        static_cast<const float*>(g), static_cast<const float*>(lse),
-        static_cast<T*>(out), static_cast<float*>(db), n_tok, vocab, h, mode, nbuf,
-        round_dl);
-    return cudaGetLastError();
-  }
+int launch_resident(const void* x, const void* w, const void* bias, const void* label,
+                    const void* g, const void* lse, void* out, void* db, int n_tok, int vocab,
+                    int h, int mode, int round_dl, unsigned grid, cudaStream_t s) {
+  const int nbuf = pick_nbuf<T>(h, true);
+  const size_t bytes = smem_bytes<T>(h, nbuf, true);
+  cudaError_t e = cudaFuncSetAttribute(ce_bwd_kernel<T, NT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  ce_bwd_kernel<T, NT><<<grid, kThreads, bytes, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<const int*>(label), static_cast<const float*>(g),
+      static_cast<const float*>(lse), static_cast<T*>(out), static_cast<float*>(db), n_tok,
+      vocab, h, mode, nbuf, round_dl);
+  return cudaGetLastError();
+}
+
+template <typename T, int NT>
+int launch_streamed(const void* x, const void* w, const void* bias, const void* label,
+                    const void* g, const void* lse, void* out, void* db, int n_tok, int vocab,
+                    int h, int mode, int round_dl, unsigned grid, cudaStream_t s) {
   const size_t bytes = stream_smem_bytes<T>(NT * 64);
-  e = cudaFuncSetAttribute(ce_bwd_stream_kernel<T, NT>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(bytes));
+  cudaError_t e = cudaFuncSetAttribute(ce_bwd_stream_kernel<T, NT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
   ce_bwd_stream_kernel<T, NT><<<dim3(grid, h / (NT * 64)), kThreads, bytes, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(bias),
@@ -719,26 +1179,151 @@ int piece_of(int h) {
   return 0;
 }
 
+// K10/K11's routes (ptt_fused_ce_plan reports them)
+enum Route : int { kRouteCluster = 0, kRouteStreamed = 1, kRouteResident = 2 };
+
+struct BwdPlan {
+  int route;    // Route
+  int cluster;  // CTAs sharing a block of R rows (1 off the cluster route)
+  int slice;    // output columns a CTA
+  int ctas;     // CTAs launched
+};
+
+// The route of a K10 (mode 0) / K11 (mode 1) launch. bf16/fp16: the cluster
+// kernel wherever a slice of 6, 4 or 2 64-column chunks (384, 256, 128
+// columns: even, so the two consumer warpgroups take half each) splits the
+// hidden width over at most 8 CTAs, the fewest CTAs first; else the
+// streamed kernel. fp32: the resident FMA kernel up to 768 columns (its
+// buffers fit), the streamed one above.
+BwdPlan plan_bwd(int n_tok, int vocab, int h, int dtype, int mode) {
+  const int rows = mode == 0 ? n_tok : vocab;
+  const int blocks = (rows + kRows - 1) / kRows;
+  if (dtype != kFloat32) {
+    const int chunks = h / 64;
+    for (int nc = 6; nc >= 2; nc -= 2) {
+      if (chunks % nc != 0) continue;
+      const int c = chunks / nc;
+      if (cluster_fits(nc, c))
+        return {kRouteCluster, c, nc * 64, c * ((rows + kCRows - 1) / kCRows)};
+    }
+  } else if (resident<float>(h, true)) {
+    return {kRouteResident, 1, h, blocks};
+  }
+  const int piece = piece_of(h);
+  return {kRouteStreamed, 1, piece, blocks * (h / piece)};
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// so the library needs no link against libcuda; null where it is missing
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// tensor map of a row-major [rows, h] two-byte operand: 64 x 64 boxes,
+// 128-byte swizzle, rows past the end read as zeros
+template <typename T>
+cudaError_t tile_map(CUtensorMap* map, const void* p, int rows, int h) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(h) * sizeof(T)};
+  const cuuint32_t box[2] = {64, kCRows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapDataType type = std::is_same<T, __nv_bfloat16>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const CUresult r = encode(map, type, 2, const_cast<void*>(p), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int NC>
+int launch_cluster(const void* x, const void* w, const void* bias, const void* label,
+                   const void* g, const void* lse, void* out, void* db, int n_tok, int vocab,
+                   int h, int mode, const BwdPlan& p, cudaStream_t s) {
+  CUtensorMap xmap, wmap;
+  cudaError_t e = tile_map<T>(&xmap, x, n_tok, h);
+  if (e != cudaSuccess) return e;
+  e = tile_map<T>(&wmap, w, vocab, h);
+  if (e != cudaSuccess) return e;
+  const size_t bytes = ClusterLayout(NC, p.cluster).bytes();
+  auto* kernel = ce_bwd_cluster_kernel<T, NC>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.ctas);
+  cfg.blockDim = dim3(kCThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const bool dx = mode == 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, dx ? xmap : wmap, dx ? wmap : xmap,
+                         static_cast<const float*>(bias), static_cast<const int*>(label),
+                         static_cast<const float*>(g), static_cast<const float*>(lse),
+                         static_cast<T*>(out), static_cast<float*>(db), n_tok, vocab, h, mode,
+                         p.cluster);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* x, const void* w, const void* bias, const void* label,
                const void* g, const void* lse, void* out, void* db, int n_tok,
-               int vocab, int h, int mode, int round_dl, cudaStream_t s) {
-  // resident widths take NT = h / 64 (the whole width); streamed ones a piece
-  const bool res = resident<T>(h, true);
-  const int width = res ? h : piece_of(h);
-#define PTT_CE_NT(NT)                                                                \
-  case NT:                                                                           \
-    return launch_bwd_nt<T, NT>(x, w, bias, label, g, lse, out, db, n_tok, vocab, h, \
-                                mode, round_dl, res, s);
-  switch (width / 64) {
-    PTT_CE_NT(2)
-    PTT_CE_NT(4)
-    PTT_CE_NT(6)
-    PTT_CE_NT(8)
-    PTT_CE_NT(10)
-    PTT_CE_NT(12)
-    PTT_CE_NT(14)
-    PTT_CE_NT(16)
+               int vocab, int h, int mode, int round_dl, int dtype, cudaStream_t s) {
+  const BwdPlan p = plan_bwd(n_tok, vocab, h, dtype, mode);
+  const unsigned blocks = (mode == 0 ? n_tok + kRows - 1 : vocab + kRows - 1) / kRows;
+  if constexpr (sizeof(T) == 2) {
+    if (p.route == kRouteCluster) {
+      switch (p.slice / 64) {
+        case 2: return launch_cluster<T, 2>(x, w, bias, label, g, lse, out, db, n_tok, vocab, h, mode, p, s);
+        case 4: return launch_cluster<T, 4>(x, w, bias, label, g, lse, out, db, n_tok, vocab, h, mode, p, s);
+        case 6: return launch_cluster<T, 6>(x, w, bias, label, g, lse, out, db, n_tok, vocab, h, mode, p, s);
+      }
+      return cudaErrorInvalidValue;
+    }
+  } else {
+    if (p.route == kRouteResident) {
+#define PTT_CE_NT(NT) \
+  case NT: return launch_resident<T, NT>(x, w, bias, label, g, lse, out, db, n_tok, vocab, h, mode, round_dl, blocks, s);
+      switch (p.slice / 64) {
+        PTT_CE_NT(2) PTT_CE_NT(4) PTT_CE_NT(6) PTT_CE_NT(8) PTT_CE_NT(10) PTT_CE_NT(12)
+      }
+#undef PTT_CE_NT
+      return cudaErrorInvalidValue;
+    }
+  }
+#define PTT_CE_NT(NT) \
+  case NT: return launch_streamed<T, NT>(x, w, bias, label, g, lse, out, db, n_tok, vocab, h, mode, round_dl, blocks, s);
+  switch (p.slice / 64) {
+    PTT_CE_NT(2) PTT_CE_NT(4) PTT_CE_NT(6) PTT_CE_NT(8) PTT_CE_NT(10) PTT_CE_NT(12)
   }
 #undef PTT_CE_NT
   return cudaErrorInvalidValue;
@@ -766,10 +1351,27 @@ extern "C" int ptt_fused_ce_fwd(const void* x, const void* w, const void* bias,
   return cudaErrorInvalidValue;
 }
 
+// K10 (mode 0) / K11 (mode 1)'s plan for these sizes and dtype code:
+// plan[0] the route (0 cluster, 1 streamed, 2 resident), plan[1] the CTAs
+// of a cluster, plan[2] the output columns a CTA, plan[3] the CTAs launched.
+extern "C" int ptt_fused_ce_plan(int n_tok, int vocab, int hidden, int dtype, int mode,
+                                 int* plan) {
+  using namespace ptt;
+  if (!hidden_ok(hidden) || n_tok <= 0 || vocab <= 0 || (mode != 0 && mode != 1) ||
+      dtype < kFloat32 || dtype > kFloat16)
+    return cudaErrorInvalidValue;
+  const BwdPlan p = plan_bwd(n_tok, vocab, hidden, dtype, mode);
+  plan[0] = p.route;
+  plan[1] = p.cluster;
+  plan[2] = p.slice;
+  plan[3] = p.ctas;
+  return cudaSuccess;
+}
+
 // mode 0: out = dx [n_tok, hidden]; mode 1: out = dw [vocab, hidden] and db
 // (fp32 [vocab], or null). g and lse: fp32 [n_tok] (g already 0 at ignored
 // labels). round_dl: round dl before the product to bf16 (1) or fp16 (2)
-// (fp32 operands only).
+// (fp32 operands only). x and w 16-byte aligned.
 extern "C" int ptt_fused_ce_bwd(const void* x, const void* w, const void* bias,
                                 const void* label, const void* g, const void* lse,
                                 void* out, void* db, int n_tok, int vocab, int hidden,
@@ -780,13 +1382,13 @@ extern "C" int ptt_fused_ce_bwd(const void* x, const void* w, const void* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return launch_bwd<float>(x, w, bias, label, g, lse, out, db, n_tok, vocab, hidden, mode, round_dl, s);
+      return launch_bwd<float>(x, w, bias, label, g, lse, out, db, n_tok, vocab, hidden, mode, round_dl, dtype, s);
     case kBFloat16:
       if (round_dl) return cudaErrorInvalidValue;
-      return launch_bwd<__nv_bfloat16>(x, w, bias, label, g, lse, out, db, n_tok, vocab, hidden, mode, 0, s);
+      return launch_bwd<__nv_bfloat16>(x, w, bias, label, g, lse, out, db, n_tok, vocab, hidden, mode, 0, dtype, s);
     case kFloat16:
       if (round_dl) return cudaErrorInvalidValue;
-      return launch_bwd<__half>(x, w, bias, label, g, lse, out, db, n_tok, vocab, hidden, mode, 0, s);
+      return launch_bwd<__half>(x, w, bias, label, g, lse, out, db, n_tok, vocab, hidden, mode, 0, dtype, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,0 +1,264 @@
+// Hopper (sm_90a) primitives of the port's warpgroup kernels (flash
+// cross-entropy K10/K11, csrc/fused_ce.cu):
+//  * mbarriers: init, arrive, arrive with an expected transaction count,
+//    wait on a phase parity;
+//  * TMA: a 2-D tile of a tensor map into shared memory, completing on an
+//    mbarrier (cp.async.bulk.tensor);
+//  * thread-block clusters: rank, cluster-wide barrier, asynchronous
+//    stores into another CTA's shared memory that complete on its
+//    mbarrier, and arrivals on another CTA's mbarrier (mapa);
+//  * wgmma: m64n32k16 and m64n64k16 products, bf16 or fp16 in, fp32
+//    accumulate, both operands in shared memory behind 128-byte-swizzle
+//    descriptors, and the fence / commit / wait that order them.
+// A 128-byte-swizzled tile is what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
+// for a box 64 two-byte elements wide: rows of 128 bytes, the 16-byte piece
+// p of row r at piece p ^ (r % 8), tiles 1024-byte aligned.
+#pragma once
+
+#include <cuda.h>
+
+#include <cstdint>
+#include <type_traits>
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace ptt {
+namespace hopper {
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// makes the initialised mbarriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// one arrival that also expects `bytes` more of transactions (TMA)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the phase of parity `parity` has completed; a wait that
+// outlasts 2^26 polls (seconds: no phase of a working pipeline takes
+// that long) traps, so a broken pipeline fails its launch instead of
+// holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// wait as mbar_wait, acquiring at cluster scope what remote arrivals
+// released
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+// one arrival, released at cluster scope, on the mbarrier at `bar`'s offset
+// in cluster CTA `rank`
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, unsigned rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(bar)),
+               "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
+// tile (c0 = column, c1 = row) of a 2-D tensor map into shared memory; its
+// bytes complete on `bar` (rows and columns past the tensor are zero-filled)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+// the cluster barrier, every thread of every CTA of the cluster: writes
+// before it are visible to loads after it (release / acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// the float2 v into the shared memory of cluster CTA `rank` at `local`'s
+// offset, asynchronously: its 8 bytes complete a transaction on that CTA's
+// mbarrier at `bar`'s offset
+__device__ __forceinline__ void st_async_f2(void* local, float2 v, uint64_t* bar,
+                                            unsigned rank) {
+  uint32_t ra, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(smem_addr(local)),
+               "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rb) : "r"(smem_addr(bar)),
+               "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          ra),
+      "f"(v.x), "f"(v.y), "r"(rb)
+      : "memory");
+}
+
+// 2^x on the special function unit (ex2.approx, flushing denormals)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// registers of this warpgroup's threads lowered / raised to N (the
+// producer gives what the consumers take)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// barrier `id` (not 0, which __syncthreads takes) over `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// generic-proxy stores to shared memory become visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// descriptor of a 128-byte-swizzled operand at p: rows of 128 bytes, 8-row
+// groups 1024 bytes apart. Both byte offsets are 1024: for a K-major
+// operand the stride byte offset steps 8 rows (the leading one is unused
+// within a 64-element swizzle row); for an MN-major operand 64 elements
+// wide the stride byte offset steps 8 K-rows (the leading one, from one
+// 64-element block of MN to the next, is unused).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define PTT_WG_R16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define PTT_WG_R32                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define PTT_WG_D16(d)                                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15])
+#define PTT_WG_D32(d)                                                                         \
+  PTT_WG_D16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),           \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 32 fp32, the warpgroup's accumulator) (+)= A (64 x 16) . B (16 x 32)
+// from descriptors; A K-major, B K-major (TB 0) or MN-major (TB 1); d is
+// overwritten when `accumulate` is 0. Thread (warp w, lane l) of the
+// warpgroup holds rows 16 w + l / 4 (+ 8), columns 8 j + 2 (l % 4) (+ 1):
+// d[4 j], d[4 j + 1] on the first row, d[4 j + 2], d[4 j + 3] on the second.
+template <typename T, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " PTT_WG_R16
+        ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+        : PTT_WG_D16(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " PTT_WG_R16
+        ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+        : PTT_WG_D16(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
+  }
+}
+
+// the same with 64 columns (d[4 j .. 4 j + 3] for n8 tiles j = 0..7)
+template <typename T, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PTT_WG_R32
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : PTT_WG_D32(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " PTT_WG_R32
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : PTT_WG_D32(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
+  }
+}
+
+#undef PTT_WG_R16
+#undef PTT_WG_R32
+#undef PTT_WG_D16
+#undef PTT_WG_D32
+
+}  // namespace hopper
+}  // namespace ptt

@@ -84,6 +84,9 @@ _SIGNATURES = {
     # x, w, bias, label, g, lse, out, db, tokens, vocab, hidden, mode,
     # round_dl, dtype, stream
     "ptt_fused_ce_bwd": [p] * 8 + [i32] * 6 + [p],
+    # tokens, vocab, hidden, dtype, mode, out: route, cluster CTAs, output
+    # columns a CTA, CTAs
+    "ptt_fused_ce_plan": [i32] * 5 + [p],
     # mask, b, h, sq, sk, seed0, seed1, threshold, stream
     "ptt_philox_keep_mask": [p, i32, i32, i32, i32, u32, u32, u32, p],
 }

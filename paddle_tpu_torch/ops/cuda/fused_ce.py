@@ -22,9 +22,12 @@ zeroes their ``g``). x and w may differ in dtype (bf16 against fp32, as
 what JAX's ``dot_general`` promotion computes, and ``dl`` is still rounded
 to the narrower operand's type where the reference casts it so. The kernels
 take fp32, bf16 and fp16 operands and every hidden size the JAX gate admits
-(a multiple of 128): up to 1024 the token (or vocab) block stays in shared
-memory, above that the hidden width streams through it in 256-column
-chunks.
+(a multiple of 128). :func:`kernel_plan` names the backward's route for a
+call: at bf16/fp16 a thread-block cluster shares 64 rows over slices of the
+hidden width (wgmma, TMA) where the width splits so, the hidden width
+streamed through shared memory in 256-column chunks where it does not;
+at fp32 FMA kernels. K9's token block stays in shared memory up to 1024
+columns and streams above.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (``csrc/fused_ce.cu``) or raises. The raw launchers
@@ -33,13 +36,16 @@ is the differentiable entry, an ``autograd.Function`` over K9, K10 and K11.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ._build import check, dtype_code, library, needs_grad, stream_of
 
 __all__ = ["flash_linear_cross_entropy", "ce_forward", "ce_forward_plain",
            "ce_backward_dx", "ce_backward_dx_plain", "ce_backward_dw",
-           "ce_backward_dw_plain", "mm_f32", "supports", "LANES"]
+           "ce_backward_dw_plain", "mm_f32", "supports", "kernel_plan",
+           "library_plan", "LANES", "SLICE_CHUNKS"]
 
 #: the JAX gate's lane width (``fused_ce.supports``)
 LANES = 128
@@ -52,6 +58,65 @@ _ROUND_DL = {torch.bfloat16: 1, torch.float16: 2}
 def supports(hidden_size):
     """The routing gate of the JAX package (``fused_ce.supports``)."""
     return hidden_size % LANES == 0
+
+
+#: K10/K11's routes by the library's code (csrc/fused_ce.cu ``Route``)
+ROUTES = ("cluster", "streamed", "resident")
+#: 64-column chunks of a cluster CTA's slice, widest first: even, so the two
+#: consumer warpgroups take half each (one kernel instantiation a type each)
+SLICE_CHUNKS = (6, 4, 2)
+_MAX_CLUSTER = 8
+
+
+def _ring_slots(nc, c):
+    """T tiles (64 x 64, 8 KB) in a cluster CTA's ring: what the H100's 227
+    KB leave after the R slice, two dl tiles, term buffers, barriers and
+    the c - 1 partners' received partials (csrc/fused_ce.cu
+    ``ClusterLayout``)."""
+    tile, rx_slot = 8192, 64 * 72 * 4
+    rx = nc * tile + 2 * tile + 4 * 64 * 16 + 2 * 64 * 4 + 512
+    ring = -(-(rx + (c - 1) * rx_slot) // 1024) * 1024
+    return (232448 - 1024 - ring) // tile
+
+
+def kernel_plan(tokens, vocab, hidden, dtype, mode):
+    """How the library runs K10 (``mode`` 0) or K11 (``mode`` 1) on operands
+    of ``dtype`` (the type the kernel takes: fp32 for a mixed pair):
+    ``{"route", "cluster", "slice", "ctas"}``. bf16/fp16 take the cluster
+    kernel (``cluster`` CTAs share 64 rows, each ``slice`` hidden columns:
+    384, 256 or 128, the fewest CTAs, at most 8, as long as the CTA's ring
+    still holds two T blocks beside the partners' partials) where such a
+    split exists, else the streamed kernel; fp32 the resident FMA kernel up to hidden
+    768 and the streamed one above. Off the cluster route ``slice`` is the
+    output columns a CTA (32 rows). A copy of ``ptt_fused_ce_plan``
+    (:func:`library_plan`), which decides on the card."""
+    rows = tokens if mode == 0 else vocab
+    blocks = -(-rows // 32)
+    if dtype != torch.float32:
+        for nc in SLICE_CHUNKS:
+            c = hidden // 64 // nc
+            if ((hidden // 64) % nc == 0 and c <= _MAX_CLUSTER
+                    and _ring_slots(nc, c) >= 2 * nc):
+                return {"route": "cluster", "cluster": c, "slice": nc * 64,
+                        "ctas": c * -(-rows // 64)}
+    elif hidden <= 768:
+        return {"route": "resident", "cluster": 1, "slice": hidden,
+                "ctas": blocks}
+    piece = next(p for p in range(768, 0, -128) if hidden % p == 0)
+    return {"route": "streamed", "cluster": 1, "slice": piece,
+            "ctas": blocks * (hidden // piece)}
+
+
+def library_plan(tokens, vocab, hidden, dtype, mode):
+    """:func:`kernel_plan` as the kernel library makes it
+    (``ptt_fused_ce_plan``). Builds the library at first use."""
+    plan = (ctypes.c_int * 4)()
+    check(library().ptt_fused_ce_plan(tokens, vocab, hidden,
+                                      dtype_code(dtype), mode,
+                                      ctypes.byref(plan)),
+          "fused_ce plan")
+    return {"route": ROUTES[plan[0]], "cluster": plan[1], "slice": plan[2],
+            "ctas": plan[3]}
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +191,7 @@ def ce_backward_dw_plain(x, w, b, y, g, lse):
 # ---------------------------------------------------------------------------
 def _aligned(t):
     """``t`` contiguous at a 16-byte aligned address (the kernels' cp.async
-    copies move 16 bytes)."""
+    copies move 16 bytes; TMA needs the alignment too)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -25,7 +25,8 @@ where each addition rounds by up to 2^-24 of the running sum, so they are
 held to 1e-4 · max(1, |ref|) + 1e-7 · rows (about 3e-4 apart at 24576 rows
 on an H100); summed in a fixed order, they must be the same bits twice. K9-K11 at bf16 hold their fp32 loss and logsumexp to one bf16
 step of the largest value (the tile products are exact products summed in
-fp32 in another order) and their bf16 gradients to one bf16 step.
+fp32 in another order) and their bf16 gradients to one bf16 step; K10 and
+K11 (no atomics, sums in a fixed order) must give the same bits twice.
 """
 import math
 
@@ -792,7 +793,10 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
 # (tokens, vocab, hidden, x dtype, w dtype, bias): the odd shape of the CPU
 # parity test (tokens and vocab not multiples of the 32-row blocks), both
 # buffer counts of the fp32 path (768: one buffer), the widest hidden size,
-# a head-dim count of 6 n8 tiles a warp, and a mixed pair that is widened
+# a head-dim count of 6 n8 tiles a warp, and a mixed pair that is widened.
+# bf16/fp16 widths take K10/K11's cluster kernel (kernel_plan): 128, 256 and
+# 384 one CTA, 768 two, 1152 three, 1024 and 1536 four, 640 five; 1408 keeps
+# the streamed route
 _FCE = [
     (300, 1000, 128, torch.float32, torch.float32, True),
     (300, 1000, 128, torch.bfloat16, torch.bfloat16, True),
@@ -808,6 +812,13 @@ _FCE = [
     (70, 130, 1152, torch.float16, torch.float16, False),
     (64, 130, 1024, torch.float32, torch.float32, True),
     (90, 150, 1536, torch.float32, torch.float16, True),
+    # the cluster kernel: C = 2, 4 and 5 at tokens and vocab that are not
+    # multiples of its 64-row blocks, fp16 at C = 4, and a width the
+    # streamed kernel keeps
+    (130, 1000, 768, torch.bfloat16, torch.bfloat16, False),
+    (65, 129, 1536, torch.float16, torch.float16, True),
+    (70, 77, 640, torch.bfloat16, torch.bfloat16, True),
+    (90, 150, 1408, torch.bfloat16, torch.bfloat16, True),
 ]
 
 
@@ -860,6 +871,37 @@ def test_fused_ce_kernels_match_plain(dev, n, v, h, xdt, wdt, use_bias):
         _assert_close(db, want_db)
     else:
         assert db is None
+
+
+def test_fused_ce_backward_gives_the_same_bits_twice(dev):
+    """K10 and K11 at the GPT-2 124M train shape (24576 x 768 x 50304, bf16;
+    the cluster kernel, two CTAs a cluster): no atomics and every sum in a
+    fixed order, so dx, dW and db are the same bits on a second launch."""
+    x, w, b, y, go = _fce_inputs(dev, 24576, 50304, 768, torch.bfloat16,
+                                 torch.bfloat16, True, 11)
+    go = go.abs() / 24576
+    assert k9.kernel_plan(24576, 50304, 768, torch.bfloat16, 0)["cluster"] == 2
+    lse = k9.ce_forward(x, w, b, y)[1]
+    dx = k9.ce_backward_dx(x, w, b, y, go, lse)
+    dw, db = k9.ce_backward_dw(x, w, b, y, go, lse)
+    dx2 = k9.ce_backward_dx(x, w, b, y, go, lse)
+    dw2, db2 = k9.ce_backward_dw(x, w, b, y, go, lse)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert torch.equal(db, db2)
+
+
+def test_fused_ce_plan_of_the_library_matches_kernel_plan(dev):
+    """The library's K10/K11 plan (``ptt_fused_ce_plan``: route, CTAs of a
+    cluster, slice columns, CTAs launched) is ``kernel_plan``'s, over every
+    hidden size the gate admits up to 4096, three types, both modes and row
+    counts at and around the 32- and 64-row blocks."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for hidden in range(128, 4097, 128):
+            for n, v in ((1, 1), (63, 65), (24576, 50304)):
+                for mode in (0, 1):
+                    assert (k9.library_plan(n, v, hidden, dtype, mode)
+                            == k9.kernel_plan(n, v, hidden, dtype, mode))
 
 
 def test_fused_ce_autograd_through_the_router(dev):

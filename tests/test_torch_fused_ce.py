@@ -15,7 +15,15 @@ vocab 1000 (padded on the TPU side in both tokens and vocab), with and
 without bias, two labels ignored, at ``tests/test_fused_ce_pallas.py``'s
 tolerances (loss 1e-5; dh, dw, db 1e-4 of the largest); and the port's
 ``fused_linear_cross_entropy`` under the flag against JAX's ``_flce``
-under ``interpret_mode()``.
+under ``interpret_mode()``. At bf16 the plain K9-K11 are held to the Pallas
+kernels in interpret mode at hidden 128, 384 and 1152 within one bf16 step
+(2^-7) of the largest value: both round dl to bf16 before the products and
+round dx and dw once (measured: at most 2.4e-3 of it).
+
+``kernel_plan`` (the Python copy of the library's ``ptt_fused_ce_plan``)
+names K10/K11's route: the cluster kernel at bf16/fp16 where the hidden
+width splits into slices of 384, 256 or 128 over at most 8 CTAs, the
+streamed kernel where it does not, and FMA kernels at fp32.
 """
 import contextlib
 
@@ -217,3 +225,81 @@ def test_flash_ce_route_matches_jax_flce(use_bias,
     assert abs(float(loss) - jloss) < 1e-5
     for t, want in zip(leaves[:3 if use_bias else 2], jgrads):
         assert _rel(t.grad, want) < 1e-4
+
+
+_BF16_STEP = 2.0 ** -7
+
+
+@pytest.mark.parametrize("use_bias", [True, False])
+@pytest.mark.parametrize("hidden", [128, 384, 1152])
+def test_bf16_plain_flash_ce_matches_pallas_interpret(
+        hidden, use_bias, no_persistent_compile_cache):
+    """bf16 operands: the plain K9-K11 against the Pallas kernels in
+    interpret mode (300 tokens, vocab 1000, two labels ignored)."""
+    rng = np.random.RandomState(hidden + use_bias)
+    h = rng.randn(_N, hidden).astype(np.float32)
+    w = (rng.randn(_V, hidden) * 0.05).astype(np.float32)
+    b = (rng.randn(_V) * 0.1).astype(np.float32)
+    y = rng.randint(0, _V, (_N,)).astype(np.int32)
+    y[[5, 17]] = 0
+    g = np.full(_N, 1.0 / (_N - 2), np.float32)
+    g[[5, 17]] = 0.0
+    jh = jnp.asarray(h).astype(jnp.bfloat16)
+    jw = jnp.asarray(w).astype(jnp.bfloat16)
+    jb = jnp.asarray(b) if use_bias else None
+    jl, jlse = jax_fce.ce_forward(jh, jw, jb, jnp.asarray(y), interpret=True)
+    jdh, jdw, jdb = jax_fce.ce_backward(jh, jw, jb, jnp.asarray(y),
+                                        jnp.asarray(g), jlse, interpret=True)
+    th = torch.from_numpy(h).to(torch.bfloat16)
+    tw = torch.from_numpy(w).to(torch.bfloat16)
+    tb = torch.from_numpy(b) if use_bias else None
+    ty, tg = torch.from_numpy(y), torch.from_numpy(g)
+    loss, lse = k9.ce_forward(th, tw, tb, ty)
+    dh = k9.ce_backward_dx(th, tw, tb, ty, tg, lse)
+    dw, db = k9.ce_backward_dw(th, tw, tb, ty, tg, lse)
+    assert dh.dtype == dw.dtype == torch.bfloat16
+    pairs = [(loss, jl), (lse, jlse), (dh, jdh), (dw, jdw)]
+    if use_bias:
+        pairs.append((db, jdb))
+    else:
+        assert db is None and jdb is None
+    for got, want in pairs:
+        assert _rel(got.float(), np.asarray(want, np.float32)) <= _BF16_STEP
+
+
+# (hidden, dtype, mode, expected (route, cluster CTAs, slice columns))
+_PLANS = [
+    (128, torch.bfloat16, 0, ("cluster", 1, 128)),
+    (384, torch.bfloat16, 1, ("cluster", 1, 384)),
+    (640, torch.bfloat16, 0, ("cluster", 5, 128)),
+    (768, torch.bfloat16, 0, ("cluster", 2, 384)),
+    (768, torch.float16, 1, ("cluster", 2, 384)),
+    (1024, torch.bfloat16, 1, ("cluster", 4, 256)),
+    (1152, torch.bfloat16, 0, ("cluster", 3, 384)),
+    (1536, torch.bfloat16, 1, ("cluster", 4, 384)),
+    (1408, torch.bfloat16, 0, ("streamed", 1, 128)),
+    (2048, torch.bfloat16, 0, ("streamed", 1, 512)),
+    (3072, torch.float16, 1, ("streamed", 1, 768)),
+    (4096, torch.bfloat16, 1, ("streamed", 1, 512)),
+    (768, torch.float32, 0, ("resident", 1, 768)),
+    (1536, torch.float32, 1, ("streamed", 1, 768)),
+]
+
+
+@pytest.mark.parametrize("hidden,dtype,mode,want", _PLANS)
+def test_kernel_plan_names_the_route(hidden, dtype, mode, want):
+    """The plan's routes: the cluster kernel at 2-byte widths that split
+    into 384-, 256- or 128-column slices over at most 8 CTAs (the fewest)
+    whose ring still holds two T blocks beside the partners' partials; the
+    streamed kernel at 2-byte widths that do not (1408: 22 CTAs; 2048 and
+    3072, whose 8-CTA clusters leave too little ring; 4096); FMA kernels at
+    fp32. The CTAs launched follow from the rows."""
+    n, v = 24576, 50304
+    plan = k9.kernel_plan(n, v, hidden, dtype, mode)
+    assert (plan["route"], plan["cluster"], plan["slice"]) == want
+    rows = n if mode == 0 else v
+    if want[0] == "cluster":
+        assert plan["ctas"] == want[1] * -(-rows // 64)
+        assert want[1] * want[2] == hidden
+    else:
+        assert plan["ctas"] == -(-rows // 32) * (hidden // want[2])
