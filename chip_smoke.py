@@ -63,12 +63,17 @@
    versions at the train step's shape (24576 tokens, hidden 768, vocab
    50304, bf16) and at an odd shape (300 tokens, vocab 1000, hidden 128,
    bias, two ignored labels; bf16 and fp32): within one bf16 step of the
-   largest reference value for bf16, 5e-5 absolute for fp32. Each K10/K11
-   case gives the library's plan for it (``kernel_plan``: route, CTAs of a
-   cluster, slice columns) and its share of the bound; at the train shape
-   K10 and K11 must give the same bits (dx, dW, db) on a second launch.
-   Beside them, the chunked loop the flag replaces, forward and backward
-   ms and peak memory, and K10 + K11 against its backward.
+   largest reference value for bf16, 5e-5 absolute for fp32. Each K9 case
+   gives the library's plan for it (``kernel_plan`` mode 2: route, vocab
+   ranges, CTAs; bf16/fp16 the warp-specialised wgmma kernel) and its share
+   of the bound, and each K10/K11 case its plan (route, CTAs of a cluster,
+   slice columns) and share; at the train shape K9 must give the same
+   loss and lse bits, and K10 and K11 the same dx, dW and db bits, on a
+   second launch. Beside them, the chunked loop the flag replaces, forward
+   and backward ms and peak memory, K10 + K11 against its backward, and
+   K9 against its forward and against the same product alone as one
+   cuBLAS call (``torch.matmul(x, w.t())``, the yardstick: it moves the
+   same tiles) at the train shape and GPT-3 Large's.
 7. Recipe phase (the main path of the pretraining slice): GPT-3 Small's
    recipe (Brown et al. 2020, Table 2.1, Appendix B) on GPT-2 124M built in
    fp32 from ``torch.manual_seed(0)``: ``amp.decorate(O2, bf16)``,
@@ -98,8 +103,9 @@
    Right after the build, ``cuobjdump -sass`` of the library must show
    tensor-core instructions (HMMA, or HGMMA) in every bf16 K1, K2, K3,
    K4-prefill and K6 tensor-core function and HGMMA (wgmma) in every bf16
-   K10/K11 cluster kernel, and ptxas's registers and spills of the bf16
-   attention and K10/K11 cluster kernels are printed.
+   K10/K11 cluster kernel and in the bf16 K9 kernel, and ptxas's registers
+   and spills of the bf16 attention and K9-K11 wgmma kernels, and of every
+   K9 instantiation, are printed.
    K7 and K8 at GPT-3 Large's LayerNorm shape (16384 rows of 1536, bf16 x,
    fp32 gamma and beta) and at 2048 rows of 5120 (wider than 4096: the
    general kernels) within one bf16 step, beside ``F.layer_norm`` and
@@ -148,8 +154,9 @@
     bit for bit.
 12. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
     K1-K4 and K6 with their bf16 HMMA counts and ptxas registers and
-    spills, K10/K11 with their plan a case and their bf16 cluster kernels'
-    HGMMA counts and registers and spills, K4 with its key parts at decode, K6 with the K2 + K3 witness,
+    spills, K9-K11 with their plan a case and their bf16 wgmma kernels'
+    HGMMA counts and registers and spills (K9 also beside the cuBLAS
+    product), K4 with its key parts at decode, K6 with the K2 + K3 witness,
     K1-K3 and K5/K6 with a ``dropout`` entry), then the result line last.
 
 Any failure raises and exits non-zero; nothing is printed as a result then.
@@ -950,19 +957,21 @@ def _max_rel_err(got, want, dtype):
 
 def fused_ce_kernel_phase(torch, timer):
     """K9, K10 and K11 against their plain versions at the train step's
-    shape (24576 tokens, hidden 768, vocab 50304, bf16, no bias) and at an
-    odd shape (300 tokens, vocab 1000, hidden 128, bias, two ignored
-    labels, bf16 and fp32); plus the chunked loop the flag replaces
-    (``ops/fused.py::_FusedLinearCE``, cuBLAS products) at the train shape:
-    forward and backward ms and peak memory."""
+    shape (24576 tokens, hidden 768, vocab 50304, bf16, no bias), GPT-3
+    Large's (16384 x 1536) and an odd shape (300 tokens, vocab 1000, hidden
+    128, bias, two ignored labels, bf16, fp16 and fp32); plus the chunked
+    loop the flag replaces (``ops/fused.py::_FusedLinearCE``, cuBLAS
+    products) at the train shape: forward and backward ms and peak memory;
+    at the train and large shapes its forward beside K9's and the product
+    alone on cuBLAS."""
     from paddle_tpu_torch.ops import fused
     from paddle_tpu_torch.ops.cuda import fused_ce as k9
 
     gen = torch.Generator(device="cpu").manual_seed(2)
     fwd, dx_cases, dw_cases = [], [], []
     chunked = None
-    # GPT-3 Large's loss shape (batch 8 x 2048 tokens, hidden 1536): the
-    # hidden width streamed through shared memory; and fp16 operands
+    # GPT-3 Large's loss shape (batch 8 x 2048 tokens, hidden 1536: K9 one
+    # vocab range, K10/K11 clusters of 4); and fp16 operands
     for name, n, h, v, dt, use_bias in (
             ("train", 24576, 768, 50304, "bf16", False),
             ("large", 16384, 1536, 50304, "bf16", False),
@@ -989,11 +998,26 @@ def fused_ce_kernel_phase(torch, timer):
         bound, by = _bound(io_b + 2 * n * 4, 2 * n * v * h, peak)
         shape = {"tokens": n, "hidden": h, "vocab": v, "dtype": dt,
                  "bias": use_bias}
+        ms = timer(lambda: k9.ce_forward(x, w, b, y))
         fwd.append({
-            "case": name, "shape": shape, "max_abs_err": err,
-            "ms": timer(lambda: k9.ce_forward(x, w, b, y)),
+            "case": name, "shape": shape, "max_abs_err": err, "ms": ms,
             "plain_ms": timer(lambda: k9.ce_forward_plain(x, w, b, y), 5),
-            "library_ms": None, "bound_ms": bound, "bound_by": by})
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "kernel_plan": _ce_fwd_plan(torch, k9, n, v, h, tdt),
+            "share_of_bound": bound / ms})
+        if name in ("train", "large"):
+            # the yardstick: the same product alone as one cuBLAS call, and
+            # the chunked loop's forward that K9 replaces
+            fwd[-1]["cublas_product_ms"] = timer(lambda: torch.matmul(x, w.t()))
+            fwd[-1]["chunked_loop_fwd_ms"] = timer(
+                lambda: fused._FusedLinearCE.apply(x, w, None, y, -100, 0), 5)
+        if name == "train":
+            # no atomics, the ranges' partials merged in a fixed order
+            loss2, lse2 = k9.ce_forward(x, w, b, y)
+            _require(torch.equal(loss, loss2) and torch.equal(lse, lse2),
+                     "K9 gives the same loss and lse bits on a second launch")
+            fwd[-1]["same_bits_twice"] = True
+            del loss2, lse2
         args = (x, w, b, y, g, lse)
         dx = k9.ce_backward_dx(*args)
         err = _max_rel_err(dx, k9.ce_backward_dx_plain(*args), dt)
@@ -1036,6 +1060,19 @@ def fused_ce_kernel_phase(torch, timer):
         del x, w, b, y, g, loss, lse, args, dx, dw, db, want, want_dw, want_db
         torch.cuda.empty_cache()
     return fwd, dx_cases, dw_cases, chunked
+
+
+def _ce_fwd_plan(torch, k9, n, v, h, dtype):
+    """The library's K9 plan for a case (route, vocab ranges, tile columns,
+    CTAs), held to ``kernel_plan``'s on the card's SMs, with a one-line
+    name."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = k9.library_plan(n, v, h, dtype, 2)
+    _require(plan == k9.kernel_plan(n, v, h, dtype, 2, sms),
+             f"the library's K9 plan is kernel_plan's ({plan})")
+    plan["kernel"] = (f"{plan['route']} ranges {plan['ranges']} CTAs "
+                      f"{plan['ctas']}")
+    return plan
 
 
 def _ce_plan(k9, n, v, h, dtype, mode):
@@ -1912,10 +1949,12 @@ def small_d96_reference(torch, np):
 
 #: the tensor-core kernels whose SASS must hold HMMA (or HGMMA)
 #: instructions: K1 (which also runs K5), K2, K3, K4's prefill, K6, and
-#: K10/K11's cluster kernel (wgmma: HGMMA)
+#: the wgmma kernels (HGMMA): K10/K11's cluster kernel and K9's
 _TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
                "cached_tc_kernel", "packed_bwd_tc_kernel",
-               "ce_bwd_cluster_kernel")
+               "ce_bwd_cluster_kernel", "ce_fwd_wgmma_kernel")
+#: the kernels counted by HGMMA alone
+_WGMMA_KERNELS = ("ce_bwd_cluster_kernel", "ce_fwd_wgmma_kernel")
 
 
 def _tc_instantiations():
@@ -1934,7 +1973,8 @@ def _tc_instantiations():
     return {"fwd_tc_kernel": 2 * widths, "dq_tc_kernel": 2 * widths,
             "dkv_tc_kernel": 2 * widths, "cached_tc_kernel": widths,
             "packed_bwd_tc_kernel": 2 * len(k5.HEAD_DIMS),
-            "ce_bwd_cluster_kernel": len(k9.SLICE_CHUNKS)}
+            "ce_bwd_cluster_kernel": len(k9.SLICE_CHUNKS),
+            "ce_fwd_wgmma_kernel": 1}
 
 
 def tensor_core_sass(path):
@@ -1957,7 +1997,8 @@ def tensor_core_sass(path):
                 counts[cur] = 0
         elif cur is not None and (
                 "HGMMA" in line
-                or "HMMA" in line and "ce_bwd_cluster_kernel" not in cur):
+                or "HMMA" in line
+                and not any(k in cur for k in _WGMMA_KERNELS)):
             counts[cur] += 1
     for kern, want in _tc_instantiations().items():
         found = {n: c for n, c in counts.items() if kern in n}
@@ -1972,6 +2013,10 @@ def tensor_core_sass(path):
 _PTXAS_KERNELS = _TC_KERNELS + ("fwd_wide_kernel", "dq_wide_kernel",
                                 "dkv_wide_kernel", "cached_fwd_kernel",
                                 "cached_split_kernel", "cached_merge_kernel")
+#: K9's kernels: the bf16/fp16 wgmma kernel, its range merge, the fp32 FMA
+#: kernels
+_K9_KERNELS = ("ce_fwd_wgmma_kernel", "ce_fwd_merge_kernel", "ce_fwd_kernel",
+               "ce_fwd_stream_kernel")
 #: K7's and K8's kernels (row kernels <type, accesses a lane, vectors>,
 #: general kernels <type, vectors>, K8's reduction <gamma's type>)
 _LN_KERNELS = ("ln_fwd_rows", "ln_bwd_rows", "ln_fwd_general",
@@ -2006,8 +2051,10 @@ def ptxas_report(log, kernels=_PTXAS_KERNELS,
                 args = name.split(kern, 1)[1]
                 ints = re.findall(r"Li(\d+)E", args)
                 flags = re.findall(r"Lb([01])E", args)
-                dt = "bf16" if "bfloat16" in name else "fp32"
-                cur = f"{kern}<{','.join([dt] + ints + flags)}>"
+                dt = ("bf16" if "bfloat16" in name else
+                      "fp16" if "__half" in name else
+                      "fp32" if "If" in args[:4] else "")
+                cur = f"{kern}<{','.join(([dt] if dt else []) + ints + flags)}>"
         elif cur is not None and "spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif cur is not None and "registers" in line and "Used" in line:
@@ -2037,10 +2084,16 @@ def main():
     print(f"build: {build_s:.1f} s (nvcc {build_info()['seconds']:.1f} s)")
     hmma = tensor_core_sass(build_info()["path"])
     print(f"tensor-core SASS (HMMA/HGMMA a bf16 K1/K2/K3/K4/K6 function, "
-          f"HGMMA a bf16 K10/K11 cluster function): {json.dumps(hmma)}")
+          f"HGMMA a bf16 K10/K11 cluster function and the bf16 K9 wgmma "
+          f"function): {json.dumps(hmma)}")
     ptxas = ptxas_report(build_info().get("log", ""))
-    print(f"ptxas [registers, spill bytes] of the bf16 attention and "
-          f"K10/K11 cluster kernels: {json.dumps(ptxas)}")
+    print(f"ptxas [registers, spill bytes] of the bf16 attention, K10/K11 "
+          f"cluster and K9 wgmma kernels: {json.dumps(ptxas)}")
+    ptxas_k9 = ptxas_report(build_info().get("log", ""), _K9_KERNELS,
+                            lambda name: True)
+    print(f"ptxas [registers, spill bytes] of the K9 instantiations "
+          f"(registers at launch; the wgmma kernel's consumers raise to 232 "
+          f"with setmaxnreg): {json.dumps(ptxas_k9)}")
     ptxas_ln = ptxas_report(build_info().get("log", ""), _LN_KERNELS,
                             _ln_on_paths)
     print(f"ptxas [registers, spill bytes] of the K7/K8 kernels on the "
@@ -2090,6 +2143,14 @@ def main():
                   for cases in (k10_cases, k11_cases))
     print(f"K10 + K11 at the train shape: {k10_k11:.4f} ms; the chunked "
           f"loop's backward: {chunked['backward_ms']:.4f} ms")
+    for c in k9_cases:
+        if "cublas_product_ms" in c:
+            print(f"K9 at {c['case']} ({c['shape']['tokens']} x "
+                  f"{c['shape']['hidden']} x {c['shape']['vocab']}): "
+                  f"{c['ms']:.4f} ms, {100 * c['share_of_bound']:.1f} % of "
+                  f"bound; the same product alone on cuBLAS: "
+                  f"{c['cublas_product_ms']:.4f} ms; the chunked loop's "
+                  f"forward: {c['chunked_loop_fwd_ms']:.4f} ms")
     print(f"build seconds a source: {json.dumps(build_info().get('per_source', {}))}")
     serve = serving_phase(torch, np)
     print(f"serving: {json.dumps(serve)}")
@@ -2304,6 +2365,21 @@ def main():
                                 bound_by=k["bound_by"],
                                 launches=drop["dropout_launches"][k["name"]])
     kernels[4]["dropout"]["philox"] = philox_check
+    # K9: the library's plan for each case, the bf16 wgmma kernel's HGMMA
+    # count, every K9 instantiation's registers and spills, the cuBLAS
+    # product and the chunked loop's forward at the train and large shapes
+    k9_entry = kernels[-3]
+    k9_entry["kernel_route"] = {c["case"]: c["kernel_plan"]["kernel"]
+                                for c in k9_entry["cases"]}
+    k9_entry["hgmma_bf16"] = {n: c for n, c in hmma.items()
+                              if "ce_fwd_wgmma_kernel" in n}
+    k9_entry["ptxas"] = ptxas_k9
+    k9_entry["cublas_product_ms"] = {
+        c["case"]: c["cublas_product_ms"] for c in k9_entry["cases"]
+        if "cublas_product_ms" in c}
+    k9_entry["chunked_loop_fwd_ms"] = {
+        c["case"]: c["chunked_loop_fwd_ms"] for c in k9_entry["cases"]
+        if "chunked_loop_fwd_ms" in c}
     # K10/K11: the library's plan for each case, the bf16 cluster
     # instantiations' HGMMA counts and registers and spills
     for k in kernels[-2:]:

@@ -19,6 +19,19 @@
 // 989 TFLOP/s) and each backward kernel twice that (recompute + product);
 // x (38 MB) and w (77 MB) are read far below the byte bound.
 //
+// K9 at bf16/fp16 (ce_fwd_wgmma_kernel): S = x . w^T is the ordinary "TN"
+// product, both operands K-major. A CTA's unit is a stripe of 128 tokens
+// against a range of 256-column vocab tiles; a producer warp streams the x
+// stripe and the w tile of every 64-column K stage by TMA into a 4-stage
+// mbarrier ring (48 KB a stage) for every width, and two consumer
+// warpgroups (64 rows each) form S with wgmma m64n256k16 into 128 fp32
+// registers a thread. The logsumexp and the label pick run on those
+// registers (no S in shared memory). L2 to SM traffic is (128 + 256) * H * 2
+// bytes a 128 x 256 tile, 22 GB a call at the train shape. Persistent CTAs
+// take units range-major, so the CTAs in flight meet the same w tiles in
+// the same order; ranges split the vocabulary where that fills the last
+// wave (the plan), their partials merged in range order by a second launch.
+//
 // K10 and K11 at bf16/fp16 (ce_bwd_cluster_kernel, one template for both
 // modes; mode 0 = K10: R = x, T = w; mode 1 = K11: R = w, T = x): a
 // thread-block cluster of C CTAs owns 64 R rows, and each CTA a slice of
@@ -51,8 +64,8 @@
 // delivers about 2.4 TB/s in this pattern) and, with C > 1, the exchange of
 // the 16 KB partials between the cluster's CTAs.
 //
-// K9, and the other routes of K10/K11: every CTA (256 threads, 8 warps)
-// holds one resident block R of
+// K9 at fp32, and the other routes of K10/K11: every CTA (256 threads, 8
+// warps) holds one resident block R of
 // 32 rows x H in shared memory and streams blocks T of 32 rows x H through
 // one or two shared buffers (cp.async; two when they fit). Each step forms
 // the 32 x 32 tile S = R . T^T with warp-level tensor-core products
@@ -62,9 +75,9 @@
 // independent mma chains a warp, every R and T element read from shared
 // memory once) and writes its fp32 partial tile; the consumers of S sum the
 // eight partials in a fixed order.
-//  - K9: R = x tokens, T = w vocab blocks. 8 threads a token row keep the
-//    running max, sum and picked logit with shuffles; loss and lse are
-//    written once a row.
+//  - K9 (fp32): R = x tokens, T = w vocab blocks. 8 threads a token row
+//    keep the running max, sum and picked logit with shuffles; loss and
+//    lse are written once a row.
 //  - K10 (fp32): R = x tokens, T = w vocab blocks. dl (32 tokens x 32
 //    vocab) goes to shared memory, then dx[32 x H] += dl . T, the 32 x H
 //    fp32 accumulator spread over the 8 warps' registers (H/8 values a
@@ -75,8 +88,8 @@
 // Each CTA owns its output rows, so there are no atomics and every result
 // is deterministic; the TPU kernels' sequential-grid scratch becomes the
 // CTA's loop over T blocks.
-// Widths whose R block and T buffers do not fit a CTA's shared memory (K9
-// above 1024; the fp32 backward above 768; 2-byte backward widths with no
+// Widths whose R block and T buffers do not fit a CTA's shared memory (the
+// fp32 K9 above 768; the fp32 backward above 768; 2-byte backward widths with no
 // cluster split, such as 1408 or 4096) stream the hidden width instead:
 // each T block's S is accumulated over 256-column chunks of R and T staged
 // in turn (the same per-warp split, summed in a fixed order, so the bits
@@ -104,6 +117,7 @@ constexpr int kChunk = 256;   // hidden columns a streamed chunk
 constexpr int kThreads = 256;
 constexpr int kPStride = kRows + 8;  // fp32 row stride of a partial S tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr size_t kMaxSmem = 232448;
 
 template <typename T>
@@ -912,7 +926,6 @@ __global__ void __launch_bounds__(kCThreads, 1)
       }
     }
   }
-  constexpr float kLog2e = 1.4426950408889634f;
   float dbs[2] = {0.f, 0.f};  // K11: this warpgroup's db of rows ra, ra + 8
   float acc[kHalf][32];
 #pragma unroll
@@ -1091,6 +1104,250 @@ __global__ void __launch_bounds__(kCThreads, 1)
   if (csize > 1) cluster_sync();  // the end
 }
 
+// ---------------------------------------------------------------------------
+// K9 at bf16 and fp16: the warp-specialised wgmma kernel
+// ---------------------------------------------------------------------------
+constexpr int kFRows = 128;                     // token rows a unit (a stripe)
+constexpr int kFCols = 256;                     // vocab columns a tile
+constexpr int kFStages = 4;                     // K stages in the ring
+constexpr int kFXStage = kFRows * 64 * 2;       // x stage: 128 rows x 64 columns
+constexpr int kFStage = kFXStage + kFCols * 64 * 2;  // + the w stage: 48 KB
+constexpr int kFThreads = 384;                  // two consumer warpgroups, a producer
+constexpr int kFMaxRanges = 8;                  // vocab ranges the plan may split into
+constexpr float kLn2 = 0.6931471805599453f;
+
+// dynamic shared memory of the forward kernel: the ring, its full and empty
+// mbarriers, and 1024 bytes to align the base
+constexpr int fwd_smem_bytes() { return kFStages * kFStage + 2 * kFStages * 8 + 1024; }
+
+// first vocab tile of range r of `ranges` over `tiles` tiles (ranges differ
+// by at most one tile)
+__device__ __forceinline__ int range_begin(int tiles, int ranges, int r) {
+  return static_cast<int>(static_cast<long long>(tiles) * r / ranges);
+}
+
+// S of one 128 x 256 tile: the warpgroup's 64 rows of every x stage against
+// the 256 rows of its w stage, K stage by K stage from the ring; each stage
+// is released (one arrival a warpgroup on `empty`) as soon as the products
+// that read it have completed, one stage of products kept in flight.
+template <typename T>
+__device__ __forceinline__ void fwd_tile_product(float (&acc)[128], const unsigned char* sm,
+                                                 uint64_t* full, uint64_t* empty, int& slot,
+                                                 unsigned& phase, int ks_n, int wg, int tid) {
+  using namespace hopper;
+  auto mma_stage = [&](int k) {
+    mbar_wait(full + slot, phase);
+    const unsigned char* st = sm + slot * kFStage;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n256k16<T, 0>(acc, sw128_desc(st + wg * (kFXStage / 2) + kk * 32),
+                             sw128_desc(st + kFXStage + kk * 32), (k | kk) != 0);
+    wg_commit();
+    if (++slot == kFStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  };
+  fence_regs(acc);
+  int prev = slot;
+  mma_stage(0);
+  for (int k = 1; k < ks_n; ++k) {
+    const int cur = slot;
+    mma_stage(k);
+    wg_wait<1>();
+    if (tid == 0) mbar_arrive(empty + prev);
+    prev = cur;
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+  if (tid == 0) mbar_arrive(empty + prev);
+}
+
+// The online logsumexp step of one tile on the accumulator registers. The
+// thread holds rows (q = 0, 1) at columns col0 + cq + 8 j + e (j < 32,
+// e < 2): d[4 j + 2 q + e]. The bias is added and columns >= vocab set to
+// -inf; the label logit is taken from the one thread whose column is the
+// label; the row max over the quad of threads sharing the row (two
+// shuffles) raises the running max m (log2 units); the thread's own part of
+// the running sum l is rescaled and extended with exp2 of its columns. The
+// quad's l are summed once, at the end of the range.
+// epilogue: begin
+__device__ __forceinline__ void fwd_tile_lse(float (&d)[128], int col0, int cq, int vocab,
+                                             const float* bias, const int (&lab)[2],
+                                             float (&m)[2], float (&l)[2], float (&pk)[2]) {
+  using namespace hopper;
+  const int base = col0 + cq;
+  if (bias != nullptr || col0 + kFCols > vocab) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = base + 8 * j + e;
+        const float b =
+            c < vocab ? (bias != nullptr ? __ldg(bias + c) : 0.f) : -CUDART_INF_F;
+        d[4 * j + e] += b;
+        d[4 * j + 2 + e] += b;
+      }
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (lab[q] >= col0 && lab[q] < col0 + kFCols) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (base + 8 * j + e == lab[q]) pk[q] += d[4 * j + 2 * q + e];
+    }
+    float mx[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      mx[j & 3] = fmaxf(mx[j & 3], fmaxf(d[4 * j + 2 * q], d[4 * j + 2 * q + 1]));
+    float v = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    const float mn = fmaxf(m[q], v * kLog2e);
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      sum[j & 3] += exp2_approx(fmaf(d[4 * j + 2 * q], kLog2e, -mn)) +
+                    exp2_approx(fmaf(d[4 * j + 2 * q + 1], kLog2e, -mn));
+    l[q] = l[q] * exp2_approx(m[q] - mn) + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+    m[q] = mn;
+  }
+}
+// epilogue: end
+
+// K9 at bf16/fp16. Units of work are (stripe of 128 token rows, range of
+// vocab tiles), range-major: the CTAs in flight (one an SM, persistent, a
+// unit at a time in grid-stride order) take the stripes of one range, so
+// they meet the same w tiles in the same order and read them from L2
+// together, while their x stripes (128 x hidden each) stay in L2. The
+// producer warp streams the x stripe and the w tile of every K stage (64
+// columns) by TMA into a ring of 4 stages (48 KB each, 128-byte swizzle),
+// guarded by full and empty mbarriers; the two consumer warpgroups each own
+// 64 of the stripe's rows and form their 64 x 256 part of S with wgmma
+// m64n256k16 (both operands K-major in shared memory), the fp32 accumulator
+// in 128 registers a thread, then run the logsumexp on it (fwd_tile_lse).
+// Each row's (m, l, picked) stays in registers over the range; with one
+// range loss and lse are written directly, with more the (m, l, picked)
+// partials go to `part` [ranges, n_tok] and ce_fwd_merge_kernel folds them
+// in range order. No atomics: the bits repeat from launch to launch.
+template <typename T>
+__global__ void __launch_bounds__(kFThreads, 1)
+    ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap,
+                        const float* __restrict__ bias, const int* __restrict__ label,
+                        float* __restrict__ loss, float* __restrict__ lse,
+                        float4* __restrict__ part, int n_tok, int vocab, int h, int ranges) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kFStages * kFStage);
+  uint64_t* empty = full + kFStages;
+  const int stripes = (n_tok + kFRows - 1) / kFRows;
+  const int tiles = (vocab + kFCols - 1) / kFCols;
+  const int units = stripes * ranges;
+  const int ks_n = h / 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kFStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- producer warpgroup: one thread starts every TMA ----
+    setmaxnreg_dec<40>();
+    if (warp == 8 && lane == 0) {
+      int slot = 0, wraps = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int stripe = u % stripes, range = u / stripes;
+        const int t1 = range_begin(tiles, ranges, range + 1);
+        for (int t = range_begin(tiles, ranges, range); t < t1; ++t)
+          for (int k = 0; k < ks_n; ++k) {
+            if (wraps > 0) mbar_wait(empty + slot, (wraps - 1) & 1);
+            unsigned char* st = sm + slot * kFStage;
+            mbar_expect_tx(full + slot, kFStage);
+            tma_load_2d(st, &xmap, full + slot, 64 * k, stripe * kFRows);
+            tma_load_2d(st + kFXStage, &wmap, full + slot, 64 * k, t * kFCols);
+            if (++slot == kFStages) {
+              slot = 0;
+              ++wraps;
+            }
+          }
+      }
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups ----
+  setmaxnreg_inc<232>();
+  const int wg = warp >> 2, tid = threadIdx.x & 127;
+  const int rq = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // rows rq, rq + 8 of a stripe
+  const int cq = 2 * (lane & 3);                           // column pair in an n8 tile
+  float acc[128];
+  int slot = 0;
+  unsigned phase = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int stripe = u % stripes, range = u / stripes;
+    const int t1 = range_begin(tiles, ranges, range + 1);
+    const int row0 = stripe * kFRows + rq;
+    int lab[2];
+    float m[2], l[2], pk[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      lab[q] = row0 + 8 * q < n_tok ? label[row0 + 8 * q] : -1;
+      m[q] = kNegInf;
+      l[q] = 0.f;
+      pk[q] = 0.f;
+    }
+    for (int t = range_begin(tiles, ranges, range); t < t1; ++t) {
+      fwd_tile_product<T>(acc, sm, full, empty, slot, phase, ks_n, wg, tid);
+      fwd_tile_lse(acc, t * kFCols, cq, vocab, bias, lab, m, l, pk);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      l[q] += __shfl_xor_sync(0xffffffffu, l[q], 1);
+      l[q] += __shfl_xor_sync(0xffffffffu, l[q], 2);
+      pk[q] += __shfl_xor_sync(0xffffffffu, pk[q], 1);
+      pk[q] += __shfl_xor_sync(0xffffffffu, pk[q], 2);
+      const int row = row0 + 8 * q;
+      if ((lane & 3) == 0 && row < n_tok) {
+        if (ranges == 1) {
+          const float v = (m[q] + log2f(l[q])) * kLn2;
+          lse[row] = v;
+          loss[row] = v - pk[q];
+        } else {
+          part[static_cast<size_t>(range) * n_tok + row] = make_float4(m[q], l[q], pk[q], 0.f);
+        }
+      }
+    }
+  }
+}
+
+// loss and lse of each token from its ranges' (m, l, picked), in range
+// order
+__global__ void ce_fwd_merge_kernel(const float4* __restrict__ part, float* __restrict__ loss,
+                                    float* __restrict__ lse, int n_tok, int ranges) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_tok) return;
+  float mx = kNegInf;
+  for (int r = 0; r < ranges; ++r) mx = fmaxf(mx, part[static_cast<size_t>(r) * n_tok + row].x);
+  float l = 0.f, pk = 0.f;
+  for (int r = 0; r < ranges; ++r) {
+    const float4 p = part[static_cast<size_t>(r) * n_tok + row];
+    l += p.y * exp2f(p.x - mx);
+    pk += p.z;
+  }
+  const float v = (mx + log2f(l)) * kLn2;
+  lse[row] = v;
+  loss[row] = v - pk;
+}
+
 // the widths whose R block stays in shared memory: up to 1024, where the
 // buffers fit
 template <typename T>
@@ -1107,9 +1364,10 @@ size_t stream_smem_bytes(int piece) {
   return b;
 }
 
+// K9 at fp32 (the CPU-parity model): the FMA kernels, 32-row blocks
 template <typename T>
-int launch_fwd(const void* x, const void* w, const void* bias, const void* label,
-               void* loss, void* lse, int n_tok, int vocab, int h, cudaStream_t s) {
+int launch_fwd_fma(const void* x, const void* w, const void* bias, const void* label,
+                   void* loss, void* lse, int n_tok, int vocab, int h, cudaStream_t s) {
   const unsigned grid = (n_tok + kRows - 1) / kRows;
   cudaError_t e;
   if (resident<T>(h, false)) {
@@ -1179,8 +1437,8 @@ int piece_of(int h) {
   return 0;
 }
 
-// K10/K11's routes (ptt_fused_ce_plan reports them)
-enum Route : int { kRouteCluster = 0, kRouteStreamed = 1, kRouteResident = 2 };
+// K9-K11's routes (ptt_fused_ce_plan reports them)
+enum Route : int { kRouteCluster = 0, kRouteStreamed = 1, kRouteResident = 2, kRouteWgmma = 3 };
 
 struct BwdPlan {
   int route;    // Route
@@ -1238,15 +1496,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// tensor map of a row-major [rows, h] two-byte operand: 64 x 64 boxes,
+// tensor map of a row-major [rows, h] two-byte operand: boxes of 64
+// columns and `box_rows` rows (K10/K11: 64; K9: 128 of x, 256 of w),
 // 128-byte swizzle, rows past the end read as zeros
 template <typename T>
-cudaError_t tile_map(CUtensorMap* map, const void* p, int rows, int h) {
+cudaError_t tile_map(CUtensorMap* map, const void* p, int rows, int h, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(h) * sizeof(T)};
-  const cuuint32_t box[2] = {64, kCRows};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   const CUtensorMapDataType type = std::is_same<T, __nv_bfloat16>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
@@ -1263,9 +1522,9 @@ int launch_cluster(const void* x, const void* w, const void* bias, const void* l
                    const void* g, const void* lse, void* out, void* db, int n_tok, int vocab,
                    int h, int mode, const BwdPlan& p, cudaStream_t s) {
   CUtensorMap xmap, wmap;
-  cudaError_t e = tile_map<T>(&xmap, x, n_tok, h);
+  cudaError_t e = tile_map<T>(&xmap, x, n_tok, h, kCRows);
   if (e != cudaSuccess) return e;
-  e = tile_map<T>(&wmap, w, vocab, h);
+  e = tile_map<T>(&wmap, w, vocab, h, kCRows);
   if (e != cudaSuccess) return e;
   const size_t bytes = ClusterLayout(NC, p.cluster).bytes();
   auto* kernel = ce_bwd_cluster_kernel<T, NC>;
@@ -1291,6 +1550,81 @@ int launch_cluster(const void* x, const void* w, const void* bias, const void* l
                          static_cast<T*>(out), static_cast<float*>(db), n_tok, vocab, h, mode,
                          p.cluster);
   if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+struct FwdPlan {
+  int route;   // Route: wgmma (bf16/fp16), resident or streamed (fp32)
+  int ranges;  // vocab ranges (1 off the wgmma route)
+  int tile;    // vocab columns a tile
+  int ctas;    // CTAs launched
+};
+
+// The SMs of the current device (the persistent K9 launches one CTA an SM)
+int device_sms() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// The route of a K9 launch. bf16/fp16: the wgmma kernel, its units (128-row
+// stripes x vocab ranges) over at most one CTA an SM; the ranges (1 to 8,
+// at most one a tile) minimise the units a CTA takes times the tiles of a
+// range, the fewest ranges on a tie (24576 x 50304 on 132 SMs: 192 stripes
+// x 2 ranges = 384 units, 3 a CTA, 99 tiles a range). fp32: the resident
+// FMA kernel up to hidden 768 (its buffers fit), the streamed one above,
+// 32-row blocks.
+FwdPlan plan_fwd(int n_tok, int vocab, int h, int dtype, int sms) {
+  if (dtype == kFloat32)
+    return {resident<float>(h, false) ? kRouteResident : kRouteStreamed, 1, kRows,
+            (n_tok + kRows - 1) / kRows};
+  const int stripes = (n_tok + kFRows - 1) / kFRows;
+  const int tiles = (vocab + kFCols - 1) / kFCols;
+  int ranges = 1;
+  long long best = -1;
+  for (int r = 1; r <= kFMaxRanges && r <= tiles; ++r) {
+    const long long waves = (static_cast<long long>(stripes) * r + sms - 1) / sms;
+    const long long cost = waves * ((tiles + r - 1) / r);
+    if (best < 0 || cost < best) {
+      best = cost;
+      ranges = r;
+    }
+  }
+  const long long units = static_cast<long long>(stripes) * ranges;
+  return {kRouteWgmma, ranges, kFCols, static_cast<int>(units < sms ? units : sms)};
+}
+
+// fp32 workspace floats of K9's range partials (0 with one range)
+long long fwd_part_floats(int n_tok, int ranges) {
+  return ranges > 1 ? 4LL * ranges * n_tok : 0;
+}
+
+template <typename T>
+int launch_fwd_wgmma(const void* x, const void* w, const void* bias, const void* label,
+                     void* loss, void* lse, void* part, long long part_floats, int n_tok,
+                     int vocab, int h, const FwdPlan& p, cudaStream_t s) {
+  if (part_floats < fwd_part_floats(n_tok, p.ranges) || (p.ranges > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  cudaError_t e = tile_map<T>(&xmap, x, n_tok, h, kFRows);
+  if (e != cudaSuccess) return e;
+  e = tile_map<T>(&wmap, w, vocab, h, kFCols);
+  if (e != cudaSuccess) return e;
+  constexpr int bytes = fwd_smem_bytes();
+  e = cudaFuncSetAttribute(ce_fwd_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e != cudaSuccess) return e;
+  ce_fwd_wgmma_kernel<T><<<p.ctas, kFThreads, bytes, s>>>(
+      xmap, wmap, static_cast<const float*>(bias), static_cast<const int*>(label),
+      static_cast<float*>(loss), static_cast<float*>(lse), static_cast<float4*>(part), n_tok,
+      vocab, h, p.ranges);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.ranges == 1) return e;
+  ce_fwd_merge_kernel<<<(n_tok + 255) / 256, 256, 0, s>>>(
+      static_cast<const float4*>(part), static_cast<float*>(loss), static_cast<float*>(lse),
+      n_tok, p.ranges);
   return cudaGetLastError();
 }
 
@@ -1336,17 +1670,25 @@ bool hidden_ok(int h) { return h > 0 && h % 128 == 0; }
 
 // loss, lse: fp32 [n_tok]; label: int32 [n_tok] in [0, vocab); bias: fp32
 // [vocab] or null. x [n_tok, hidden] and w [vocab, hidden] share `dtype`;
-// hidden is any multiple of 128.
+// hidden is any multiple of 128; x and w 16-byte aligned. part: fp32
+// workspace of part_floats floats for the range partials of the bf16/fp16
+// kernel (4 * ranges * n_tok with more than one range in the plan; a
+// shorter one is refused).
 extern "C" int ptt_fused_ce_fwd(const void* x, const void* w, const void* bias,
-                                const void* label, void* loss, void* lse, int n_tok,
-                                int vocab, int hidden, int dtype, void* stream) {
+                                const void* label, void* loss, void* lse, void* part,
+                                long long part_floats, int n_tok, int vocab, int hidden,
+                                int dtype, void* stream) {
   using namespace ptt;
   if (!hidden_ok(hidden) || n_tok <= 0 || vocab <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return launch_fwd_fma<float>(x, w, bias, label, loss, lse, n_tok, vocab, hidden, s);
+  const int sms = device_sms();
+  if (sms <= 0) return cudaErrorInvalidValue;
+  const FwdPlan p = plan_fwd(n_tok, vocab, hidden, dtype, sms);
   switch (dtype) {
-    case kFloat32: return launch_fwd<float>(x, w, bias, label, loss, lse, n_tok, vocab, hidden, s);
-    case kBFloat16: return launch_fwd<__nv_bfloat16>(x, w, bias, label, loss, lse, n_tok, vocab, hidden, s);
-    case kFloat16: return launch_fwd<__half>(x, w, bias, label, loss, lse, n_tok, vocab, hidden, s);
+    case kBFloat16: return launch_fwd_wgmma<__nv_bfloat16>(x, w, bias, label, loss, lse, part, part_floats, n_tok, vocab, hidden, p, s);
+    case kFloat16: return launch_fwd_wgmma<__half>(x, w, bias, label, loss, lse, part, part_floats, n_tok, vocab, hidden, p, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1354,12 +1696,25 @@ extern "C" int ptt_fused_ce_fwd(const void* x, const void* w, const void* bias,
 // K10 (mode 0) / K11 (mode 1)'s plan for these sizes and dtype code:
 // plan[0] the route (0 cluster, 1 streamed, 2 resident), plan[1] the CTAs
 // of a cluster, plan[2] the output columns a CTA, plan[3] the CTAs launched.
+// K9's (mode 2), on the current device: plan[0] the route (3 wgmma, or 2
+// resident, 1 streamed at fp32), plan[1] the vocab ranges, plan[2] the
+// vocab columns a tile, plan[3] the CTAs launched.
 extern "C" int ptt_fused_ce_plan(int n_tok, int vocab, int hidden, int dtype, int mode,
                                  int* plan) {
   using namespace ptt;
-  if (!hidden_ok(hidden) || n_tok <= 0 || vocab <= 0 || (mode != 0 && mode != 1) ||
+  if (!hidden_ok(hidden) || n_tok <= 0 || vocab <= 0 || mode < 0 || mode > 2 ||
       dtype < kFloat32 || dtype > kFloat16)
     return cudaErrorInvalidValue;
+  if (mode == 2) {
+    const int sms = device_sms();
+    if (sms <= 0) return cudaErrorInvalidValue;
+    const FwdPlan p = plan_fwd(n_tok, vocab, hidden, dtype, sms);
+    plan[0] = p.route;
+    plan[1] = p.ranges;
+    plan[2] = p.tile;
+    plan[3] = p.ctas;
+    return cudaSuccess;
+  }
   const BwdPlan p = plan_bwd(n_tok, vocab, hidden, dtype, mode);
   plan[0] = p.route;
   plan[1] = p.cluster;

@@ -96,3 +96,9 @@ class DeviceLoader:
                 yield self._hand_out(*ahead.popleft())
         while ahead:
             yield self._hand_out(*ahead.popleft())
+
+    def shutdown(self):
+        """A no-op, safe to call any number of times: the JAX package stops
+        its stager threads here, but the port stages on the consumer's
+        thread (the copies themselves are asynchronous), so there is no
+        thread to stop and nothing staged outlives its iterator."""

@@ -11,7 +11,8 @@ K4 on the card. Training calls :meth:`GPTForCausalLM.loss`: causal attention
 runs the packed kernels K5/K6 and the LayerNorms K7/K8 on the card, and the
 loss is the chunked ``fused_linear_cross_entropy``. Tensor, sequence and
 pipeline parallelism and the deprecated tuple cache of the JAX model are not
-ported (see ROADMAP.md).
+ported (see ROADMAP.md): ``use_tp`` and ``use_sep`` keep the JAX package's
+meaning at degree 1 (the plain model), and a degree above 1 raises.
 """
 from __future__ import annotations
 
@@ -41,10 +42,39 @@ class GPTConfig:
     attention_dropout: float = 0.1
     initializer_range: float = 0.02
     layer_norm_eps: float = 1e-5
+    use_tp: bool = False       # tensor-parallel projections (mp degree > 1)
+    use_sep: bool = False      # ring-attention sequence parallelism (sep > 1)
+    tie_embeddings: bool = True
 
     @property
     def ffn_size(self):
         return self.intermediate_size or 4 * self.hidden_size
+
+
+def _mp_degree():
+    """The model-parallel degree the JAX package reads from fleet's hybrid
+    communicate group: 1, since the port has no such group (fleet is
+    ROADMAP.md A8)."""
+    return 1
+
+
+def _sep_degree():
+    """The sequence-parallel degree, as :func:`_mp_degree`: 1."""
+    return 1
+
+
+def _degree_one(cfg):
+    """As in the JAX package, ``use_tp`` / ``use_sep`` change the model only
+    at a model- / sequence-parallel degree above 1, which needs the hybrid
+    mesh the port does not have yet (ROADMAP.md A8): there they raise rather
+    than build the plain model in its place. ``tie_embeddings`` is read
+    nowhere, there as here: the head is always tied."""
+    for flag, degree, what in ((cfg.use_tp, _mp_degree(), "tensor"),
+                               (cfg.use_sep, _sep_degree(), "sequence")):
+        if flag and degree > 1:
+            raise NotImplementedError(
+                f"GPTConfig asks for {what} parallelism at degree {degree}; "
+                "the port builds only the degree-1 model (ROADMAP.md A8)")
 
 
 def _normal_(t, std, generator):
@@ -70,6 +100,7 @@ def _apply(lin, x):
 class GPTEmbeddings(nn.Module):
     def __init__(self, cfg: GPTConfig, generator=None):
         super().__init__()
+        _degree_one(cfg)
         self.cfg = cfg
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
@@ -96,6 +127,7 @@ class GPTDecoderLayer(nn.Module):
 
     def __init__(self, cfg: GPTConfig, generator=None):
         super().__init__()
+        _degree_one(cfg)
         self.cfg = cfg
         h = cfg.hidden_size
         self.num_heads = cfg.num_heads

@@ -70,7 +70,8 @@ from ...framework.flags import flag_value
 from ...ops.cuda import flash_attention as _fa
 from ...ops.cuda import flash_attention_packed as _fp
 
-__all__ = ["LengthMask", "scaled_dot_product_attention", "NEG_INF"]
+__all__ = ["LengthMask", "scaled_dot_product_attention", "flash_attention",
+           "NEG_INF"]
 
 #: additive-mask floor shared with serving.kv_cache.MASK_MIN
 NEG_INF = -1e30
@@ -389,7 +390,18 @@ def _sdpa(query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
-    """q, k, v: ``(batch, seq, heads, head_dim)`` (paddle layout)."""
+                                 training=True, name=None):
+    """q, k, v: ``(batch, seq, heads, head_dim)`` (paddle layout). ``name``
+    is accepted and ignored, as in the JAX package."""
     return _sdpa(query, key, value, attn_mask, dropout_p, is_causal,
                  training)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
+    """Paddle's ``flash_attention``: ``(out, None)``, ``out`` through the
+    same router as :func:`scaled_dot_product_attention` with no mask. As in
+    the JAX package, no softmax is returned and ``return_softmax``,
+    ``fixed_seed_offset``, ``rng_name`` and ``name`` are ignored."""
+    return _sdpa(query, key, value, None, dropout, causal, training), None

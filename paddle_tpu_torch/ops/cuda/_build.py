@@ -79,13 +79,14 @@ _SIGNATURES = {
     # dtype, stream
     "ptt_flash_attention_packed_bwd": (
         [p] * 12 + [i32] * 5 + [i64] * 12 + _ATTN_TAIL),
-    # x, w, bias, label, loss, lse, tokens, vocab, hidden, dtype, stream
-    "ptt_fused_ce_fwd": [p] * 6 + [i32] * 4 + [p],
+    # x, w, bias, label, loss, lse, range partials, their floats, tokens,
+    # vocab, hidden, dtype, stream
+    "ptt_fused_ce_fwd": [p] * 7 + [i64] + [i32] * 4 + [p],
     # x, w, bias, label, g, lse, out, db, tokens, vocab, hidden, mode,
     # round_dl, dtype, stream
     "ptt_fused_ce_bwd": [p] * 8 + [i32] * 6 + [p],
-    # tokens, vocab, hidden, dtype, mode, out: route, cluster CTAs, output
-    # columns a CTA, CTAs
+    # tokens, vocab, hidden, dtype, mode, out: route, cluster CTAs (K9:
+    # vocab ranges), output columns a CTA (K9: vocab columns a tile), CTAs
     "ptt_fused_ce_plan": [i32] * 5 + [p],
     # mask, b, h, sq, sk, seed0, seed1, threshold, stream
     "ptt_philox_keep_mask": [p, i32, i32, i32, i32, u32, u32, u32, p],

@@ -22,12 +22,15 @@ zeroes their ``g``). x and w may differ in dtype (bf16 against fp32, as
 what JAX's ``dot_general`` promotion computes, and ``dl`` is still rounded
 to the narrower operand's type where the reference casts it so. The kernels
 take fp32, bf16 and fp16 operands and every hidden size the JAX gate admits
-(a multiple of 128). :func:`kernel_plan` names the backward's route for a
-call: at bf16/fp16 a thread-block cluster shares 64 rows over slices of the
-hidden width (wgmma, TMA) where the width splits so, the hidden width
-streamed through shared memory in 256-column chunks where it does not;
-at fp32 FMA kernels. K9's token block stays in shared memory up to 1024
-columns and streams above.
+(a multiple of 128). :func:`kernel_plan` names each kernel's route for a
+call. K9 at bf16/fp16: a warp-specialised kernel (TMA ring, wgmma
+m64n256k16) over stripes of 128 tokens and 256-column vocab tiles, the
+logsumexp on the accumulator registers, the vocabulary split into ranges
+where that fills the card's last wave (partials merged in range order).
+K10/K11 at bf16/fp16: a thread-block cluster shares 64 rows over slices of
+the hidden width (wgmma, TMA) where the width splits so, the hidden width
+streamed through shared memory in 256-column chunks where it does not. At
+fp32 all three run FMA kernels.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (``csrc/fused_ce.cu``) or raises. The raw launchers
@@ -60,12 +63,15 @@ def supports(hidden_size):
     return hidden_size % LANES == 0
 
 
-#: K10/K11's routes by the library's code (csrc/fused_ce.cu ``Route``)
-ROUTES = ("cluster", "streamed", "resident")
+#: K9-K11's routes by the library's code (csrc/fused_ce.cu ``Route``)
+ROUTES = ("cluster", "streamed", "resident", "wgmma")
 #: 64-column chunks of a cluster CTA's slice, widest first: even, so the two
 #: consumer warpgroups take half each (one kernel instantiation a type each)
 SLICE_CHUNKS = (6, 4, 2)
 _MAX_CLUSTER = 8
+#: K9's wgmma kernel: token rows a stripe, vocab columns a tile, the most
+#: vocab ranges, and the SMs of an H100 SXM (one persistent CTA an SM)
+FWD_ROWS, FWD_TILE, FWD_MAX_RANGES, H100_SMS = 128, 256, 8, 132
 
 
 def _ring_slots(nc, c):
@@ -79,9 +85,31 @@ def _ring_slots(nc, c):
     return (232448 - 1024 - ring) // tile
 
 
-def kernel_plan(tokens, vocab, hidden, dtype, mode):
-    """How the library runs K10 (``mode`` 0) or K11 (``mode`` 1) on operands
-    of ``dtype`` (the type the kernel takes: fp32 for a mixed pair):
+def _fwd_plan(tokens, vocab, hidden, dtype, sms):
+    if dtype == torch.float32:
+        return {"route": "resident" if hidden <= 768 else "streamed",
+                "ranges": 1, "tile": 32, "ctas": -(-tokens // 32)}
+    stripes = -(-tokens // FWD_ROWS)
+    tiles = -(-vocab // FWD_TILE)
+    _, ranges = min((-(-stripes * r // sms) * -(-tiles // r), r)
+                    for r in range(1, min(FWD_MAX_RANGES, tiles) + 1))
+    return {"route": "wgmma", "ranges": ranges, "tile": FWD_TILE,
+            "ctas": min(stripes * ranges, sms)}
+
+
+def kernel_plan(tokens, vocab, hidden, dtype, mode, sms=H100_SMS):
+    """How the library runs K9 (``mode`` 2), K10 (``mode`` 0) or K11
+    (``mode`` 1) on operands of ``dtype`` (the type the kernel takes: fp32
+    for a mixed pair).
+
+    K9: ``{"route", "ranges", "tile", "ctas"}``. bf16/fp16 take the wgmma
+    kernel: units of 128 tokens x a range of 256-column vocab tiles, at
+    most one persistent CTA of ``sms`` an SM; ``ranges`` (1 to 8, at most
+    one a tile) minimises the units a CTA takes times the tiles of a range,
+    the fewest on a tie. fp32 takes the resident FMA kernel up to hidden
+    768 and the streamed one above (32-token blocks, one range).
+
+    K10/K11:
     ``{"route", "cluster", "slice", "ctas"}``. bf16/fp16 take the cluster
     kernel (``cluster`` CTAs share 64 rows, each ``slice`` hidden columns:
     384, 256 or 128, the fewest CTAs, at most 8, as long as the CTA's ring
@@ -90,6 +118,8 @@ def kernel_plan(tokens, vocab, hidden, dtype, mode):
     768 and the streamed one above. Off the cluster route ``slice`` is the
     output columns a CTA (32 rows). A copy of ``ptt_fused_ce_plan``
     (:func:`library_plan`), which decides on the card."""
+    if mode == 2:
+        return _fwd_plan(tokens, vocab, hidden, dtype, sms)
     rows = tokens if mode == 0 else vocab
     blocks = -(-rows // 32)
     if dtype != torch.float32:
@@ -109,14 +139,16 @@ def kernel_plan(tokens, vocab, hidden, dtype, mode):
 
 def library_plan(tokens, vocab, hidden, dtype, mode):
     """:func:`kernel_plan` as the kernel library makes it
-    (``ptt_fused_ce_plan``). Builds the library at first use."""
+    (``ptt_fused_ce_plan``; K9's on the current card's SMs). Builds the
+    library at first use."""
     plan = (ctypes.c_int * 4)()
     check(library().ptt_fused_ce_plan(tokens, vocab, hidden,
                                       dtype_code(dtype), mode,
                                       ctypes.byref(plan)),
           "fused_ce plan")
-    return {"route": ROUTES[plan[0]], "cluster": plan[1], "slice": plan[2],
-            "ctas": plan[3]}
+    keys = (("route", "ranges", "tile", "ctas") if mode == 2
+            else ("route", "cluster", "slice", "ctas"))
+    return dict(zip(keys, (ROUTES[plan[0]], *plan[1:])))
 
 
 # ---------------------------------------------------------------------------
@@ -246,13 +278,19 @@ def ce_forward(x, w, b, y):
         return ce_forward_plain(x, w, b, y)
     xk, wk, bk, yk = _operands("fused_ce_fwd", x, w, b, y)
     n, h = xk.shape
+    v = wk.shape[0]
     loss = torch.empty(n, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(loss)
     if n == 0:
         return loss, lse
+    # the range partials (m, l, picked) of the wgmma kernel's vocab split
+    ranges = library_plan(n, v, h, xk.dtype, 2)["ranges"]
+    part = (torch.empty(4 * ranges * n, dtype=torch.float32, device=x.device)
+            if ranges > 1 else None)
     check(library().ptt_fused_ce_fwd(
         xk.data_ptr(), wk.data_ptr(), _ptr(bk), yk.data_ptr(),
-        loss.data_ptr(), lse.data_ptr(), n, wk.shape[0], h,
+        loss.data_ptr(), lse.data_ptr(), _ptr(part),
+        0 if part is None else part.numel(), n, v, h,
         dtype_code(xk.dtype), stream_of(xk)), "fused_ce_fwd")
     ce_forward.launches += 1
     return loss, lse

@@ -95,7 +95,8 @@ class _FusedLinearCE(torch.autograd.Function):
 
 
 def fused_linear_cross_entropy(hidden, weight, labels, bias=None,
-                               ignore_index=-100, reduction="mean", chunk=0):
+                               ignore_index=-100, reduction="mean", chunk=0,
+                               name=None):
     """``cross_entropy(hidden @ weight.T + bias, labels)`` without
     materializing the logits.
 
@@ -107,6 +108,7 @@ def fused_linear_cross_entropy(hidden, weight, labels, bias=None,
         ignore_index: label value excluded from the loss and the mean.
         reduction: ``"mean" | "sum" | "none"``.
         chunk: token-chunk size (0 = auto).
+        name: accepted and ignored, as in the JAX package.
     """
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be mean, sum or none: {reduction!r}")

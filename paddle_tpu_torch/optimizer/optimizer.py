@@ -236,6 +236,42 @@ class Optimizer:
 
     clear_gradients = clear_grad
 
+    @staticmethod
+    def _dygraph_only(loss):
+        if not isinstance(loss, torch.Tensor):
+            raise NotImplementedError(
+                f"the port's optimizers take a dygraph loss tensor, got "
+                f"{type(loss).__name__}: static Programs are ROADMAP.md A10")
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """The JAX package's dygraph branch: ``loss.backward()``, then
+        :meth:`step`; returns ``(None, None)``. The other arguments belong
+        to its static branch and are ignored there too."""
+        self._dygraph_only(loss)
+        loss.backward()
+        self.step()
+        return None, None
+
+    def backward(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None, callbacks=None):
+        """``loss.backward()``; returns ``[(param, grad)]`` of the
+        parameters that take gradients, for :meth:`apply_gradients`."""
+        self._dygraph_only(loss)
+        loss.backward()
+        return [(p, p.grad) for p in self._parameter_list if p.requires_grad]
+
+    @torch.no_grad()
+    def apply_gradients(self, params_grads):
+        """Each parameter's update rule on its given gradient, as the JAX
+        package's ``apply_gradients``: no clip, regularizer, weight-decay
+        folding, per-parameter learning rate or step count (those belong
+        to :meth:`step`)."""
+        lr = torch.tensor(self.get_lr(), dtype=torch.float32)
+        for p, g in params_grads:
+            if g is not None:
+                self._step_one(p, g, lr)
+
     # -- state dict ----------------------------------------------------------
     def state_dict(self):
         """``{f"{param_key}_{accumulator}": tensor, "@step": int}`` (and

@@ -904,6 +904,95 @@ def test_fused_ce_plan_of_the_library_matches_kernel_plan(dev):
                             == k9.kernel_plan(n, v, hidden, dtype, mode))
 
 
+# K9's wgmma kernel at odd shapes: 300 tokens (not a multiple of its 128-row
+# stripes), vocab 1000 (not a multiple of its 256-column tiles, so the last
+# tile is partial, and 4 ranges merged), hidden 128 to 1536, bias on and
+# off, bf16 and fp16; labels in the last partial tile
+_FCE_FWD = [
+    (300, 1000, 128, torch.bfloat16, True),
+    (300, 1000, 128, torch.float16, False),
+    (300, 1000, 384, torch.bfloat16, False),
+    (300, 1000, 384, torch.float16, True),
+    (300, 1000, 1408, torch.bfloat16, True),
+    (300, 1000, 1408, torch.float16, False),
+    (300, 1000, 1536, torch.bfloat16, False),
+    (300, 1000, 1536, torch.float16, True),
+    (1, 257, 256, torch.bfloat16, True),
+    (4000, 3000, 768, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("n,v,h,dtype,use_bias", _FCE_FWD)
+def test_fused_ce_forward_kernel_matches_plain(dev, n, v, h, dtype, use_bias):
+    x, w, b, y, _ = _fce_inputs(dev, n, v, h, dtype, dtype, use_bias, n + h)
+    last = v - (v % 256 or 256)
+    y[::5] = torch.randint(last, v, y[::5].shape, device=dev)
+    assert k9.library_plan(n, v, h, dtype, 2)["route"] == "wgmma"
+    c0 = k9.ce_forward.launches
+    loss, lse = k9.ce_forward(x, w, b, y)
+    torch.cuda.synchronize()
+    assert k9.ce_forward.launches == c0 + 1
+    for got, ref in zip((loss, lse), k9.ce_forward_plain(x, w, b, y)):
+        _close_to_max(got, ref, _STEP[dtype])
+
+
+def test_fused_ce_forward_gives_the_same_bits_twice(dev):
+    """K9 at the GPT-2 124M train shape (24576 x 768 x 50304, bf16), where
+    the plan splits the vocabulary into ranges: no atomics, the ranges'
+    partials merged in a fixed order, so loss and lse are the same bits on
+    a second launch."""
+    x, w, b, y, _ = _fce_inputs(dev, 24576, 50304, 768, torch.bfloat16,
+                                torch.bfloat16, False, 12)
+    assert k9.library_plan(24576, 50304, 768, torch.bfloat16, 2)["ranges"] > 1
+    a = k9.ce_forward(x, w, b, y)
+    c = k9.ce_forward(x, w, b, y)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+
+
+def test_fused_ce_forward_plan_of_the_library_matches_kernel_plan(dev):
+    """The library's K9 plan (route, vocab ranges, tile columns, CTAs) is
+    ``kernel_plan``'s for the card's SMs, over three types, every hidden
+    size up to 4096 and token and vocab counts around the stripes and
+    tiles."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for hidden in range(128, 4097, 128):
+            for n, v in ((1, 1), (127, 257), (300, 1000), (16384, 50304),
+                         (24576, 50304), (100000, 50304)):
+                assert (k9.library_plan(n, v, hidden, dtype, 2)
+                        == k9.kernel_plan(n, v, hidden, dtype, 2, sms))
+
+
+def test_fused_ce_forward_launcher_refuses_what_it_does_not_take(dev):
+    """The C entry refuses a range-partials workspace shorter than the
+    plan's, none at all, and hidden sizes off the 128-column gate."""
+    from paddle_tpu_torch.ops.cuda import library
+    from paddle_tpu_torch.ops.cuda._build import dtype_code, stream_of
+
+    n, v, h = 300, 1000, 128
+    x, w, _, y, _ = _fce_inputs(dev, n, v, h, torch.bfloat16, torch.bfloat16,
+                                False, 3)
+    y = y.to(torch.int32)
+    loss = torch.empty(n, device=dev)
+    lse = torch.empty(n, device=dev)
+    ranges = k9.library_plan(n, v, h, torch.bfloat16, 2)["ranges"]
+    assert ranges > 1
+    part = torch.empty(4 * ranges * n, device=dev)
+
+    def call(floats, ptr=part.data_ptr(), hidden=h):
+        return library().ptt_fused_ce_fwd(
+            x.data_ptr(), w.data_ptr(), None, y.data_ptr(), loss.data_ptr(),
+            lse.data_ptr(), ptr, floats, n, v, hidden, dtype_code(x.dtype),
+            stream_of(x))
+
+    assert call(part.numel()) == 0
+    assert call(part.numel() - 1) != 0
+    assert call(part.numel(), None) != 0
+    assert call(part.numel(), hidden=64) != 0
+    torch.cuda.synchronize()
+
+
 def test_fused_ce_autograd_through_the_router(dev):
     """With the flag on a CUDA tensor the loss runs K9 forward and K10/K11
     backward, never the chunked loop, and equals the plain versions'."""

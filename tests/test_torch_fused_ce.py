@@ -23,7 +23,9 @@ round dx and dw once (measured: at most 2.4e-3 of it).
 ``kernel_plan`` (the Python copy of the library's ``ptt_fused_ce_plan``)
 names K10/K11's route: the cluster kernel at bf16/fp16 where the hidden
 width splits into slices of 384, 256 or 128 over at most 8 CTAs, the
-streamed kernel where it does not, and FMA kernels at fp32.
+streamed kernel where it does not, and FMA kernels at fp32; and K9's
+(mode 2): the wgmma kernel at bf16/fp16 for every width, its vocab ranges
+and persistent CTAs on an H100's 132 SMs, FMA kernels at fp32.
 """
 import contextlib
 
@@ -283,6 +285,18 @@ _PLANS = [
     (4096, torch.bfloat16, 1, ("streamed", 1, 512)),
     (768, torch.float32, 0, ("resident", 1, 768)),
     (1536, torch.float32, 1, ("streamed", 1, 768)),
+    # K9 (mode 2): (route, {tokens: (vocab ranges, CTAs)}). 24576 tokens are
+    # 192 stripes of 128: one range would leave 1.45 waves on 132 SMs, two
+    # give 384 units, 3 a CTA (2.91 waves), 99 of the 197 vocab tiles a
+    # range; 16384 tokens are 128 stripes, one wave with one range
+    (768, torch.bfloat16, 2, ("wgmma", {24576: (2, 132), 16384: (1, 128)})),
+    (1536, torch.bfloat16, 2, ("wgmma", {24576: (2, 132), 16384: (1, 128)})),
+    (1408, torch.bfloat16, 2, ("wgmma", {24576: (2, 132), 16384: (1, 128)})),
+    (4096, torch.bfloat16, 2, ("wgmma", {24576: (2, 132), 16384: (1, 128)})),
+    (3072, torch.float16, 2, ("wgmma", {24576: (2, 132), 16384: (1, 128)})),
+    (768, torch.float32, 2, ("resident", {24576: (1, 768), 16384: (1, 512)})),
+    (1536, torch.float32, 2, ("streamed", {24576: (1, 768),
+                                           16384: (1, 512)})),
 ]
 
 
@@ -293,8 +307,17 @@ def test_kernel_plan_names_the_route(hidden, dtype, mode, want):
     whose ring still holds two T blocks beside the partners' partials; the
     streamed kernel at 2-byte widths that do not (1408: 22 CTAs; 2048 and
     3072, whose 8-CTA clusters leave too little ring; 4096); FMA kernels at
-    fp32. The CTAs launched follow from the rows."""
+    fp32. The CTAs launched follow from the rows. K9 takes the wgmma
+    kernel at every 2-byte width (256-column vocab tiles) and the FMA
+    kernels at fp32 (32-token blocks, one range)."""
     n, v = 24576, 50304
+    if mode == 2:
+        route, by_tokens = want
+        for tokens, (ranges, ctas) in by_tokens.items():
+            assert k9.kernel_plan(tokens, v, hidden, dtype, 2) == {
+                "route": route, "ranges": ranges,
+                "tile": 256 if route == "wgmma" else 32, "ctas": ctas}
+        return
     plan = k9.kernel_plan(n, v, hidden, dtype, mode)
     assert (plan["route"], plan["cluster"], plan["slice"]) == want
     rows = n if mode == 0 else v
