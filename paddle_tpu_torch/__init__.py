@@ -10,8 +10,11 @@ The port covers GPT serving (``models.GPTForCausalLM``,
 ``GPTForCausalLM.loss`` (the chunked fused loss, or the flash-CE kernels
 under ``FLAGS_enable_flash_ce``), the optimizers with LR schedulers,
 gradient clipping and regularizers, ``amp`` (``auto_cast``, ``decorate``,
-``GradScaler``) and ``io.DeviceLoader``. It imports neither ``jax`` nor
-``paddle_tpu``.
+``GradScaler``) and ``io.DeviceLoader``; and the encoder family:
+``nn.Transformer`` and its layers, BERT (``models.BertForPretraining``,
+``BertForSequenceClassification`` behind ``serving.EncoderScorer``) and
+ERNIE (``models.ErnieForPretraining`` and its heads). It imports neither
+``jax`` nor ``paddle_tpu``.
 """
 from . import (amp, framework, io, models, nn, ops, optimizer,  # noqa: F401
                regularizer, serving)

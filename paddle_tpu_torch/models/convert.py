@@ -5,6 +5,9 @@
 mirrors the JAX module tree). paddle's ``Linear.weight`` is ``[in, out]``
 (``paddle_tpu/nn/layer/common.py``) while ``torch.nn.Linear.weight`` is
 ``[out, in]``, so every Linear weight is transposed on the way in.
+A parameter shared by two modules (ERNIE's MLM head reuses the word
+embedding) is one entry, under the name ``named_parameters()`` gives it
+first, as the JAX model's ``state_dict`` lists it.
 
 ``load_jax_optimizer_state(opt, state, model, jax_names)`` does the same for
 an optimizer's ``state_dict()`` (the accumulators of every ported optimizer,

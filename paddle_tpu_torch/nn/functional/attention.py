@@ -69,6 +69,7 @@ from ...framework import random as rnd
 from ...framework.flags import flag_value
 from ...ops.cuda import flash_attention as _fa
 from ...ops.cuda import flash_attention_packed as _fp
+from .common import _promoted
 
 __all__ = ["LengthMask", "scaled_dot_product_attention", "flash_attention",
            "NEG_INF"]
@@ -329,13 +330,18 @@ def _sdpa_flash(q, k, v, mask=None, causal=False, scale=None,
 
 def _sdpa_raw(q, k, v, mask=None, dropout_mask=None, causal=False,
               scale=None, dropout_p=0.0):
-    """Dense path: matmul + softmax in the input dtype (small shapes).
-    ``dropout_mask`` is a keep-mask drawn by the caller, as in JAX: the
-    kept probabilities are scaled by ``1 / (1 - dropout_p)``."""
+    """Dense path: matmul + softmax (small shapes), in the dtypes JAX
+    computes in: the logits in q and k's promoted dtype, plus a float mask
+    in their promoted dtype, and the probabilities times v in theirs. So
+    bf16 q/k/v with an fp32 additive mask (an encoder's padding mask) give
+    fp32 probabilities and an fp32 output, as in JAX, where torch's own
+    products would refuse the mixed operands. ``dropout_mask`` is a
+    keep-mask drawn by the caller, as in JAX: the kept probabilities are
+    scaled by ``1 / (1 - dropout_p)``."""
     q, k, v, mask = _amp_cast("sdpa", q, k, v, mask)
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(d)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * s
+    logits = torch.einsum("bqhd,bkhd->bhqk", *_promoted(q, k)) * s
     if causal:
         # iota compare, bottom-right aligned as in the JAX package
         ql, kl = logits.shape[-2], logits.shape[-1]
@@ -352,7 +358,7 @@ def _sdpa_raw(q, k, v, mask=None, dropout_mask=None, causal=False,
     probs = torch.softmax(logits, dim=-1)
     if dropout_mask is not None:
         probs = probs * dropout_mask.to(probs.dtype) / (1.0 - dropout_p)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return torch.einsum("bhqk,bkhd->bqhd", *_promoted(probs, v))
 
 
 def _sdpa(query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,

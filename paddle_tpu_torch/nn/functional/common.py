@@ -34,8 +34,19 @@ def linear(x, weight, bias=None):
     return torch.nn.functional.linear(x, weight) + bias
 
 
-def matmul(x, y):
+def _swap_last(t):
+    return t.transpose(-1, -2) if t.ndim >= 2 else t
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    """``paddle.matmul``: ``transpose_x`` / ``transpose_y`` swap the last two
+    axes of an operand of two or more dims first; ``name`` is accepted and
+    ignored, as in the JAX package."""
     x, y = _amp_cast("matmul", x, y)
+    if transpose_x:
+        x = _swap_last(x)
+    if transpose_y:
+        y = _swap_last(y)
     return torch.matmul(*_promoted(x, y))
 
 

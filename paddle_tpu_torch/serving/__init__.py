@@ -1,7 +1,8 @@
-"""Serving tier of the port: static KV cache, generation engine and the
-continuous-batching scheduler (``paddle_tpu/serving``)."""
+"""Serving tier of the port: static KV cache, generation engine, the
+continuous-batching scheduler and the encoders' bucketed scorer
+(``paddle_tpu/serving``)."""
 from .draft import DraftProposer, NgramProposer  # noqa: F401
-from .engine import GenerationEngine  # noqa: F401
+from .engine import EncoderScorer, GenerationEngine  # noqa: F401
 from .kv_cache import (  # noqa: F401
     MASK_MIN,
     ChunkView,

@@ -36,6 +36,7 @@ import torch
 from ..fault import inject as _inject
 from ..framework.place import resolve_device
 from ..nn.functional import LengthMask
+from ..profiler import telemetry as _telemetry
 from ..profiler import tracing as _tracing
 from .kv_cache import (
     MASK_MIN,
@@ -47,7 +48,7 @@ from .kv_cache import (
     pick_bucket,
 )
 
-__all__ = ["GenerationEngine"]
+__all__ = ["GenerationEngine", "EncoderScorer"]
 
 
 def _sample_next(logits, generators, temps, top_ks, top_ps):
@@ -410,3 +411,66 @@ class GenerationEngine:
     def lengths(self):
         """Per-slot cached-token counts (host numpy)."""
         return self.cache.lengths.cpu().numpy()
+
+
+class EncoderScorer:
+    """Bucketed batch scoring for encoder models (BERT classification) —
+    port of the JAX package's ``EncoderScorer``.
+
+    Requests are padded to ``[max_batch, seq_bucket]`` (the smallest of
+    ``seq_buckets`` that fits a chunk's longest sequence; default
+    ``default_buckets(max_seq)``) with a ``[max_batch, bucket]`` fp32
+    keep-mask, scored by one eager forward under ``torch.inference_mode()``,
+    and the padding rows dropped. No KV cache: encoders are single-shot.
+
+    The JAX scorer compiles one ``serve_score`` executable per bucket and
+    may freeze the weights into it; eager PyTorch has no such program, so
+    ``freeze_weights`` is accepted and ignored, and ``padded_shapes`` (the
+    ``(max_batch, bucket)`` shapes run, in first-use order) stands where
+    JAX counts its compiles: one shape a bucket used.
+    """
+
+    def __init__(self, model, *, max_batch=8, seq_buckets=None,
+                 max_seq=None, freeze_weights="auto"):
+        del freeze_weights
+        model.eval()
+        self.model = model
+        self.max_batch = int(max_batch)
+        cfg = getattr(model, "cfg", None) or model.bert.cfg
+        self.max_seq = int(max_seq or cfg.max_position_embeddings)
+        self.seq_buckets = tuple(sorted(
+            int(b) for b in (seq_buckets or default_buckets(self.max_seq))))
+        self.padded_shapes = []
+
+    @torch.inference_mode()
+    def _step(self, ids, mask):
+        shape = tuple(ids.shape)
+        if shape not in self.padded_shapes:
+            self.padded_shapes.append(shape)
+        dev = self.model.device
+        return self.model(torch.from_numpy(ids).to(dev),
+                          attention_mask=torch.from_numpy(mask).to(dev))
+
+    def score(self, sequences):
+        """Score a list of token-id sequences; returns ``[n, classes]``
+        numpy logits. Requests are chunked to ``max_batch`` and padded to
+        the smallest bucket that fits the chunk's longest sequence."""
+        seqs = [np.asarray(s, np.int64).reshape(-1) for s in sequences]
+        if _telemetry.enabled():
+            _telemetry.get_telemetry().declare_variants(
+                "serve_score", len(self.seq_buckets))
+        outs = []
+        for lo in range(0, len(seqs), self.max_batch):
+            chunk = seqs[lo:lo + self.max_batch]
+            bucket = pick_bucket(max(len(s) for s in chunk),
+                                 self.seq_buckets)
+            ids = np.zeros((self.max_batch, bucket), np.int64)
+            mask = np.zeros((self.max_batch, bucket), np.float32)
+            for i, s in enumerate(chunk):
+                ids[i, :len(s)] = s
+                mask[i, :len(s)] = 1.0
+            logits = self._step(ids, mask)[:len(chunk)]
+            if logits.dtype in (torch.bfloat16, torch.float16):
+                logits = logits.float()
+            outs.append(logits.cpu().numpy())
+        return np.concatenate(outs, axis=0)

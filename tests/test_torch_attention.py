@@ -386,3 +386,65 @@ def test_uncached_dropout_waits_for_the_training_slice(monkeypatch):
                                        jnp.asarray(drawn[0].numpy()),
                                        causal=True, dropout_p=0.1))
     np.testing.assert_allclose(outs[0].numpy(), want, atol=FP32_TOL, rtol=0)
+
+
+_BF16_STEP = 2.0 ** -7
+_DTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16),
+           "fp32": (jnp.float32, torch.float32)}
+
+
+def _mask_pair(kind, b, sq, sk, seed):
+    """The same mask for both packages: additive ``[b, 1, 1, sk]`` (an
+    encoder's padding mask, -1e4 on the padded keys) in bf16 or fp32, or a
+    bool ``[b, 1, sq, sk]`` keep-mask."""
+    if kind == "none":
+        return None, None
+    rng = np.random.RandomState(seed)
+    if kind == "bool":
+        keep = rng.rand(b, 1, sq, sk) < 0.7
+        keep[..., 0] = True
+        return jnp.asarray(keep), torch.from_numpy(keep)
+    keep = np.ones((b, sk), np.float32)
+    keep[1, sk // 2:] = 0.0
+    add = ((1.0 - keep) * -1e4)[:, None, None, :]
+    jdt, tdt = _DTYPES[kind]
+    return jnp.asarray(add).astype(jdt), torch.from_numpy(add).to(tdt)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["none", "bf16", "fp32", "bool"])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_dense_path_promotes_as_jax(dtype, mask_kind, causal):
+    """C7: the dense path computes in JAX's dtypes. The logits plus a float
+    mask and the probabilities times v promote as ``jnp`` promotes, so bf16
+    q/k/v with an fp32 padding mask give an fp32 output (where torch's own
+    einsum would refuse the mixed operands). Values: fp32 within 1e-5 when
+    the logits are fp32; bf16 q/k/v round their logits to bf16 in either
+    package (in other orders), so within two bf16 steps of the largest
+    output."""
+    b, sq, sk, h, d = 2, 8, 8, 2, 16
+    q, k, v = _qkv(b, sq, sk, h, d, seed=5)
+    jdt, tdt = _DTYPES[dtype]
+    jm, tm = _mask_pair(mask_kind, b, sq, sk, seed=6)
+    jq, jk, jv = (a.astype(jdt) for a in _j(q, k, v))
+    tq, tk, tv = (t.to(tdt) for t in _t(q, k, v))
+    want = JA._sdpa_raw.raw(jq, jk, jv, jm, causal=causal)
+    got = PA._sdpa_raw(tq, tk, tv, tm, causal=causal)
+    assert got.dtype == {"bfloat16": torch.bfloat16,
+                         "float32": torch.float32}[str(want.dtype)]
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    tol = (FP32_TOL if dtype == "fp32"
+           else 2 * _BF16_STEP * float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+def test_bf16_dense_path_with_a_padding_mask_is_fp32():
+    """The encoders' case of C7, through the router: bf16 q/k/v at s 16 with
+    the fp32 ``[b, 1, 1, s]`` mask take the dense path and come back
+    fp32."""
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(2, 16, 16, 2, 16)))
+    _, mask = _mask_pair("fp32", 2, 16, 16, seed=7)
+    out = PA.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          training=False)
+    assert out.dtype == torch.float32 and out.shape == (2, 16, 2, 16)

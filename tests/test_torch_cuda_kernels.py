@@ -27,6 +27,10 @@ on an H100); summed in a fixed order, they must be the same bits twice. K9-K11 a
 step of the largest value (the tile products are exact products summed in
 fp32 in another order) and their bf16 gradients to one bf16 step; K10 and
 K11 (no atomics, sums in a fixed order) must give the same bits twice.
+The encoders' shapes are held to the same limits: K7/K8 at width 1024 with
+eps 1e-12 (K7 on bf16 and fp32 rows, beta exactly on a row of zero
+variance) and K9-K11 at hidden 1024 with vocabularies 18000 (bias) and
+30522, 85 % of the labels ignored (dx exactly 0 on those rows).
 """
 import math
 
@@ -383,6 +387,35 @@ def test_layer_norm_bwd_kernel_matches_plain(dev, rows, feat, xdt, wdt):
     torch.cuda.synchronize()
     assert k7.layer_norm_bwd.launches == before + 1
     want = k7.layer_norm_bwd_plain(x, gamma, dy, 1e-5)
+    _assert_close(dx, want[0])
+    _assert_close(dgamma, want[1], **_param_grad_tol(rows))
+    _assert_close(dbeta, want[2], **_param_grad_tol(rows))
+
+
+# the encoders' LayerNorms (BERT-large, ERNIE-large): width 1024, eps
+# 1e-12; bf16 rows, and the fp32 rows a padding mask gives K7 (attention
+# promotes against the fp32 mask); rows of zero variance, where the
+# statistics rest on eps alone, give beta exactly (a constant with bf16's 8
+# significant bits sums exactly in fp32)
+@pytest.mark.parametrize("rows", [1, 7, 4096])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+def test_layer_norm_kernels_at_the_encoder_width(dev, rows, xdt):
+    g = torch.Generator(device="cpu").manual_seed(rows)
+    x = (torch.randn(rows, 1024, generator=g) * 3 + 1).to(dev, xdt)
+    gamma = (1 + 0.1 * torch.randn(1024, generator=g)).to(dev)
+    beta = (0.1 * torch.randn(1024, generator=g)).to(dev)
+    dy = torch.randn(rows, 1024, generator=g).to(dev, xdt)
+    _assert_close(k7.layer_norm(x, gamma, beta, 1e-12),
+                  k7.layer_norm_plain(x, gamma, beta, 1e-12))
+    flat = x.clone()
+    flat[0] = flat[0, 0].to(torch.bfloat16).to(xdt)
+    got = k7.layer_norm(flat, gamma, beta, 1e-12)
+    _assert_close(got, k7.layer_norm_plain(flat, gamma, beta, 1e-12))
+    assert torch.equal(got[0], beta.to(xdt))
+    if xdt == torch.float32:
+        return
+    dx, dgamma, dbeta = k7.layer_norm_bwd(x, gamma, dy, 1e-12)
+    want = k7.layer_norm_bwd_plain(x, gamma, dy, 1e-12)
     _assert_close(dx, want[0])
     _assert_close(dgamma, want[1], **_param_grad_tol(rows))
     _assert_close(dbeta, want[2], **_param_grad_tol(rows))
@@ -871,6 +904,35 @@ def test_fused_ce_kernels_match_plain(dev, n, v, h, xdt, wdt, use_bias):
         _assert_close(db, want_db)
     else:
         assert db is None
+
+
+# the encoders' MLM heads at hidden 1024: ERNIE-large's vocabulary (18000:
+# 70 full 256-column tiles and 80 columns, 281 64-column blocks and 16) with
+# its bias, all labels live or 85 % ignored (g = 0 and label 0, as the
+# router passes them), and BERT-large's (30522) without a bias
+@pytest.mark.parametrize("n,v,use_bias,ignored", [
+    (300, 18000, True, 0.0), (2048, 18000, True, 0.85),
+    (1000, 30522, False, 0.85)])
+def test_fused_ce_kernels_at_the_encoder_heads(dev, n, v, use_bias,
+                                               ignored):
+    x, w, b, y, go = _fce_inputs(dev, n, v, 1024, torch.bfloat16,
+                                 torch.bfloat16, use_bias, n + v)
+    drop = torch.rand(n, generator=torch.Generator().manual_seed(n)) < ignored
+    drop = drop.to(dev)
+    drop[:2] = True
+    y[drop] = 0
+    go[drop] = 0.0
+    loss, lse = k9.ce_forward(x, w, b, y)
+    for got, ref in zip((loss, lse), k9.ce_forward_plain(x, w, b, y)):
+        _close_to_max(got, ref)
+    dx = k9.ce_backward_dx(x, w, b, y, go, lse)
+    dw, db = k9.ce_backward_dw(x, w, b, y, go, lse)
+    assert bool((dx[drop] == 0).all())
+    _assert_close(dx, k9.ce_backward_dx_plain(x, w, b, y, go, lse))
+    want_dw, want_db = k9.ce_backward_dw_plain(x, w, b, y, go, lse)
+    _assert_close(dw, want_dw)
+    if use_bias:
+        _assert_close(db, want_db)
 
 
 def test_fused_ce_backward_gives_the_same_bits_twice(dev):

@@ -181,7 +181,15 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import importlib, pkgutil, sys, paddle_tpu_torch as pt; "
             "mods = [importlib.import_module(m.name) for m in "
             "pkgutil.walk_packages(pt.__path__, 'paddle_tpu_torch.')]; "
-            "assert len(mods) > 40, len(mods); "
+            "assert len(mods) > 45, len(mods); "
+            "names = {m.__name__ for m in mods}; "
+            "new = {'paddle_tpu_torch.models.bert', "
+            "'paddle_tpu_torch.models.ernie', "
+            "'paddle_tpu_torch.nn.layer.transformer', "
+            "'paddle_tpu_torch.nn.layer.common', "
+            "'paddle_tpu_torch.nn.functional.loss'}; "
+            "assert new <= names, new - names; "
+            "from paddle_tpu_torch.serving import EncoderScorer; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad); "

@@ -10,7 +10,11 @@ and held against the JAX package on the same inputs:
 * ``nn.functional.flash_attention`` and the ``name=`` keyword of
   ``scaled_dot_product_attention`` and ``fused_linear_cross_entropy``:
   fp32 outputs within 1e-5 (the same arithmetic in another order);
-* ``DeviceLoader.shutdown``: safe to call twice, before and after a pass.
+* ``DeviceLoader.shutdown``: safe to call twice, before and after a pass;
+* ``matmul(x, y, transpose_x=, transpose_y=, name=)`` (C8) against
+  ``paddle_tpu.ops.matmul``: fp32 within 1e-5, a bf16 operand against an
+  fp32 one promoted to fp32 as in JAX, and ``amp.auto_cast`` casting the
+  inputs by the op name ``matmul``.
 """
 import numpy as np
 import pytest
@@ -215,3 +219,62 @@ def test_device_loader_shutdown_is_safe_twice():
         np.testing.assert_array_equal(g, w)
     # a pass after the shutdowns still hands out every batch
     assert [int(b[0, 0]) for b in tl] == [0, 1, 2, 3]
+
+
+# (x shape, y shape) before the transposes: 2-D, batched 3-D against 3-D,
+# batched against a shared 2-D, and a vector (whose flag changes nothing)
+_MATMUL_SHAPES = [((4, 6), (6, 5)), ((3, 4, 6), (3, 6, 5)),
+                  ((3, 4, 6), (6, 5)), ((6,), (6, 5))]
+
+
+def _swapped(a, flag):
+    return np.swapaxes(a, -1, -2) if flag and a.ndim >= 2 else a
+
+
+@pytest.mark.parametrize("transpose_y", [False, True])
+@pytest.mark.parametrize("transpose_x", [False, True])
+@pytest.mark.parametrize("shapes", _MATMUL_SHAPES,
+                         ids=["2d", "batched", "shared_y", "vector_x"])
+def test_matmul_transposes_match_jax(shapes, transpose_x, transpose_y):
+    """C8: the flags swap an operand's last two axes first (operands given
+    in their transposed layout, so each product is defined)."""
+    rng = np.random.RandomState(11)
+    x = _swapped(rng.randn(*shapes[0]).astype(np.float32), transpose_x)
+    y = _swapped(rng.randn(*shapes[1]).astype(np.float32), transpose_y)
+    x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+    want = paddle.ops.matmul(paddle.to_tensor(x), paddle.to_tensor(y),
+                             transpose_x=transpose_x,
+                             transpose_y=transpose_y, name="mm")
+    got = PF.matmul(torch.from_numpy(x), torch.from_numpy(y),
+                    transpose_x=transpose_x, transpose_y=transpose_y,
+                    name="mm")
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                               atol=FP32_TOL, rtol=0)
+
+
+def test_matmul_transpose_keeps_promotion_and_amp():
+    """bf16 ``h`` against an fp32 weight with ``transpose_y`` (the encoders'
+    tied MLM head) computes in fp32, as JAX promotes; under
+    ``auto_cast(O1)`` both operands go to bf16 by the op name."""
+    rng = np.random.RandomState(12)
+    h = rng.randn(2, 3, 8).astype(np.float32)
+    w = rng.randn(10, 8).astype(np.float32)
+    hb = torch.from_numpy(h).to(torch.bfloat16)
+    want = paddle.ops.matmul(paddle.to_tensor(h).astype("bfloat16"),
+                             paddle.to_tensor(w), transpose_y=True)
+    got = PF.matmul(hb, torch.from_numpy(w), transpose_y=True)
+    assert got.dtype == torch.float32 and str(want.dtype) == "float32"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                               atol=FP32_TOL, rtol=0)
+    with paddle.amp.auto_cast(level="O1"):
+        jw = paddle.ops.matmul(paddle.to_tensor(h), paddle.to_tensor(w),
+                               transpose_y=True)
+    with pt.amp.auto_cast(level="O1"):
+        tw = PF.matmul(torch.from_numpy(h), torch.from_numpy(w),
+                       transpose_y=True)
+    assert tw.dtype == torch.bfloat16 and str(jw.dtype) == "bfloat16"
+    # both round an fp32 sum to bf16: one bf16 step of the largest value
+    jw = np.asarray(jw.astype("float32").numpy())
+    np.testing.assert_allclose(tw.float().numpy(), jw,
+                               atol=2.0 ** -7 * np.abs(jw).max(), rtol=0)

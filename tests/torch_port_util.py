@@ -86,3 +86,56 @@ def gpt_pair(seed=0, vocab=97, hidden=128, layers=2, heads=2, max_pos=256,
     pm.load_jax_state(tm, state)
     tm.eval()
     return jm, tm
+
+
+def jax_state(jax_model):
+    """The JAX model's ``state_dict()`` as ``{name: numpy array}``."""
+    return {k: np.asarray(v.numpy()) for k, v in jax_model.state_dict().items()}
+
+
+def model_pair(jax_ctor, port_ctor, seed=0):
+    """``(jax_model, port_model)``: ``jax_ctor()`` built from
+    ``paddle.seed(seed)`` and ``port_ctor(device="cpu")`` holding the same
+    weights (``load_jax_state``), both in eval mode."""
+    import paddle_tpu as paddle
+    from paddle_tpu.utils import unique_name
+
+    import paddle_tpu_torch.models as pm
+
+    from paddle_tpu.optimizer.optimizer import Optimizer
+
+    with unique_name.guard():
+        paddle.seed(seed)
+        jm = jax_ctor()
+        # a stacked layer's deep copies carry no names; a JAX optimizer
+        # names them at its first step from the global generator, where the
+        # names clash with this guard's: name them here, in its order
+        for p in jm.parameters():
+            Optimizer._pkey(p)
+    jm.eval()
+    tm = port_ctor(device="cpu")
+    pm.load_jax_state(tm, jax_state(jm))
+    tm.eval()
+    return jm, tm
+
+
+def grads_match(jax_model, port_model, atol=1e-5, rtol=1e-4):
+    """Every parameter's gradient of the port within ``atol`` + ``rtol``
+    relative of JAX's, element by element (paddle's Linear weights are
+    ``[in, out]``: transposed); a parameter off the loss's path has none in
+    either."""
+    from paddle_tpu_torch.models.convert import _linear_weights
+
+    linear = _linear_weights(port_model)
+    jgrads = {n: p.grad for n, p in jax_model.named_parameters()}
+    tparams = dict(port_model.named_parameters())
+    assert set(jgrads) == set(tparams)
+    for name, p in tparams.items():
+        if jgrads[name] is None:            # not on the loss's path
+            assert p.grad is None, name
+            continue
+        want = np.asarray(jgrads[name].numpy(), np.float32)
+        if name in linear:
+            want = want.T
+        np.testing.assert_allclose(p.grad.float().numpy(), want, atol=atol,
+                                   rtol=rtol, err_msg=name)
