@@ -183,12 +183,35 @@
     beta on rows of zero variance) and K9-K11 at BERT-large's head (16384 x
     1024 x 30522, bf16) and ERNIE-large's (8192 x 1024 x 18000, bf16, bias,
     85 % of the labels ignored: K10/K11's bounds count the labelled rows).
-13. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
+13. The vision path (the main path of the vision slice), after the encoder
+    phases, random weights from ``torch.manual_seed`` and seeded synthetic
+    images and labels drawn on the card; cuDNN's algorithm search on and
+    layout autotune on inside each phase (``_vision_setup``), both
+    restored after; TF32 off. ``resnet50_train``: ``tools/bench_resnet.py``'s
+    train step, ``resnet50(num_classes=1000)`` in bf16 with fp32 batch
+    norms, channels-last convolutions, ``Momentum(0.1, 0.9, weight decay
+    1e-4, multi_precision)``, cross entropy on fp32 logits, batch 128 x 3 x
+    224 x 224, 3 warm-up and 10 timed steps: images/s over the device
+    clock, the step split, peak memory and the analytic model-FLOP share
+    (3 x 2 x 4.089e9 FLOP an image against the dense bf16 peak); it fails
+    without cuDNN, unless layer1.0.conv2's output is channels-last and its
+    batch norm's output bf16 with fp32 statistics that moved.
+    ``resnet50_vs_plain``: 3 steps at batch 32 from one seed in bf16
+    channels-last and in fp32 NCHW: the first step's logits within
+    ``VS_FP32_STEPS`` bf16 steps of the largest fp32 logit and the first
+    loss within ``VS_FP32_LOSS_TOL``; then the bf16 model's eval logits
+    channels-last against a copy run NCHW within ``LAYOUT_STEPS`` steps.
+    ``resnet50_eval``: images/s of the eval forward at batch 128.
+    ``lenet``: LeNet, 5 Adam(1e-3) steps on one seeded batch of 64 x 1 x
+    28 x 28: the loss falls. None of them launches K1-K11.
+14. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
     K1-K4 and K6 with their bf16 HMMA counts and ptxas registers and
     spills, K9-K11 with their plan a case and their bf16 wgmma kernels'
     HGMMA counts and registers and spills (K9 also beside the cuBLAS
     product), K4 with its key parts at decode, K6 with the K2 + K3 witness,
-    K1-K3 and K5/K6 with a ``dropout`` entry), then the result line last.
+    K1-K3 and K5/K6 with a ``dropout`` entry; every entry's
+    ``launches_by_path`` names the vision paths with their launches, 0),
+    then the result line last.
 
 Any failure raises and exits non-zero; nothing is printed as a result then.
 """
@@ -2387,6 +2410,329 @@ def ernie_large_phase(torch, np):
             "launches_per_step": {k: v / steps for k, v in counts.items()},
             "chunked_loop_calls": loop_calls[0]}
 
+
+#: ``tools/bench_resnet.py``'s train step: ResNet-50, 1000 classes, batch
+#: 128 of 224 x 224 images
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 128, 224, 1000
+#: ResNet-50's forward at 224 x 224: 4.089 G multiply-adds an image
+#: (``bench_resnet.py:104-106``); a train step is about 3 forwards
+RESNET_TRAIN_FLOP = 3 * 2 * 4.089e9
+RESNET_FWD_FLOP = 2 * 4.089e9
+
+
+@contextlib.contextmanager
+def _vision_setup(torch, layout=True):
+    """Layout autotune (``incubate.autotune``) and cuDNN's algorithm search
+    (``torch.backends.cudnn.benchmark``, the counterpart of XLA's
+    compile-time conv autotuning) for the block; both restored after. TF32
+    stays off (``main``)."""
+    from paddle_tpu_torch.incubate import autotune
+
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    autotune.set_config({"layout": {"enable": layout}})
+    try:
+        yield
+    finally:
+        autotune.set_config({"layout": {"enable": False}})
+        torch.backends.cudnn.benchmark = prev
+
+
+def _resnet50(torch, seed, bf16=True):
+    """``bench_resnet.py``'s model: ``resnet50(num_classes=1000)`` from
+    ``torch.manual_seed(seed)``, in bf16 with the batch norms kept fp32
+    (``bench_resnet.py:60-66``), or fp32. Built under the caller's layout
+    setting (layout autotune builds the conv weights channels-last)."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    torch.manual_seed(seed)
+    model = resnet50(num_classes=RESNET_CLASSES, device="cuda")
+    if bf16:
+        model.to(torch.bfloat16)
+        for m in model.modules():
+            if type(m).__name__.startswith("BatchNorm"):
+                m.float()
+    return model
+
+
+def _image_batches(torch, seed, steps, batch, size, classes, channels=3,
+                   dtype=None):
+    """Seeded synthetic images (standard normal) and labels ``[batch, 1]``,
+    as ``bench_resnet.py`` makes them, drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = dtype or torch.bfloat16
+    return [(torch.randn(batch, channels, size, size, generator=gen,
+                         device="cuda").to(dtype),
+             torch.randint(0, classes, (batch, 1), generator=gen,
+                           device="cuda"))
+            for _ in range(steps)]
+
+
+def _momentum(model):
+    """``bench_resnet.py``'s optimizer."""
+    from paddle_tpu_torch.optimizer import Momentum
+
+    return Momentum(learning_rate=0.1, momentum=0.9,
+                    parameters=model.parameters(), weight_decay=1e-4,
+                    use_nesterov=False, multi_precision=True)
+
+
+def _vision_step(model, opt, images, labels, ev=None):
+    """``bench_resnet.py``'s train step: cross entropy on fp32 logits,
+    backward, the optimizer. ``ev``: four CUDA events to record (start,
+    after the loss, after backward, after the optimizer)."""
+    from paddle_tpu_torch.nn import functional as F
+
+    def mark(i):
+        if ev is not None:
+            ev[i].record()
+
+    mark(0)
+    logits = model(images)
+    loss = F.cross_entropy(logits.float(), labels, reduction="mean")
+    mark(1)
+    loss.backward()
+    mark(2)
+    opt.step()
+    opt.clear_grad()
+    mark(3)
+    return logits.detach(), loss.detach()
+
+
+def _no_kernel_launched(counts, path):
+    _require(sum(counts.values()) == 0,
+             f"{path} launches none of K1-K11 ({counts})")
+
+
+def resnet50_train_phase(torch, np):
+    """``tools/bench_resnet.py``'s train step on ResNet-50 at batch 128 x 3 x
+    224 x 224: bf16 with fp32 batch norms, layout autotune on (channels-last
+    convolutions), cuDNN's algorithm search, ``Momentum(0.1, 0.9, weight
+    decay 1e-4, multi_precision)``, ``cross_entropy`` on fp32 logits; 3
+    warm-up and 10 timed steps, launch counts zeroed just before and read
+    just after. Fails without cuDNN, unless a block's conv output is
+    channels-last, the batch norm's output bf16 and its running statistics
+    fp32 and moved, and the losses finite."""
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    _require(torch.backends.cudnn.is_available(), "cuDNN is available")
+    warm, timed = 3, 10
+    with _vision_setup(torch):
+        model = _resnet50(torch, 0)
+        opt = _momentum(model)
+        batches = _image_batches(torch, 60, warm + timed, RESNET_BATCH,
+                                 RESNET_SIZE, RESNET_CLASSES)
+        seen = {}
+        conv = model.layer1[0].conv2
+        hooks = [conv.register_forward_hook(
+                     lambda m, i, o: seen.setdefault("conv", o)),
+                 model.layer1[0].bn2.register_forward_hook(
+                     lambda m, i, o: seen.setdefault("bn", o))]
+        mean0 = model.layer1[0].bn2._mean.clone()
+        model.train()
+        events, losses = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for images, labels in batches:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            _, loss = _vision_step(model, opt, images, labels, ev)
+            events.append(ev)
+            losses.append(loss)
+            for h in hooks:
+                h.remove()
+            hooks = []
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    _require(all(np.isfinite(losses)), f"ResNet-50 losses finite: {losses}")
+    cl = seen["conv"].is_contiguous(memory_format=torch.channels_last)
+    _require(cl and conv.weight.is_contiguous(
+        memory_format=torch.channels_last),
+        "layer1.0.conv2's weight and output are channels-last")
+    bn = model.layer1[0].bn2
+    _require(seen["bn"].dtype == torch.bfloat16
+             and bn._mean.dtype == bn._variance.dtype == torch.float32
+             and bn.weight.dtype == torch.float32
+             and not torch.equal(bn._mean, mean0),
+             "batch norm: bf16 output, fp32 parameters and running "
+             "statistics that the steps moved")
+    _no_kernel_launched(counts, "resnet50_train")
+    split = _step_split(events, warm, timed, RESNET_BATCH, 1)
+    images_per_s = split.pop("tokens_per_s")
+    del model, opt, batches, seen
+    torch.cuda.empty_cache()
+    return {"batch": RESNET_BATCH, "image_size": RESNET_SIZE,
+            "classes": RESNET_CLASSES, "warmup_steps": warm,
+            "timed_steps": timed, "losses": losses,
+            "images_per_s": images_per_s, **split,
+            "optimizer_share_of_step": split["optimizer_ms"]
+            / split["step_ms"],
+            "model_flop_share": RESNET_TRAIN_FLOP * images_per_s
+            / H100_BF16_FLOPS,
+            "model_flop_share_basis": "3 x 2 x 4.089e9 FLOP an image "
+            "(bench_resnet.py) against 989e12 FLOP/s, the H100 SXM data "
+            "sheet's dense bf16 peak",
+            "wall_s_all_steps": wall, "peak_memory_gib": peak / 2 ** 30,
+            "conv_output_channels_last": cl, "launches": counts}
+
+
+#: the vision gates, in bf16 steps (2^-7) of the logits' largest magnitude.
+#: The bf16 channels-last forward against the fp32 NCHW one rounds every
+#: conv output and activation to bf16 through 53 convolutions and batch
+#: norms of a random-init ResNet-50: 15.3 steps and a first-loss gap of
+#: 0.030 measured on an H100 (PERF.md), held to about twice and three
+#: times that. The two layouts in bf16 differ only in cuDNN's and the batch
+#: norms' summation orders, each output rounded once at places a rounding
+#: apart: 0.31 of a step measured.
+VS_FP32_STEPS = 32
+VS_FP32_LOSS_TOL = 0.1
+LAYOUT_STEPS = 4
+
+
+def resnet50_vs_plain(torch, np):
+    """The same weights (``torch.manual_seed(1)``) and batches (batch 32)
+    through 3 train steps twice: the bf16 channels-last run of the phase
+    and an fp32 NCHW run (layout autotune off). The first step's logits
+    within ``VS_FP32_STEPS`` bf16 steps of the largest fp32 logit and the
+    first loss within ``VS_FP32_LOSS_TOL``; then, after the steps, the bf16
+    model's eval logits (the running statistics) channels-last against the
+    same model run NCHW within ``LAYOUT_STEPS`` steps: the layout route
+    alone."""
+    import copy
+
+    batch, steps = 32, 3
+    batches = _image_batches(torch, 61, steps, batch, RESNET_SIZE,
+                             RESNET_CLASSES, dtype=torch.float32)
+    runs = {}
+    for name, layout, bf16 in (("bf16_channels_last", True, True),
+                               ("fp32_nchw", False, False)):
+        with _vision_setup(torch, layout=layout):
+            model = _resnet50(torch, 1, bf16=bf16)
+            opt = _momentum(model)
+            model.train()
+            dt = torch.bfloat16 if bf16 else torch.float32
+            logits, losses = None, []
+            for images, labels in batches:
+                out, loss = _vision_step(model, opt, images.to(dt), labels)
+                logits = out.float() if logits is None else logits
+                losses.append(float(loss))
+            runs[name] = (model, logits, losses)
+    model, logits, losses = runs["bf16_channels_last"]
+    _, ref, ref_losses = runs.pop("fp32_nchw")
+    _require(all(np.isfinite(losses + ref_losses)),
+             f"losses finite: {losses} {ref_losses}")
+    scale = max(1.0, float(ref.abs().max()))
+    logit_err = float((logits - ref).abs().max())
+    logit_rel_l2 = float((logits - ref).norm() / ref.norm())
+    _require(logit_err <= VS_FP32_STEPS * BF16_STEP * scale,
+             f"step-1 logits within {VS_FP32_STEPS} bf16 steps of the fp32 "
+             f"NCHW run ({logit_err:.3g}, largest {scale:.3g})")
+    loss_err = abs(losses[0] - ref_losses[0])
+    _require(loss_err <= VS_FP32_LOSS_TOL, f"first loss within "
+             f"{VS_FP32_LOSS_TOL} of the fp32 NCHW run ({losses[0]} vs "
+             f"{ref_losses[0]})")
+    model.eval()
+    nchw = copy.deepcopy(model).to(memory_format=torch.contiguous_format)
+    images = batches[0][0].to(torch.bfloat16)
+    with torch.no_grad():
+        with _vision_setup(torch, layout=True):
+            cl_logits = model(images).float()
+        with _vision_setup(torch, layout=False):
+            nchw_logits = nchw(images).float()
+    _require(not nchw.conv1.weight.is_contiguous(
+        memory_format=torch.channels_last), "the NCHW copy is NCHW")
+    scale_eval = max(1.0, float(nchw_logits.abs().max()))
+    layout_err = float((cl_logits - nchw_logits).abs().max())
+    _require(layout_err <= LAYOUT_STEPS * BF16_STEP * scale_eval,
+             f"eval logits channels-last within {LAYOUT_STEPS} bf16 steps "
+             f"of NCHW ({layout_err:.3g}, largest {scale_eval:.3g})")
+    del runs, model, nchw
+    torch.cuda.empty_cache()
+    return {"batch": batch, "steps": steps,
+            "losses_bf16_channels_last": losses,
+            "losses_fp32_nchw": ref_losses,
+            "step1_logits_max_abs_diff": logit_err,
+            "step1_logits_largest": scale,
+            "step1_logits_rel_l2": logit_rel_l2,
+            "first_loss_abs_diff": loss_err,
+            "eval_logits_layout_max_abs_diff": layout_err,
+            "eval_logits_largest": scale_eval}
+
+
+def resnet50_eval_phase(torch, np):
+    """Images/s of ResNet-50's eval forward at batch 128 x 224 x 224, bf16
+    with fp32 batch norms, channels-last: 3 warm-up and 10 timed forwards
+    under ``no_grad``, launch counts zeroed just before and read just
+    after."""
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    warm, timed = 3, 10
+    with _vision_setup(torch):
+        model = _resnet50(torch, 2)
+        model.eval()
+        (images, _), = _image_batches(torch, 62, 1, RESNET_BATCH,
+                                      RESNET_SIZE, RESNET_CLASSES)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            for _ in range(warm):
+                model(images)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(timed):
+                logits = model(images)
+            e.record()
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    _require(bool(logits.isfinite().all()) and logits.dtype == torch.bfloat16
+             and tuple(logits.shape) == (RESNET_BATCH, RESNET_CLASSES),
+             "eval logits finite, bf16, [128, 1000]")
+    _no_kernel_launched(counts, "resnet50_eval")
+    ms = s.elapsed_time(e) / timed
+    images_per_s = RESNET_BATCH / ms * 1e3
+    del model, images
+    torch.cuda.empty_cache()
+    return {"batch": RESNET_BATCH, "timed_forwards": timed,
+            "ms_per_forward": ms, "images_per_s": images_per_s,
+            "model_flop_share": RESNET_FWD_FLOP * images_per_s
+            / H100_BF16_FLOPS, "launches": counts}
+
+
+def lenet_phase(torch, np):
+    """LeNet (``BASELINE.json`` config 1) on the card: fp32, 5 Adam(1e-3)
+    steps on one seeded batch of 64 x 1 x 28 x 28 images: the loss falls;
+    launch counts zeroed just before and read just after."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+
+    torch.manual_seed(3)
+    model = LeNet(num_classes=10)
+    opt = Adam(learning_rate=1e-3, parameters=model.parameters())
+    (images, labels), = _image_batches(torch, 63, 1, 64, 28, 10, channels=1,
+                                       dtype=torch.float32)
+    kernels.reset_launch_counts()
+    losses = []
+    for _ in range(5):
+        loss = F.cross_entropy(model(images), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    counts = kernels.launch_counts()
+    _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+             f"LeNet's loss falls: {losses}")
+    _no_kernel_launched(counts, "lenet")
+    return {"batch": 64, "steps": 5, "losses": losses,
+            "device": str(next(model.parameters()).device),
+            "launches": counts}
+
+
 _TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
                "cached_tc_kernel", "packed_bwd_tc_kernel",
                "ce_bwd_cluster_kernel", "ce_fwd_wgmma_kernel")
@@ -2697,6 +3043,24 @@ def main():
           f"backward {ernie['backward_ms']:.1f}, optimizer "
           f"{ernie['optimizer_ms']:.1f}), peak "
           f"{ernie['peak_memory_gib']:.2f} GiB on {card}")
+    vision = resnet50_train_phase(torch, np)
+    print(f"resnet50_train: {json.dumps(vision)}")
+    print(f"resnet50_train: {vision['images_per_s']:.1f} images/s, step "
+          f"{vision['step_ms']:.1f} ms (forward {vision['forward_ms']:.1f}, "
+          f"backward {vision['backward_ms']:.1f}, optimizer "
+          f"{vision['optimizer_ms']:.1f}), peak "
+          f"{vision['peak_memory_gib']:.2f} GiB, model FLOP share "
+          f"{100 * vision['model_flop_share']:.1f} % of the dense bf16 peak "
+          f"on {card}")
+    vision_plain = resnet50_vs_plain(torch, np)
+    print(f"resnet50_vs_plain: {json.dumps(vision_plain)}")
+    vision_eval = resnet50_eval_phase(torch, np)
+    print(f"resnet50_eval: {json.dumps(vision_eval)}")
+    print(f"resnet50_eval: {vision_eval['images_per_s']:.1f} images/s "
+          f"({vision_eval['ms_per_forward']:.2f} ms a forward of "
+          f"{RESNET_BATCH}) on {card}")
+    lenet = lenet_phase(torch, np)
+    print(f"lenet: {json.dumps(lenet)}")
     for c in k8_cases:
         c.update(_k8_launches_apart(torch, timer, c.pop("_split")))
     print("K8's launches apart (torch.profiler, device ms): " + json.dumps(
@@ -2723,10 +3087,17 @@ def main():
                 "gpt3_large_generate": large_gen["launches"][name],
                 "bert_score": score["launches"][name],
                 "bert_large_mlm": mlm["launches"][name],
-                "ernie_large": ernie["launches"][name]}
+                "ernie_large": ernie["launches"][name],
+                "resnet50_train": vision["launches"][name],
+                "resnet50_eval": vision_eval["launches"][name],
+                "lenet": lenet["launches"][name]}
+
+    vision_paths = ("resnet50_train", "resnet50_eval", "lenet")
 
     def only(name, *keys):
-        return {k: v for k, v in paths(name).items() if k in keys}
+        # the vision paths launch none of K1-K11: every entry says so
+        return {k: v for k, v in paths(name).items()
+                if k in keys + vision_paths}
 
     packed = "paddle_tpu_torch/csrc/flash_attention_packed.cu"
     flash = "paddle_tpu_torch/csrc/flash_attention.cu"

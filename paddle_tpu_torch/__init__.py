@@ -13,14 +13,18 @@ gradient clipping and regularizers, ``amp`` (``auto_cast``, ``decorate``,
 ``GradScaler``) and ``io.DeviceLoader``; and the encoder family:
 ``nn.Transformer`` and its layers, BERT (``models.BertForPretraining``,
 ``BertForSequenceClassification`` behind ``serving.EncoderScorer``) and
-ERNIE (``models.ErnieForPretraining`` and its heads). It imports neither
-``jax`` nor ``paddle_tpu``.
+ERNIE (``models.ErnieForPretraining`` and its heads); and the vision path:
+``vision.models`` (LeNet, the ResNet family) on ``nn``'s convolutions, batch
+norms and pooling, with ``incubate.autotune``'s layout autotune
+(channels-last convolutions). It imports neither ``jax`` nor
+``paddle_tpu``.
 """
-from . import (amp, framework, io, models, nn, ops, optimizer,  # noqa: F401
-               regularizer, serving)
+from . import (amp, framework, incubate, io, models, nn, ops,  # noqa: F401
+               optimizer, regularizer, serving, vision)
 from .framework.random import (  # noqa: F401
     get_cuda_rng_state, get_rng_state, seed, set_cuda_rng_state, set_rng_state)
 
-__all__ = ["amp", "framework", "io", "models", "nn", "ops", "optimizer",
-           "regularizer", "serving", "seed", "get_rng_state", "set_rng_state",
-           "get_cuda_rng_state", "set_cuda_rng_state"]
+__all__ = ["amp", "framework", "incubate", "io", "models", "nn", "ops",
+           "optimizer", "regularizer", "serving", "vision", "seed",
+           "get_rng_state", "set_rng_state", "get_cuda_rng_state",
+           "set_cuda_rng_state"]

@@ -2,9 +2,12 @@
 
 ``load_jax_state(model, state)`` fills a port model from the JAX model's
 ``state_dict()`` given as ``{name: numpy array}`` (the names match: the port
-mirrors the JAX module tree). paddle's ``Linear.weight`` is ``[in, out]``
-(``paddle_tpu/nn/layer/common.py``) while ``torch.nn.Linear.weight`` is
-``[out, in]``, so every Linear weight is transposed on the way in.
+mirrors the JAX module tree): its parameters and its persistable buffers
+(the batch norms' ``_mean`` and ``_variance``). paddle's ``Linear.weight`` is
+``[in, out]`` (``paddle_tpu/nn/layer/common.py``) while
+``torch.nn.Linear.weight`` is ``[out, in]``, so every Linear weight is
+transposed on the way in; convolution weights are ``[out, in/groups, *k]``
+in both packages and are not.
 A parameter shared by two modules (ERNIE's MLM head reuses the word
 embedding) is one entry, under the name ``named_parameters()`` gives it
 first, as the JAX model's ``state_dict`` lists it.
@@ -29,12 +32,23 @@ def _linear_weights(model):
             if isinstance(mod, nn.Linear)}
 
 
+def _persistent_buffers(model):
+    """The buffers ``state_dict`` saves, by module path."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for name, buf in mod._buffers.items():
+            if buf is not None and name not in mod._non_persistent_buffers_set:
+                out[f"{prefix}.{name}" if prefix else name] = buf
+    return out
+
+
 def load_jax_state(model, state):
-    """Copy ``state`` (``{name: np.ndarray}``) into ``model``'s parameters,
-    in place, keeping each parameter's device and dtype. Raises on a missing
-    or unexpected name or a shape that does not match."""
+    """Copy ``state`` (``{name: np.ndarray}``) into ``model``'s parameters
+    and persistable buffers, in place, keeping each one's device, dtype and
+    memory format. Raises on a missing or unexpected name or a shape that
+    does not match."""
     linear_weights = _linear_weights(model)
-    params = dict(model.named_parameters())
+    params = {**dict(model.named_parameters()), **_persistent_buffers(model)}
     missing = sorted(set(params) - set(state))
     unexpected = sorted(set(state) - set(params))
     if missing or unexpected:

@@ -1,8 +1,32 @@
-"""Layers of the port. ``Linear`` (``common.py``) keeps the JAX package's
-initializer and runs through the port's ``F.linear``; Embedding and
-LayerList of the JAX package are ``torch.nn.Embedding``/``ModuleList``."""
+"""Layers of the port. ``Linear`` (``common.py``) and the conv layers
+(``conv.py``) keep the JAX package's initializers and run through the port's
+functionals; Embedding, LayerList and Sequential of the JAX package are
+``torch.nn.Embedding``/``ModuleList``/``Sequential`` (whose children are
+named ``0``, ``1``, ... as paddle names them)."""
+from torch.nn import Sequential  # noqa: F401
+
+from .activation import ReLU  # noqa: F401
 from .common import Linear  # noqa: F401
-from .norm import LayerNorm  # noqa: F401
+from .conv import Conv1D, Conv2D, Conv3D  # noqa: F401
+from .norm import (  # noqa: F401
+    BatchNorm,
+    BatchNorm1D,
+    BatchNorm2D,
+    BatchNorm3D,
+    LayerNorm,
+)
+from .pooling import (  # noqa: F401
+    AdaptiveAvgPool1D,
+    AdaptiveAvgPool2D,
+    AdaptiveAvgPool3D,
+    AdaptiveMaxPool2D,
+    AvgPool1D,
+    AvgPool2D,
+    AvgPool3D,
+    MaxPool1D,
+    MaxPool2D,
+    MaxPool3D,
+)
 from .transformer import (  # noqa: F401
     MultiHeadAttention,
     Transformer,

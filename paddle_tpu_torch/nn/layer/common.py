@@ -31,12 +31,12 @@ def normal_(t, std, generator=None):
         t.normal_(0.0, std, generator=generator)
 
 
-def _check_attrs(weight_attr, bias_attr):
+def _check_attrs(weight_attr, bias_attr, layer="Linear"):
     """The port has no ``ParamAttr``: the default initializers only, and
     ``bias_attr=False`` for no bias."""
     if weight_attr is not None or bias_attr not in (None, False):
         raise NotImplementedError(
-            "Linear: the port takes weight_attr=None and bias_attr None or "
+            f"{layer}: the port takes weight_attr=None and bias_attr None or "
             f"False, not {weight_attr!r}, {bias_attr!r}")
 
 

@@ -1,0 +1,143 @@
+"""Pooling layers — port of ``paddle_tpu/nn/layer/pooling.py``
+(``MaxPool1D/2D/3D``, ``AvgPool1D/2D/3D``, ``AdaptiveAvgPool1D/2D/3D`` and
+``AdaptiveMaxPool2D``), each a call of its functional
+(``nn/functional/pooling.py``)."""
+from __future__ import annotations
+
+from torch import nn
+
+from .. import functional as F
+
+__all__ = [
+    "MaxPool1D", "MaxPool2D", "MaxPool3D",
+    "AvgPool1D", "AvgPool2D", "AvgPool3D",
+    "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
+    "AdaptiveMaxPool2D",
+]
+
+
+class _Pool(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 return_mask=False, exclusive=True, data_format=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.ceil_mode = ceil_mode
+        self.return_mask = return_mask
+        self.exclusive = exclusive
+        self.data_format = data_format
+
+
+class MaxPool1D(_Pool):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 return_mask=False, ceil_mode=False, name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode, return_mask,
+                         data_format="NCL")
+
+    def forward(self, x):
+        return F.max_pool1d(x, self.kernel_size, self.stride, self.padding,
+                            self.return_mask, self.ceil_mode,
+                            self.data_format)
+
+
+class MaxPool2D(_Pool):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 return_mask=False, ceil_mode=False, data_format="NCHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode, return_mask,
+                         data_format=data_format)
+
+    def forward(self, x):
+        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            self.return_mask, self.ceil_mode,
+                            self.data_format)
+
+
+class MaxPool3D(_Pool):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 return_mask=False, ceil_mode=False, data_format="NCDHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode, return_mask,
+                         data_format=data_format)
+
+    def forward(self, x):
+        return F.max_pool3d(x, self.kernel_size, self.stride, self.padding,
+                            self.return_mask, self.ceil_mode,
+                            self.data_format)
+
+
+class AvgPool1D(_Pool):
+    def __init__(self, kernel_size, stride=None, padding=0, exclusive=True,
+                 ceil_mode=False, name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode,
+                         exclusive=exclusive, data_format="NCL")
+
+    def forward(self, x):
+        return F.avg_pool1d(x, self.kernel_size, self.stride, self.padding,
+                            self.exclusive, self.ceil_mode, self.data_format)
+
+
+class AvgPool2D(_Pool):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True, divisor_override=None, data_format="NCHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode,
+                         exclusive=exclusive, data_format=data_format)
+
+    def forward(self, x):
+        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            self.ceil_mode, self.exclusive, None,
+                            self.data_format)
+
+
+class AvgPool3D(_Pool):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True, divisor_override=None, data_format="NCDHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode,
+                         exclusive=exclusive, data_format=data_format)
+
+    def forward(self, x):
+        return F.avg_pool3d(x, self.kernel_size, self.stride, self.padding,
+                            self.ceil_mode, self.exclusive, None,
+                            self.data_format)
+
+
+class AdaptiveAvgPool1D(nn.Module):
+    def __init__(self, output_size, name=None):
+        super().__init__()
+        self._output_size = output_size
+
+    def forward(self, x):
+        return F.adaptive_avg_pool1d(x, self._output_size)
+
+
+class AdaptiveAvgPool2D(nn.Module):
+    def __init__(self, output_size, data_format="NCHW", name=None):
+        super().__init__()
+        self._output_size = output_size
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.adaptive_avg_pool2d(x, self._output_size, self._data_format)
+
+
+class AdaptiveAvgPool3D(nn.Module):
+    def __init__(self, output_size, data_format="NCDHW", name=None):
+        super().__init__()
+        self._output_size = output_size
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.adaptive_avg_pool3d(x, self._output_size, self._data_format)
+
+
+class AdaptiveMaxPool2D(nn.Module):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__()
+        self._output_size = output_size
+        self._return_mask = return_mask
+
+    def forward(self, x):
+        return F.adaptive_max_pool2d(x, self._output_size, self._return_mask)

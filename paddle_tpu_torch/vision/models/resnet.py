@@ -1,0 +1,222 @@
+"""The ResNet family — port of ``paddle_tpu/vision/models/resnet.py``:
+``BasicBlock``, ``BottleneckBlock``, ``ResNet`` and every factory (resnet18
+to 152, the wide and the ResNeXt variants).
+
+The module tree and its names are the JAX model's (``conv1``, ``bn1``,
+``layer1.0.downsample.0``, ``fc``), so ``models.load_jax_state`` carries a
+JAX ResNet's weights and batch-norm buffers over. Models are built on the
+CPU from ``generator`` (``None``: PyTorch's default one) and then moved to
+``device`` (None: the card; ``"cpu"`` to stay on the host). The factories
+refuse ``pretrained=True``: the weights need a download.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...nn.layer.activation import ReLU
+from ...nn.layer.common import Linear
+from ...nn.layer.conv import Conv2D
+from ...nn.layer.norm import BatchNorm2D
+from ...nn.layer.pooling import AdaptiveAvgPool2D, MaxPool2D
+from ...nn.layer.transformer import _place
+
+__all__ = [
+    "BasicBlock", "BottleneckBlock", "ResNet",
+    "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+    "wide_resnet50_2", "wide_resnet101_2",
+    "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
+    "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
+]
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, *,
+                 generator=None):
+        super().__init__()
+        norm_layer = norm_layer or BatchNorm2D
+        self.conv1 = Conv2D(inplanes, planes, 3, padding=1, stride=stride,
+                            bias_attr=False, generator=generator)
+        self.bn1 = norm_layer(planes)
+        self.relu = ReLU()
+        self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False,
+                            generator=generator)
+        self.bn2 = norm_layer(planes)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class BottleneckBlock(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, *,
+                 generator=None):
+        super().__init__()
+        norm_layer = norm_layer or BatchNorm2D
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False,
+                            generator=generator)
+        self.bn1 = norm_layer(width)
+        self.conv2 = Conv2D(width, width, 3, padding=dilation, stride=stride,
+                            groups=groups, dilation=dilation, bias_attr=False,
+                            generator=generator)
+        self.bn2 = norm_layer(width)
+        self.conv3 = Conv2D(width, planes * self.expansion, 1,
+                            bias_attr=False, generator=generator)
+        self.bn3 = norm_layer(planes * self.expansion)
+        self.relu = ReLU()
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+_LAYERS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+           101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+
+
+class ResNet(nn.Module):
+    def __init__(self, block, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1, *, device=None, generator=None):
+        super().__init__()
+        layers = _LAYERS[depth]
+        self.groups = groups
+        self.base_width = width
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self._norm_layer = BatchNorm2D
+        self.inplanes = 64
+        self.dilation = 1
+        self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                            bias_attr=False, generator=generator)
+        self.bn1 = self._norm_layer(self.inplanes)
+        self.relu = ReLU()
+        self.maxpool = MaxPool2D(3, stride=2, padding=1)
+        self.layer1 = self._make_layer(block, 64, layers[0],
+                                       generator=generator)
+        self.layer2 = self._make_layer(block, 128, layers[1], stride=2,
+                                       generator=generator)
+        self.layer3 = self._make_layer(block, 256, layers[2], stride=2,
+                                       generator=generator)
+        self.layer4 = self._make_layer(block, 512, layers[3], stride=2,
+                                       generator=generator)
+        if with_pool:
+            self.avgpool = AdaptiveAvgPool2D((1, 1))
+        if num_classes > 0:
+            self.fc = Linear(512 * block.expansion, num_classes,
+                             generator=generator)
+        _place(self, device)
+
+    def _make_layer(self, block, planes, blocks, stride=1, dilate=False, *,
+                    generator=None):
+        norm_layer, gen = self._norm_layer, generator
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = nn.Sequential(
+                Conv2D(self.inplanes, planes * block.expansion, 1,
+                       stride=stride, bias_attr=False, generator=gen),
+                norm_layer(planes * block.expansion))
+        layers = [block(self.inplanes, planes, stride, downsample,
+                        self.groups, self.base_width, self.dilation,
+                        norm_layer, generator=gen)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes, groups=self.groups,
+                                base_width=self.base_width,
+                                norm_layer=norm_layer, generator=gen))
+        return nn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            x = self.fc(torch.flatten(x, 1))
+        return x
+
+
+def _resnet(block, depth, pretrained, width=64, groups=1, **kwargs):
+    if pretrained:
+        raise ValueError("pretrained=True needs the weights' download; the "
+                         "port builds random weights only")
+    return ResNet(block, depth, width=width, groups=groups, **kwargs)
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 18, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 34, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, width=128, **kwargs)
+
+
+def wide_resnet101_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, width=128, **kwargs)
+
+
+def resnext50_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, width=4, groups=32,
+                   **kwargs)
+
+
+def resnext50_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, width=4, groups=64,
+                   **kwargs)
+
+
+def resnext101_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, width=4, groups=32,
+                   **kwargs)
+
+
+def resnext101_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, width=4, groups=64,
+                   **kwargs)
+
+
+def resnext152_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, width=4, groups=32,
+                   **kwargs)
+
+
+def resnext152_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, width=4, groups=64,
+                   **kwargs)

@@ -1109,3 +1109,79 @@ def test_fused_ce_launchers_refuse_what_they_do_not_take(dev):
     odd = torch.zeros(16, 200, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 128"):
         k9.ce_forward(odd, odd, None, y)
+
+
+# -- the vision path: channels-last against NCHW -------------------------------
+
+def _vision_op(op, x, p):
+    if op == "conv":
+        return PF.conv2d(x, p[0], stride=2, padding=1)
+    if op == "batch_norm":
+        rm, rv = torch.zeros_like(p[0]), torch.ones_like(p[0])
+        out = PF.batch_norm(x, rm, rv, p[0], p[1], training=True)
+        return out, rm, rv
+    return PF.max_pool2d(x, 3, 2, 1)
+
+
+def _bn_affine_grads_fp64(x, go):
+    xd = x.double()
+    mean = xd.mean((0, 2, 3), keepdim=True)
+    var = xd.var((0, 2, 3), unbiased=False, keepdim=True)
+    xhat = (xd - mean) / torch.sqrt(var + 1e-5)
+    return (go.double() * xhat).sum((0, 2, 3)), go.double().sum((0, 2, 3))
+
+
+@pytest.mark.parametrize("op", ["conv", "batch_norm", "max_pool"])
+def test_channels_last_matches_nchw_on_the_card(dev, op):
+    """ResNet-50's conv (layer2's 3x3, stride 2), its training batch norm
+    (bf16 x, fp32 parameters) and its max pool, each run in channels-last
+    memory (layout autotune) and in NCHW on the same bf16 inputs: outputs
+    and gradients within one bf16 step; the channels-last outputs
+    channels-last, the batch norm's running statistics within 5e-5. The
+    batch norm's fp32 gamma and beta gradients (sums over 100,352 values,
+    up to ~900) are held in both layouts to an fp64 sum of the same terms
+    within 5e-5 + 1e-6 · |ref|: PyTorch's channels-first kernel rounds them
+    to bf16 (3.3 off at 871 on an H100), so ``F.batch_norm`` runs such an
+    input channels-last."""
+    from paddle_tpu_torch.incubate import autotune
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(32, 64, 56, 56, generator=gen, device=dev).bfloat16()
+    if op == "conv":
+        params = [torch.randn(128, 64, 3, 3, generator=gen,
+                              device=dev).bfloat16() * 0.05]
+    elif op == "batch_norm":
+        params = [torch.rand(64, generator=gen, device=dev) + 0.5,
+                  torch.randn(64, generator=gen, device=dev)]
+    else:
+        params = []
+    runs = []
+    for layout in (False, True):
+        fmt = torch.channels_last if layout else torch.contiguous_format
+        leaves = [x.contiguous(memory_format=fmt).requires_grad_()] + [
+            (p.contiguous(memory_format=fmt) if p.ndim == 4 else p.clone())
+            .requires_grad_() for p in params]
+        autotune.set_config({"layout": {"enable": layout}})
+        try:
+            res = _vision_op(op, *leaves[:1], leaves[1:])
+        finally:
+            autotune.set_config(None)
+        out = res[0] if op == "batch_norm" else res
+        assert out.dtype == torch.bfloat16
+        assert out.is_contiguous(memory_format=fmt)
+        go = torch.randn(out.shape, generator=torch.Generator(
+            device=dev).manual_seed(8), device=dev).bfloat16()
+        grads = torch.autograd.grad(out, leaves, go)
+        if op == "batch_norm":
+            for got, want in zip(grads[1:], _bn_affine_grads_fp64(x, go)):
+                _assert_close(got, want.float(), fp32_rtol=1e-6)
+        runs.append((res, grads))
+    (ref, ref_grads), (got, got_grads) = runs
+    if op == "batch_norm":
+        for a, r in zip(got[1:], ref[1:]):
+            assert a.dtype == torch.float32
+            _assert_close(a, r)
+        got, ref = got[0], ref[0]
+    _assert_close(got.contiguous(), ref)
+    for a, r in zip(got_grads, ref_grads):
+        _assert_close(a.contiguous(), r.contiguous(), fp32_rtol=1e-6)

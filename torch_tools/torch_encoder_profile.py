@@ -47,8 +47,8 @@ KINDS = (
 )
 
 
-def _kind(name):
-    for kind, pat in KINDS:
+def _kind(name, kinds=KINDS):
+    for kind, pat in kinds:
         if re.search(pat, name):
             return kind
     return "other"
@@ -79,11 +79,11 @@ def _profile(torch, fn):
     return wall, kernels
 
 
-def _report(name, wall, kernels, per):
+def _report(name, wall, kernels, per, by=KINDS):
     busy = sum(kernels.values())
     kinds = {}
     for k, ms in kernels.items():
-        kinds[_kind(k)] = kinds.get(_kind(k), 0.0) + ms
+        kinds[_kind(k, by)] = kinds.get(_kind(k, by), 0.0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {"what": name, "per": per, "wall_ms": wall,
             "device_kernel_ms": busy,

@@ -1,0 +1,49 @@
+"""The vision part of ``chip_smoke.py`` alone, on one NVIDIA card.
+
+    python3 torch_tools/torch_vision_phases.py
+
+Runs ``chip_smoke.py``'s vision phases, nothing else: ``resnet50_train``
+(``tools/bench_resnet.py``'s train step at batch 128 x 224 x 224, bf16 with
+fp32 batch norms, channels-last), ``resnet50_vs_plain`` (bf16 channels-last
+against fp32 NCHW, and the layout route alone), ``resnet50_eval`` and
+``lenet``. The vision path launches none of the port's kernels, so nothing
+is built. Prints the card's name and power limit, then one line a phase
+(JSON). The quick check after a change to the vision path. Needs a CUDA
+card; any failed check raises.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_vision_phases: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+
+    t0 = time.perf_counter()
+    print(cs._card_line())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for fn in (cs.resnet50_train_phase, cs.resnet50_vs_plain,
+               cs.resnet50_eval_phase, cs.lenet_phase):
+        t = time.perf_counter()
+        out = fn(torch, np)
+        print(fn.__name__, f"{time.perf_counter() - t:.1f} s",
+              json.dumps(out), flush=True)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
