@@ -204,7 +204,30 @@
     ``resnet50_eval``: images/s of the eval forward at batch 128.
     ``lenet``: LeNet, 5 Adam(1e-3) steps on one seeded batch of 64 x 1 x
     28 x 28: the loss falls. None of them launches K1-K11.
-14. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
+14. The Paddle-API surface (the main path of the API slice), after the
+    vision phases. ``paddle_api``: GPT-2 124M's train step written against
+    the API (``import paddle_tpu_torch as paddle``, ``set_device("gpu")``,
+    the model built with no ``device``, bf16 with fp32 LayerNorms,
+    batches from ``paddle.to_tensor``, ``loss = model.loss(...)``,
+    ``loss.backward()``, ``opt.step()``, ``opt.clear_grad()``,
+    ``float(loss)``), batch 24 x 1024, 3 + 5 steps, between two runs of
+    the same steps through plain tensors (the training phase's calls, same
+    seed and batches): the step time of each, so both orders are timed in
+    one call; the first step's loss the same bits in all three, a forward
+    through the API on the trained weights the plain tensors' bits, and
+    the later losses within 2e-3 of both plain runs (K6 sums dq with
+    atomics: the two plain runs' own spread is printed); K5-K8 launched.
+    ``paddle_api checkpoint``: ``paddle.save(model.state_dict())`` then a
+    fresh model's ``set_state_dict(paddle.load(...))``, the same eval
+    logits bit for bit, for that GPT-2 124M (bf16 saved as fp32) and for
+    ResNet-50 at batch 32 after a train-mode forward moved its batch-norm
+    buffers. ``paddle_api op sweep``: every entry of
+    ``ops/op_table.py`` (every op of the registry) on CUDA against the
+    port on the CPU, fp32 and, where the op takes floats and is not an
+    fp32-only decomposition, bf16, forward and the gradient of
+    ``sum(out * c)``; limits ``SWEEP_*_TOL``; an op CUDA refuses fails the
+    phase. It prints ``paddle_api ops held N/N`` and the sweep's time.
+15. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
     K1-K4 and K6 with their bf16 HMMA counts and ptxas registers and
     spills, K9-K11 with their plan a case and their bf16 wgmma kernels'
     HGMMA counts and registers and spills (K9 also beside the cuBLAS
@@ -2729,8 +2752,339 @@ def lenet_phase(torch, np):
              f"LeNet's loss falls: {losses}")
     _no_kernel_launched(counts, "lenet")
     return {"batch": 64, "steps": 5, "losses": losses,
-            "device": str(next(model.parameters()).device),
+            "device": str(model.parameters()[0].device),
             "launches": counts}
+
+
+#: the paddle_api phase: warm-up and timed steps of each run
+API_STEPS = (3, 5)
+#: the card's op sweep: inputs grow ``k`` times per axis from the table's
+#: (3 x 4 -> 1152 x 1536), bf16 at a third of that (the CPU reference runs
+#: bf16 products slowly) and order ops in bf16 at 16 (bf16 holds 4096
+#: distinct values to draw from); linalg at 255 x 255 (``op_table.K_LINALG``)
+SWEEP_K, SWEEP_K_BF16 = 384, 128
+#: the sweep's limits, a share of the largest magnitude of the CPU port's
+#: result: fp32 forward 1e-4 (CUDA's and the host's libm, reduction
+#: orders), gradients 1e-3 (a product and a sum over the whole output on
+#: top), linalg 1e-2 (cuSOLVER against LAPACK at 255 x 255), bf16 four
+#: bf16 steps (2^-5: a product, then rounding to bf16, in other orders)
+SWEEP_FWD_TOL, SWEEP_GRAD_TOL, SWEEP_LINALG_TOL = 1e-4, 1e-3, 1e-2
+SWEEP_BF16_TOL = 2.0 ** -5
+#: outputs compared (the rest are eigenvectors: defined up to sign)
+SWEEP_OUTPUTS = {"ops.eigh": (0,)}
+
+
+def _api_gpt124m(paddle, seed):
+    """GPT-2 124M as a Paddle user builds it: ``paddle.seed``, no
+    ``device`` (the current place, ``gpu``), bf16 with fp32 LayerNorms
+    (the training phase's model, ``_gpt124m``)."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                    num_heads=12, max_position_embeddings=1024,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    paddle.seed(seed)
+    model = GPTForCausalLM(cfg, dtype="bfloat16")
+    for layer in model.sublayers():
+        if isinstance(layer, paddle.nn.LayerNorm):
+            layer.float()
+    return model
+
+
+def _api_train(torch, paddle, model, batches, events):
+    """The train step written against the API: ``to_tensor`` batches,
+    ``loss = model.loss(...)``, ``loss.backward()``, ``opt.step()``,
+    ``opt.clear_grad()``, ``float(loss)``; two CUDA events a step."""
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    model.train()
+    losses = []
+    for ids, labels in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss = model.loss(paddle.to_tensor(ids), paddle.to_tensor(labels))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        ev[1].record()
+        losses.append(float(loss))
+        events.append(ev)
+    _require(isinstance(loss, paddle.Tensor) and not loss.stop_gradient,
+             "model.loss gives a Paddle Tensor on the graph")
+    return losses
+
+
+def _step_ms(events, warm):
+    timed = events[warm:]
+    return sum(e[0].elapsed_time(e[-1]) for e in timed) / len(timed)
+
+
+def paddle_api_train_phase(torch, np):
+    """GPT-2 124M's train step written against the Paddle API, batch
+    24 x 1024, beside the same steps through plain tensors (the training
+    phase's calls) from the same seed and batches: plain, API, plain, so
+    both orders are timed in one call. The API's losses must be the plain
+    runs' bits; K5-K8's launches are counted over the API run."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    warm, timed = API_STEPS
+    batches = _token_batches(np, 0, warm + timed, 24, 1024, 50304)
+    paddle.set_device("gpu")
+    runs, counts = [], None
+    for kind in ("plain", "api", "plain"):
+        events = []
+        if kind == "plain":
+            model = _gpt124m(torch, 0)
+            losses = [float(x) for x in _train(torch, model, batches,
+                                               events=events)]
+        else:
+            model = _api_gpt124m(paddle, 0)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            losses = _api_train(torch, paddle, model, batches, events)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            api_model = model
+        torch.cuda.synchronize()
+        runs.append({"kind": kind, "losses": losses,
+                     "step_ms": _step_ms(events, warm)})
+        if kind == "plain":
+            del model
+            torch.cuda.empty_cache()
+    _require(all(np.isfinite(runs[1]["losses"])), "API losses finite")
+    # the first step is a forward from one init on one batch: the same bits
+    firsts = {r["losses"][0] for r in runs}
+    _require(len(firsts) == 1, f"the first step's loss is the same bits "
+             f"through the API and through plain tensors: {firsts}")
+    # later steps follow K6's dq, summed with atomics: any two runs differ
+    # by its rounding (the two plain runs' spread, printed); the API's are
+    # held within TRAIN_LOSS_TOL of both
+    spread = max(abs(a - b) for a, b in zip(runs[0]["losses"],
+                                            runs[2]["losses"]))
+    api_gap = max(abs(a - b) for r in (runs[0], runs[2])
+                  for a, b in zip(runs[1]["losses"], r["losses"]))
+    _require(api_gap <= TRAIN_LOSS_TOL, f"API losses within "
+             f"{TRAIN_LOSS_TOL} of the plain runs: {runs}")
+    # the same weights, the same batch, forward only: the API adds no
+    # arithmetic, bit for bit
+    model = api_model
+    with paddle.no_grad():
+        for ids, labels in batches[:2]:
+            a = model.loss(paddle.to_tensor(ids), paddle.to_tensor(labels))
+            b = model.loss(torch.from_numpy(ids).cuda(),
+                           torch.from_numpy(labels).cuda())
+            _require(type(a) is paddle.Tensor and type(b) is torch.Tensor
+                     and torch.equal(a, b), "a forward through the API "
+                     "gives the plain tensors' bits")
+    for name in ("flash_attention_packed_fwd", "flash_attention_packed_bwd",
+                 "layer_norm", "layer_norm_bwd"):
+        _require(counts[name] > 0, f"kernel {name} launched on the API path")
+    return api_model, batches, {
+        "batch": 24, "seq": 1024, "warmup_steps": warm, "timed_steps": timed,
+        "losses": runs[1]["losses"],
+        "plain_losses": [runs[0]["losses"], runs[2]["losses"]],
+        "first_loss_same_bits": True, "forward_same_bits": True,
+        "plain_run_to_run_spread": spread, "api_gap_to_plain": api_gap,
+        "step_ms": {"plain_before": runs[0]["step_ms"],
+                    "api": runs[1]["step_ms"],
+                    "plain_after": runs[2]["step_ms"]},
+        "launches": counts}
+
+
+def paddle_api_checkpoint_phase(torch, np, model, batches):
+    """``paddle.save(model.state_dict())`` then a fresh model's
+    ``set_state_dict(paddle.load(...))``: the same eval logits bit for bit,
+    for the API run's GPT-2 124M (bf16 saved as fp32, cast back) and for
+    ResNet-50 at batch 32 after a train-mode forward moved its batch-norm
+    buffers."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/gpt.pdparams"
+        t0 = time.perf_counter()
+        paddle.save(model.state_dict(), path)
+        save_s = time.perf_counter() - t0
+        fresh = _api_gpt124m(paddle, 99)
+        t0 = time.perf_counter()
+        missing, unexpected = fresh.set_state_dict(paddle.load(path))
+        load_s = time.perf_counter() - t0
+        _require(not missing and not unexpected, "GPT state names match")
+        ids = paddle.to_tensor(batches[0][0][:4])
+        model.eval()
+        fresh.eval()
+        with paddle.no_grad():
+            a, b = model(ids), fresh(ids)
+        _require(a.dtype == torch.bfloat16 and torch.equal(a, b),
+                 "GPT-2 124M's eval logits are the same bits after the "
+                 "round trip")
+        out["gpt2_124m"] = {"params": len(model.state_dict()),
+                            "save_s": save_s, "load_s": load_s,
+                            "same_bits": True}
+        del fresh, a, b
+        torch.cuda.empty_cache()
+        with _vision_setup(torch):
+            from paddle_tpu_torch.vision.models import resnet50
+
+            def build(seed):
+                paddle.seed(seed)
+                m = resnet50(num_classes=RESNET_CLASSES)
+                m.to(dtype="bfloat16")
+                for layer in m.sublayers():
+                    if type(layer).__name__.startswith("BatchNorm"):
+                        layer.float()
+                return m
+
+            net = build(2)
+            (images, _), = _image_batches(torch, 64, 1, 32, RESNET_SIZE,
+                                          RESNET_CLASSES)
+            x = paddle.to_tensor(images)
+            with paddle.no_grad():
+                net.train()
+                net(x)
+            _require(float(net.bn1._mean.abs().sum()) > 0,
+                     "the train-mode forward moved the running mean")
+            path = f"{d}/resnet.pdparams"
+            paddle.save(net.state_dict(), path)
+            other = build(3)
+            missing, unexpected = other.set_state_dict(paddle.load(path))
+            _require(not missing and not unexpected,
+                     "ResNet-50 state names match")
+            net.eval()
+            other.eval()
+            with paddle.no_grad():
+                a, b = net(x), other(x)
+            _require(torch.equal(a, b) and torch.equal(
+                net.bn1._variance, other.bn1._variance),
+                "ResNet-50's eval logits and buffers are the same bits "
+                "after the round trip")
+            out["resnet50"] = {"batch": 32, "entries": len(net.state_dict()),
+                               "same_bits": True}
+            del net, other, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sweep_close(got, want, tol):
+    """None, or why ``got`` is not within ``tol`` of the largest magnitude
+    of ``want`` (exact for integers and booleans, Inf/NaN where ``want``
+    has them)."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return f"shape {got.shape} vs {want.shape}"
+    if want.dtype.kind in "biu":
+        return None if np.array_equal(got, want) else "integers differ"
+    got, want = got.astype(np.float64), want.astype(np.float64)
+    fin = np.isfinite(want)
+    if not (np.array_equal(np.isfinite(got), fin)
+            and np.array_equal(got[~fin], want[~fin])):
+        return "Inf/NaN placed otherwise"
+    if not fin.any():
+        return None
+    scale = max(np.abs(want[fin]).max(), 1e-30)
+    err = np.abs(got[fin] - want[fin]).max()
+    return None if err <= tol * scale else f"{err:.3g} > {tol} x {scale:.3g}"
+
+
+def paddle_api_op_sweep(torch, np):
+    """Every op of the port's registry on CUDA against the port on the CPU
+    (``paddle_tpu_torch/ops/op_table.py``'s differentiable and
+    non-differentiable tables, scaled up): fp32, and bf16 where the op takes
+    floats and is not one of the JAX table's fp32-only decompositions;
+    forward and the gradient of ``sum(out * c)``. A case that raises on
+    CUDA (a refused dtype) fails the phase as one that disagrees does."""
+    import zlib
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import dispatch, op_table as T
+
+    t0 = time.perf_counter()
+    on_card, held, failed, times = set(), 0, [], []
+    cases = 0
+    for entry in T.OPS + T.NONDIFF:
+        has_float = any(d not in ("bool", "sign") and not d.startswith("int:")
+                        for _, d in entry["inputs"]) or not entry["inputs"]
+        dtypes = [None] + (["bfloat16"] if has_float and entry["inputs"]
+                           and entry["api"] not in T.LOWP else [])
+        for dt in dtypes:
+            cases += 1
+            unique = any(d == "funique" for _, d in entry["inputs"])
+            # bf16 has 4096 distinct values to spare: order ops (whose
+            # indices and gradients follow ties) run at 16 x there
+            k = (SWEEP_K if dt is None else 16 if unique
+                 else SWEEP_K_BF16)
+            e = T.scaled(entry, k)
+            rng = np.random.RandomState(zlib.crc32(entry["api"].encode())
+                                        % 2 ** 31)
+            arrays = [T.draw(s, "funique_bf16" if dt and d == "funique"
+                             else d, rng) for s, d in e["inputs"]]
+            tc = time.perf_counter()
+            if dt is not None:
+                arrays = [torch.from_numpy(a).bfloat16().float().numpy()
+                          if a.dtype == np.float32 else a for a in arrays]
+            what = f"{entry['api']} [{dt or 'float32'}, k {e['k']}]"
+            try:
+                paddle.set_device("gpu")
+                with T.registry_ops_called() as called:
+                    got = T.run(e, arrays, paddle, "gpu", dtype=dt)
+                on_card |= called
+                paddle.set_device("cpu")
+                want = T.run(e, arrays, paddle, "cpu", dtype=dt)
+            except Exception as exc:  # noqa: BLE001 - reported, then fails
+                failed.append(f"{what}: {type(exc).__name__}: "
+                              f"{str(exc)[:200]}")
+                continue
+            finally:
+                paddle.set_device("gpu")
+            lin = entry["api"] in T.LINALG
+            ftol = (SWEEP_BF16_TOL if dt else SWEEP_LINALG_TOL if lin
+                    else SWEEP_FWD_TOL)
+            gtol = (SWEEP_BF16_TOL if dt else SWEEP_LINALG_TOL if lin
+                    else SWEEP_GRAD_TOL)
+            keep = SWEEP_OUTPUTS.get(entry["api"], range(len(want[0])))
+            why = [f"output {i}: {r}" for i in keep
+                   for r in [_sweep_close(got[0][i], want[0][i], ftol)]
+                   if r is not None and not (
+                       dt and np.asarray(want[0][i]).dtype.kind in "biu")]
+            if (got[1] is None) != (want[1] is None):
+                why.append("a gradient on one side only")
+            for i, (g, w) in enumerate(zip(got[1] or [], want[1] or [])):
+                if (g is None) != (w is None):
+                    why.append(f"grad {i} on one side only")
+                elif g is not None:
+                    r = _sweep_close(g, w, gtol)
+                    if r is not None:
+                        why.append(f"grad {i}: {r}")
+            times.append((time.perf_counter() - tc, what))
+            if why:
+                failed.append(f"{what}: {'; '.join(why)}")
+            else:
+                held += 1
+    torch.cuda.empty_cache()
+    registry = set(dispatch.OP_REGISTRY)
+    missed = sorted(registry - on_card)
+    seconds = time.perf_counter() - t0
+    result = {"cases": cases, "held": held, "failed": failed,
+              "registry_ops": len(registry),
+              "registry_ops_on_card": len(registry & on_card),
+              "registry_ops_not_run": missed, "seconds": seconds,
+              "k": SWEEP_K, "k_bf16": SWEEP_K_BF16,
+              "k_linalg": T.K_LINALG,
+              "slowest_s": [[round(t, 3), w] for t, w in sorted(
+                  times, reverse=True)[:8]]}
+    print(f"paddle_api ops held {held}/{cases} ({len(registry & on_card)}"
+          f"/{len(registry)} registry ops on the card) in {seconds:.1f} s")
+    for f in failed:
+        print(f"paddle_api op failed: {f}")
+    _require(not failed, f"{len(failed)} op sweep cases failed")
+    _require(not missed, f"registry ops not run on the card: {missed}")
+    return result
 
 
 _TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
@@ -3061,6 +3415,18 @@ def main():
           f"{RESNET_BATCH}) on {card}")
     lenet = lenet_phase(torch, np)
     print(f"lenet: {json.dumps(lenet)}")
+    api_model, api_batches, api = paddle_api_train_phase(torch, np)
+    print(f"paddle_api: {json.dumps(api)}")
+    print(f"paddle_api: GPT-2 124M step {api['step_ms']['api']:.1f} ms "
+          f"through the API, the plain tensors' {api['step_ms']['plain_before']:.1f} "
+          f"ms before it and {api['step_ms']['plain_after']:.1f} ms after "
+          f"it, the first loss and a forward the same bits, on {card}")
+    ckpt = paddle_api_checkpoint_phase(torch, np, api_model, api_batches)
+    del api_model
+    torch.cuda.empty_cache()
+    print(f"paddle_api checkpoint: {json.dumps(ckpt)}")
+    sweep = paddle_api_op_sweep(torch, np)
+    print(f"paddle_api op sweep: {json.dumps(sweep)}")
     for c in k8_cases:
         c.update(_k8_launches_apart(torch, timer, c.pop("_split")))
     print("K8's launches apart (torch.profiler, device ms): " + json.dumps(
@@ -3090,7 +3456,8 @@ def main():
                 "ernie_large": ernie["launches"][name],
                 "resnet50_train": vision["launches"][name],
                 "resnet50_eval": vision_eval["launches"][name],
-                "lenet": lenet["launches"][name]}
+                "lenet": lenet["launches"][name],
+                "paddle_api": api["launches"][name]}
 
     vision_paths = ("resnet50_train", "resnet50_eval", "lenet")
 
@@ -3124,11 +3491,13 @@ def main():
         entry("flash_attention_packed_fwd", flash,
               "paddle_tpu/ops/pallas/flash_attention_packed.py:127", k5_cases,
               "train", only("flash_attention_packed_fwd", "serving",
-                            "training", "recipe", "gpt2_dropout")),
+                            "training", "recipe", "gpt2_dropout",
+                            "paddle_api")),
         entry("flash_attention_packed_bwd", packed,
               "paddle_tpu/ops/pallas/flash_attention_packed.py:236", k6_cases,
               "train", only("flash_attention_packed_bwd", "serving",
-                            "training", "recipe", "gpt2_dropout")),
+                            "training", "recipe", "gpt2_dropout",
+                            "paddle_api")),
         entry("layer_norm", ln_src, "paddle_tpu/ops/pallas/layer_norm.py:34",
               ln_cases, "rows=8", paths("layer_norm")),
         entry("layer_norm_bwd", ln_src,

@@ -101,3 +101,6 @@ register_flag("blockwise_attention_block_q", 512,
 register_flag("blockwise_attention_block_k", 512,
               help="KV block of the blockwise loop (largest divisor of "
                    "seq_k <= this is used)")
+register_flag("check_nan_inf", False,
+              help="scan every output of a paddle op for Inf/NaN and raise "
+                   "(a host sync an op)")

@@ -15,8 +15,9 @@ it (``_sdpa_raw``), so from the first attention output onward the encoder
 runs in fp32, in JAX as here (``ROADMAP.md`` C, properties kept).
 
 Parameter names match the JAX model's ``state_dict`` (``load_jax_state``).
-Models are built on the CPU from ``generator`` and then moved to ``device``
-(None: the card; ``"cpu"`` to stay on the host) and ``dtype``.
+Models are built on the CPU from ``generator``, cast to ``dtype`` and
+placed by ``Layer`` on ``device`` (None: the current place; ``"cpu"`` to
+stay on the host).
 """
 from __future__ import annotations
 
@@ -25,11 +26,13 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..framework.tensor import api
 from ..nn import functional as F
 from ..nn.layer.common import Linear, embedding_table
+from ..nn.layer.layers import Layer
 from ..nn.layer.norm import LayerNorm
-from ..nn.layer.transformer import (_HOST, TransformerEncoder,
-                                    TransformerEncoderLayer, _place)
+from ..nn.layer.transformer import (TransformerEncoder,
+                                    TransformerEncoderLayer, _cast)
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertModel", "BertPooler",
            "BertForPretraining", "BertForSequenceClassification",
@@ -76,7 +79,7 @@ def padding_bias(attention_mask):
     return neg[:, None, None, :]
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     """word + position + token-type embeddings -> LN -> dropout."""
 
     def __init__(self, cfg: BertConfig, *, device=None, generator=None):
@@ -91,7 +94,6 @@ class BertEmbeddings(nn.Module):
         self.layer_norm = LayerNorm(cfg.hidden_size,
                                     epsilon=cfg.layer_norm_eps)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
-        _place(self, device)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         if position_ids is None:
@@ -106,18 +108,17 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(h))
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, cfg: BertConfig, *, device=None, generator=None):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.hidden_size,
                             generator=generator)
-        _place(self, device)
 
     def forward(self, h):
         return torch.tanh(self.dense(h[:, 0]))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """Embeddings, post-LN encoder, pooler. ``forward`` returns
     ``(sequence_output, pooled_output)``."""
 
@@ -125,18 +126,17 @@ class BertModel(nn.Module):
                  generator=None):
         super().__init__()
         self.cfg = cfg
-        self.embeddings = BertEmbeddings(cfg, device=_HOST,
-                                         generator=generator)
+        self.embeddings = BertEmbeddings(cfg, generator=generator)
         enc_layer = TransformerEncoderLayer(
             cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
             dropout=cfg.hidden_dropout, activation="gelu",
             attn_dropout=cfg.attention_dropout, act_dropout=0.0,
             normalize_before=False, layer_norm_eps=cfg.layer_norm_eps,
-            device=_HOST, generator=generator)
+            generator=generator)
         self.encoder = TransformerEncoder(enc_layer, cfg.num_layers,
-                                          device=_HOST, generator=generator)
-        self.pooler = BertPooler(cfg, device=_HOST, generator=generator)
-        _place(self, device, dtype)
+                                          generator=generator)
+        self.pooler = BertPooler(cfg, generator=generator)
+        _cast(self, dtype)
 
     @property
     def device(self):
@@ -154,7 +154,7 @@ class BertModel(nn.Module):
         return out, self.pooler(out)
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """MLM + NSP heads; the MLM loss is the fused linear + cross-entropy
     with the tied word-embedding matrix."""
 
@@ -162,13 +162,13 @@ class BertForPretraining(nn.Module):
                  generator=None):
         super().__init__()
         self.cfg = cfg
-        self.bert = BertModel(cfg, device=_HOST, generator=generator)
+        self.bert = BertModel(cfg, generator=generator)
         self.transform = Linear(cfg.hidden_size, cfg.hidden_size,
                                 generator=generator)
         self.transform_ln = LayerNorm(cfg.hidden_size,
                                       epsilon=cfg.layer_norm_eps)
         self.nsp_head = Linear(cfg.hidden_size, 2, generator=generator)
-        _place(self, device, dtype)
+        _cast(self, dtype)
 
     @property
     def device(self):
@@ -187,6 +187,7 @@ class BertForPretraining(nn.Module):
         w = self.bert.embeddings.word_embeddings.weight
         return F.matmul(h, w, transpose_y=True), self.nsp_head(pooled)
 
+    @api
     def loss(self, input_ids, mlm_labels, token_type_ids=None,
              attention_mask=None, nsp_labels=None, ignore_index=-100):
         """Fused MLM loss (mean over the labels that are not
@@ -203,16 +204,16 @@ class BertForPretraining(nn.Module):
         return loss
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     def __init__(self, cfg: BertConfig, num_classes=2, dropout=None, *,
                  device=None, dtype=None, generator=None):
         super().__init__()
-        self.bert = BertModel(cfg, device=_HOST, generator=generator)
+        self.bert = BertModel(cfg, generator=generator)
         self.dropout = nn.Dropout(cfg.hidden_dropout if dropout is None
                                   else dropout)
         self.classifier = Linear(cfg.hidden_size, num_classes,
                                  generator=generator)
-        _place(self, device, dtype)
+        _cast(self, dtype)
 
     @property
     def device(self):

@@ -16,8 +16,9 @@ JAX package's ``RandomState`` draws, so a seed gives the same bits in both.
 
 Parameter names match the JAX model's ``state_dict`` (the tied matrix is
 listed once, as ``ernie.embeddings.word_embeddings.weight``). Models are
-built on the CPU from ``generator`` and then moved to ``device`` (None:
-the card; ``"cpu"`` to stay on the host) and ``dtype``.
+built on the CPU from ``generator``, cast to ``dtype`` and placed by
+``Layer`` on ``device`` (None: the current place; ``"cpu"`` to stay on the
+host).
 """
 from __future__ import annotations
 
@@ -27,11 +28,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..framework.tensor import api
 from ..nn import functional as F
 from ..nn.layer.common import Linear, embedding_table
+from ..nn.layer.layers import Layer
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import TransformerEncoder, TransformerEncoderLayer
-from .bert import _HOST, _on, _place, padding_bias
+from .bert import _cast, _on, padding_bias
 
 __all__ = [
     "ErnieConfig", "ErnieEmbeddings", "ErnieModel", "ErniePooler",
@@ -69,7 +72,7 @@ def ernie_large():
                        intermediate_size=4096)
 
 
-class ErnieEmbeddings(nn.Module):
+class ErnieEmbeddings(Layer):
     """word + position + sentence (token-type) [+ task] -> LN -> dropout."""
 
     def __init__(self, cfg: ErnieConfig, *, device=None, generator=None):
@@ -88,7 +91,6 @@ class ErnieEmbeddings(nn.Module):
         self.layer_norm = LayerNorm(cfg.hidden_size,
                                     epsilon=cfg.layer_norm_eps)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
-        _place(self, device)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 task_type_ids=None):
@@ -109,18 +111,17 @@ class ErnieEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(h))
 
 
-class ErniePooler(nn.Module):
+class ErniePooler(Layer):
     def __init__(self, cfg: ErnieConfig, *, device=None, generator=None):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.hidden_size,
                             generator=generator)
-        _place(self, device)
 
     def forward(self, h):
         return torch.tanh(self.dense(h[:, 0]))
 
 
-class ErnieModel(nn.Module):
+class ErnieModel(Layer):
     """Embeddings, post-LN encoder (``hidden_act`` feed-forward), pooler.
     ``forward`` returns ``(sequence_output, pooled_output)``."""
 
@@ -128,18 +129,17 @@ class ErnieModel(nn.Module):
                  generator=None):
         super().__init__()
         self.cfg = cfg
-        self.embeddings = ErnieEmbeddings(cfg, device=_HOST,
-                                          generator=generator)
+        self.embeddings = ErnieEmbeddings(cfg, generator=generator)
         enc_layer = TransformerEncoderLayer(
             cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
             dropout=cfg.hidden_dropout, activation=cfg.hidden_act,
             attn_dropout=cfg.attention_dropout, act_dropout=0.0,
             normalize_before=False, layer_norm_eps=cfg.layer_norm_eps,
-            device=_HOST, generator=generator)
+            generator=generator)
         self.encoder = TransformerEncoder(enc_layer, cfg.num_layers,
-                                          device=_HOST, generator=generator)
-        self.pooler = ErniePooler(cfg, device=_HOST, generator=generator)
-        _place(self, device, dtype)
+                                          generator=generator)
+        self.pooler = ErniePooler(cfg, generator=generator)
+        _cast(self, dtype)
 
     @property
     def device(self):
@@ -155,7 +155,7 @@ class ErnieModel(nn.Module):
         return out, self.pooler(out)
 
 
-class ErnieLMPredictionHead(nn.Module):
+class ErnieLMPredictionHead(Layer):
     """transform -> activation -> LN -> tied-embedding projection (+bias).
     At loss time the projection runs inside the fused linear + CE."""
 
@@ -169,7 +169,6 @@ class ErnieLMPredictionHead(nn.Module):
                                     epsilon=cfg.layer_norm_eps)
         self.decoder_weight = embedding_weights  # tied [vocab, hidden]
         self.decoder_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
-        _place(self, device)
 
     def hidden(self, h):
         return self.layer_norm(self.activation(self.transform(h)))
@@ -179,19 +178,19 @@ class ErnieLMPredictionHead(nn.Module):
                          transpose_y=True) + self.decoder_bias)
 
 
-class ErnieForPretraining(nn.Module):
+class ErnieForPretraining(Layer):
     """MLM + sentence-order heads."""
 
     def __init__(self, cfg: ErnieConfig, *, device=None, dtype=None,
                  generator=None):
         super().__init__()
         self.cfg = cfg
-        self.ernie = ErnieModel(cfg, device=_HOST, generator=generator)
+        self.ernie = ErnieModel(cfg, generator=generator)
         self.lm_head = ErnieLMPredictionHead(
-            cfg, self.ernie.embeddings.word_embeddings.weight, device=_HOST,
+            cfg, self.ernie.embeddings.word_embeddings.weight,
             generator=generator)
         self.nsp_head = Linear(cfg.hidden_size, 2, generator=generator)
-        _place(self, device, dtype)
+        _cast(self, dtype)
 
     @property
     def device(self):
@@ -204,6 +203,7 @@ class ErnieForPretraining(nn.Module):
                                  task_type_ids=task_type_ids)
         return self.lm_head(seq), self.nsp_head(pooled)
 
+    @api
     def loss(self, input_ids, mlm_labels, nsp_labels=None,
              token_type_ids=None, attention_mask=None, task_type_ids=None,
              ignore_index=-100):
@@ -223,18 +223,18 @@ class ErnieForPretraining(nn.Module):
         return mlm + F.cross_entropy(self.nsp_head(pooled), nsp).mean()
 
 
-class _ErnieHead(nn.Module):
+class _ErnieHead(Layer):
     """An ``ErnieModel`` under a dropout and a ``Linear`` classifier."""
 
-    def __init__(self, cfg, num_classes, dropout, device, dtype, generator):
+    def __init__(self, cfg, num_classes, dropout, dtype, generator):
         super().__init__()
-        self.ernie = ErnieModel(cfg, device=_HOST, generator=generator)
+        self.ernie = ErnieModel(cfg, generator=generator)
         if dropout is not False:
             self.dropout = nn.Dropout(cfg.hidden_dropout if dropout is None
                                       else dropout)
         self.classifier = Linear(cfg.hidden_size, num_classes,
                                  generator=generator)
-        _place(self, device, dtype)
+        _cast(self, dtype)
 
     @property
     def device(self):
@@ -244,7 +244,7 @@ class _ErnieHead(nn.Module):
 class ErnieForSequenceClassification(_ErnieHead):
     def __init__(self, cfg: ErnieConfig, num_classes=2, dropout=None, *,
                  device=None, dtype=None, generator=None):
-        super().__init__(cfg, num_classes, dropout, device, dtype, generator)
+        super().__init__(cfg, num_classes, dropout, dtype, generator)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 task_type_ids=None):
@@ -257,7 +257,7 @@ class ErnieForSequenceClassification(_ErnieHead):
 class ErnieForTokenClassification(_ErnieHead):
     def __init__(self, cfg: ErnieConfig, num_classes=2, dropout=None, *,
                  device=None, dtype=None, generator=None):
-        super().__init__(cfg, num_classes, dropout, device, dtype, generator)
+        super().__init__(cfg, num_classes, dropout, dtype, generator)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 task_type_ids=None):
@@ -270,7 +270,7 @@ class ErnieForTokenClassification(_ErnieHead):
 class ErnieForQuestionAnswering(_ErnieHead):
     def __init__(self, cfg: ErnieConfig, *, device=None, dtype=None,
                  generator=None):
-        super().__init__(cfg, 2, False, device, dtype, generator)
+        super().__init__(cfg, 2, False, dtype, generator)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 task_type_ids=None):

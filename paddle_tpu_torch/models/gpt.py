@@ -22,8 +22,12 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..framework.place import resolve_device
+from ..framework.tensor import api
 from ..nn import functional as F
+from ..nn.initializer import Normal
+from ..nn.layer.common import Linear
+from ..nn.layer.container import LayerList
+from ..nn.layer.layers import Layer, ParamAttr
 from ..nn.layer.norm import LayerNorm
 
 __all__ = ["GPTConfig", "GPTEmbeddings", "GPTDecoderLayer", "GPTModel",
@@ -83,21 +87,20 @@ def _normal_(t, std, generator):
 
 
 def _linear(n_in, n_out, std, generator):
-    lin = nn.Linear(n_in, n_out)
-    _normal_(lin.weight, std, generator)
-    with torch.no_grad():
-        lin.bias.zero_()
-    return lin
+    """The port's ``Linear`` (``[in, out]`` weight, zero bias), its weight
+    drawn from ``N(0, std^2)`` as the JAX model's ``Normal`` initializer."""
+    return Linear(n_in, n_out, weight_attr=ParamAttr(initializer=Normal(
+        0.0, std)), generator=generator)
 
 
 def _apply(lin, x):
-    """``lin`` through the port's ``linear`` functional (its ``amp`` hook
-    and JAX's dtype promotion), as the JAX model's Linear layers call
-    ``F.linear``."""
+    """``lin``'s ``x @ W + b`` through the port's ``linear`` functional (its
+    ``amp`` hook and JAX's dtype promotion) without a module call: the 48
+    projections of a GPT-2 forward stay off ``nn.Module.__call__``."""
     return F.linear(x, lin.weight, lin.bias)
 
 
-class GPTEmbeddings(nn.Module):
+class GPTEmbeddings(Layer):
     def __init__(self, cfg: GPTConfig, generator=None):
         super().__init__()
         _degree_one(cfg)
@@ -122,7 +125,7 @@ class GPTEmbeddings(nn.Module):
         return self.dropout(h)
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(Layer):
     """Pre-LN causal block: LN → attn → +res → LN → MLP(gelu) → +res."""
 
     def __init__(self, cfg: GPTConfig, generator=None):
@@ -169,12 +172,12 @@ class GPTDecoderLayer(nn.Module):
         return out if cache is None else (out, cache)
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, cfg: GPTConfig, generator=None):
         super().__init__()
         self.cfg = cfg
         self.embeddings = GPTEmbeddings(cfg, generator)
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [GPTDecoderLayer(cfg, generator) for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps)
 
@@ -192,14 +195,15 @@ class GPTModel(nn.Module):
         return self.ln_f(h)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """LM head tied to the input embedding.
 
     Args:
         cfg: the :class:`GPTConfig`.
-        device: ``None`` (the default) is ``"cuda"``; pass ``"cpu"`` to run
-            on the CPU. Without a card and without that request the
-            constructor raises.
+        device: ``None`` (the default) is the current place (``"gpu:0"``
+            unless ``set_device`` chose another); ``"cpu"`` runs on the CPU.
+            Without a card and without that request the constructor
+            raises. ``Layer`` places the model.
         dtype: parameter dtype (default fp32).
         generator: the ``torch.Generator`` the weights are drawn from
             (``None``: PyTorch's default generator). Weights are drawn on
@@ -209,10 +213,10 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, cfg: GPTConfig, *, device=None, dtype=None,
                  generator=None):
         super().__init__()
-        dev = resolve_device(device)
         self.cfg = cfg
         self.gpt = GPTModel(cfg, generator)
-        self.to(device=dev, dtype=dtype)
+        if dtype is not None:
+            self.to(dtype=dtype)
 
     @property
     def device(self):
@@ -231,6 +235,7 @@ class GPTForCausalLM(nn.Module):
         h = self.gpt(input_ids, position_ids, attn_mask)
         return F.matmul(h, w.t())
 
+    @api
     def loss(self, input_ids, labels):
         """Fused LM loss: the tied head's matmul and softmax cross-entropy
         without materializing the ``[tokens, vocab]`` logits

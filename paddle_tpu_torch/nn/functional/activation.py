@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ...amp.auto_cast import cast_inputs as _amp_cast
+from ...framework.dtype import convert_dtype
 
 __all__ = ["gelu", "relu", "softmax"]
 
@@ -23,8 +24,8 @@ def relu(x, name=None):
     return torch.relu(x)
 
 
-def softmax(x, axis=-1, dtype=None):
+def softmax(x, axis=-1, dtype=None, name=None):
     if dtype is not None:
-        x = x.to(dtype)
+        x = x.to(convert_dtype(dtype))
     (x,) = _amp_cast("softmax_op", x)
     return torch.softmax(x, dim=int(axis))

@@ -2,9 +2,10 @@
 (``linear`` and ``embedding``) and of ``paddle_tpu/ops/math.py::matmul``, in
 plain PyTorch.
 
-The weight layouts are PyTorch's: ``linear`` takes ``[out, in]`` (paddle
-keeps ``[in, out]``; :func:`paddle_tpu_torch.models.convert.load_jax_state`
-transposes on the way in). Operands of two float dtypes promote as in JAX
+``linear`` takes Paddle's ``[in, out]`` weight and computes ``x @ weight +
+bias``, as the JAX package does (torch's own ``linear`` runs on the
+weight's transposed view, so cuBLAS reads ``[in, out]`` as it is stored and
+adds the bias in its epilogue). Operands of two float dtypes promote as in JAX
 (bf16 against fp32 computes in fp32), where torch's own products would
 refuse them; ``amp.auto_cast`` casts the inputs first by the JAX op names
 ``linear`` and ``matmul``.
@@ -25,13 +26,14 @@ def _promoted(a, b):
     return a.to(dt), b.to(dt)
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight + bias`` with ``weight`` ``[in, out]``."""
     x, weight, bias = _amp_cast("linear", x, weight, bias)
     x, weight = _promoted(x, weight)
     if bias is None or bias.dtype == x.dtype:
-        return torch.nn.functional.linear(x, weight, bias)
+        return torch.nn.functional.linear(x, weight.t(), bias)
     # JAX adds the bias to the product in the promoted dtype of the two
-    return torch.nn.functional.linear(x, weight) + bias
+    return torch.nn.functional.linear(x, weight.t()) + bias
 
 
 def _swap_last(t):
@@ -50,5 +52,13 @@ def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
     return torch.matmul(*_promoted(x, y))
 
 
-def embedding(x, weight):
-    return torch.nn.functional.embedding(x, weight)
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at the ids ``x``. The rows at ``padding_idx`` (in
+    ``[-vocab, vocab)``; a negative one counts from the end) are zeros, and
+    so is their gradient, as in the JAX package. ``sparse`` gives the same
+    gradient, stored dense (the JAX package gives a row-sparse one)."""
+    out = torch.nn.functional.embedding(x, weight)
+    if padding_idx is None:
+        return out
+    pi = padding_idx if padding_idx >= 0 else padding_idx + weight.shape[0]
+    return out * (x != pi).unsqueeze(-1).to(out.dtype)

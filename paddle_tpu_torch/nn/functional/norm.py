@@ -55,7 +55,8 @@ def _kernel_ln_ok(normalized_shape, weight, bias):
             and bias is not None and _ln.supports(normalized_shape[0]))
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     if _kernel_ln_ok(normalized_shape, weight, bias):

@@ -1,13 +1,13 @@
-"""Layers of the port. ``Linear`` (``common.py``) and the conv layers
-(``conv.py``) keep the JAX package's initializers and run through the port's
-functionals; Embedding, LayerList and Sequential of the JAX package are
-``torch.nn.Embedding``/``ModuleList``/``Sequential`` (whose children are
-named ``0``, ``1``, ... as paddle names them)."""
-from torch.nn import Sequential  # noqa: F401
-
+"""Layers of the port, on :class:`~.layers.Layer` (a ``torch.nn.Module``
+with Paddle's surface). ``Linear`` (``common.py``) and the conv layers
+(``conv.py``) keep the JAX package's initializers and run through the
+port's functionals; ``Sequential``, ``LayerList``, ``ParameterList`` and
+``LayerDict`` are Paddle's containers (``container.py``)."""
 from .activation import ReLU  # noqa: F401
 from .common import Linear  # noqa: F401
+from .container import LayerDict, LayerList, ParameterList, Sequential  # noqa: F401
 from .conv import Conv1D, Conv2D, Conv3D  # noqa: F401
+from .layers import Layer, ParamAttr  # noqa: F401
 from .norm import (  # noqa: F401
     BatchNorm,
     BatchNorm1D,

@@ -2,14 +2,14 @@
 (``ReLU``), through the port's functional and its ``amp`` hook."""
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["ReLU"]
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
     def __init__(self, name=None):
         super().__init__()
 

@@ -1,26 +1,27 @@
 """The Linear layer and embedding tables with the JAX package's
-initializers (``paddle_tpu/nn/layer/common.py``), for the encoder stack.
+initializers (``paddle_tpu/nn/layer/common.py``).
 
-Both are ``torch.nn`` modules built on the CPU, their weights drawn from the
-``generator`` given (``None``: PyTorch's default one), so one seed gives one
-model on every device; the model that holds them moves them to its device.
-
-* :class:`Linear` keeps PyTorch's ``[out, in]`` weight (``load_jax_state``
-  transposes paddle's ``[in, out]``), draws it Xavier-normal (std
-  ``sqrt(2 / (in + out))``, the JAX default) and starts the bias at 0.
-  ``bias_attr=False`` leaves the bias out, as in paddle. Its forward is the
+* :class:`Linear` holds Paddle's ``[in, out]`` weight, drawn by its
+  ``weight_attr`` (a :class:`~.layers.ParamAttr`, an initializer or a name;
+  default XavierNormal, std ``sqrt(2 / (in + out))``), and a bias drawn by
+  ``bias_attr`` (default zeros; ``False``: no bias). Its forward is the
   port's ``F.linear`` (the ``amp`` hook and JAX's dtype promotion).
 * :func:`embedding_table` is an ``nn.Embedding`` drawn from a normal of
   ``std`` (the encoders' ``Normal(initializer_range)``).
+
+Weights are drawn on the CPU from ``generator`` (``None``: PyTorch's
+default one), so one seed gives one model on every device; a Linear built
+on its own then moves to the current place, one inside a model moves with
+the model.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 from torch import nn
 
 from .. import functional as F
+from ..initializer import XavierNormal
+from .layers import Layer, ParamAttr, make_parameter
 
 __all__ = ["Linear", "embedding_table"]
 
@@ -31,31 +32,38 @@ def normal_(t, std, generator=None):
         t.normal_(0.0, std, generator=generator)
 
 
-def _check_attrs(weight_attr, bias_attr, layer="Linear"):
-    """The port has no ``ParamAttr``: the default initializers only, and
-    ``bias_attr=False`` for no bias."""
+def _check_attrs(weight_attr, bias_attr, layer):
+    """The layers other than Linear take no ``ParamAttr`` yet
+    (``ROADMAP.md``): their default initializers only, and ``bias_attr=False``
+    for no bias."""
     if weight_attr is not None or bias_attr not in (None, False):
         raise NotImplementedError(
             f"{layer}: the port takes weight_attr=None and bias_attr None or "
             f"False, not {weight_attr!r}, {bias_attr!r}")
 
 
-class Linear(nn.Linear):
-    """``paddle.nn.Linear``: ``y = x W + b`` through ``F.linear``."""
+class Linear(Layer):
+    """``paddle.nn.Linear``: ``y = x W + b`` with ``W`` ``[in, out]``."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
-                 bias_attr=None, name=None, *, generator=None):
-        _check_attrs(weight_attr, bias_attr)
-        super().__init__(in_features, out_features,
-                         bias=bias_attr is not False)
-        normal_(self.weight, math.sqrt(2.0 / (in_features + out_features)),
-                generator)
-        if self.bias is not None:
-            with torch.no_grad():
-                self.bias.zero_()
+                 bias_attr=None, name=None, *, dtype=None, generator=None):
+        super().__init__()
+        self._in_features = in_features
+        self._out_features = out_features
+        dtype = dtype or torch.float32
+        self.weight = make_parameter(
+            [in_features, out_features], ParamAttr._to_attr(weight_attr),
+            dtype, default_initializer=XavierNormal(), generator=generator)
+        battr = ParamAttr._to_attr(bias_attr)
+        self.bias = (None if battr is False else make_parameter(
+            [out_features], battr, dtype, is_bias=True, generator=generator))
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return (f"in_features={self._in_features}, "
+                f"out_features={self._out_features}")
 
 
 def embedding_table(num, dim, std, generator=None):

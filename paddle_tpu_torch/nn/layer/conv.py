@@ -7,7 +7,8 @@ The weight is ``[out, in/groups, *k]``, drawn on the CPU from ``generator``
 and ``fan_out = out * prod(k)``; the bias starts at 0 and ``bias_attr=False``
 leaves it out. A layer built while layout autotune is on keeps a 2-D or 3-D
 weight in channels-last memory format, as the convolution wants it then.
-The model that holds a layer moves it to its device.
+Built on its own, a layer lands on the current place (``Layer``); inside
+a model it moves with the model.
 """
 from __future__ import annotations
 
@@ -20,11 +21,12 @@ from .. import functional as F
 from ...framework.layout_autotune import layout_autotune_enabled
 from ..functional.conv import CHANNELS_LAST, _norm_tuple
 from .common import _check_attrs, normal_
+from .layers import Layer
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D"]
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, nd, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW",

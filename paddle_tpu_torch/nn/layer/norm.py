@@ -13,27 +13,31 @@ from torch import nn
 
 from .. import functional as F
 from .common import _check_attrs
+from .layers import Layer
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "BatchNorm3D"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """LayerNorm over the trailing ``normalized_shape`` axes through the
     :func:`~paddle_tpu_torch.nn.functional.layer_norm` router. gamma starts
-    at 1 and beta at 0, as in the JAX package."""
+    at 1 and beta at 0, as in the JAX package; ``weight_attr=False`` /
+    ``bias_attr=False`` leave it without gamma / beta."""
 
-    def __init__(self, normalized_shape, epsilon=1e-5, device=None,
-                 dtype=None):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None):
         super().__init__()
+        _check_attrs(None if weight_attr is False else weight_attr,
+                     bias_attr, type(self).__name__)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(
-            self._normalized_shape, device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(
-            self._normalized_shape, device=device, dtype=dtype))
+        self.weight = (None if weight_attr is False else nn.Parameter(
+            torch.ones(self._normalized_shape, device=device, dtype=dtype)))
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            torch.zeros(self._normalized_shape, device=device, dtype=dtype)))
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
@@ -44,7 +48,7 @@ class LayerNorm(nn.Module):
                 f"epsilon={self._epsilon}")
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None):

@@ -4,9 +4,9 @@
 (``nn/functional/pooling.py``)."""
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = [
     "MaxPool1D", "MaxPool2D", "MaxPool3D",
@@ -16,7 +16,7 @@ __all__ = [
 ]
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  return_mask=False, exclusive=True, data_format=None):
         super().__init__()
@@ -104,7 +104,7 @@ class AvgPool3D(_Pool):
                             self.data_format)
 
 
-class AdaptiveAvgPool1D(nn.Module):
+class AdaptiveAvgPool1D(Layer):
     def __init__(self, output_size, name=None):
         super().__init__()
         self._output_size = output_size
@@ -113,7 +113,7 @@ class AdaptiveAvgPool1D(nn.Module):
         return F.adaptive_avg_pool1d(x, self._output_size)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self._output_size = output_size
@@ -123,7 +123,7 @@ class AdaptiveAvgPool2D(nn.Module):
         return F.adaptive_avg_pool2d(x, self._output_size, self._data_format)
 
 
-class AdaptiveAvgPool3D(nn.Module):
+class AdaptiveAvgPool3D(Layer):
     def __init__(self, output_size, data_format="NCDHW", name=None):
         super().__init__()
         self._output_size = output_size
@@ -133,7 +133,7 @@ class AdaptiveAvgPool3D(nn.Module):
         return F.adaptive_avg_pool3d(x, self._output_size, self._data_format)
 
 
-class AdaptiveMaxPool2D(nn.Module):
+class AdaptiveMaxPool2D(Layer):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__()
         self._output_size = output_size

@@ -10,12 +10,13 @@ theirs: the encoders' calls (s <= 512, so fewer score entries than
 ``flash_attention_min_seq_prod``; or a ``[b, 1, 1, s]`` padding bias, which
 no flash kernel streams) take its dense path there as here.
 
-Each layer is an ``nn.Module`` built on the CPU from ``generator`` (None:
-PyTorch's default one) and then moved to ``device`` (None: the card; pass
-``"cpu"`` to stay on the host). Hidden dropout is ``torch.nn.Dropout``
-(``upscale_in_train``). A stacked encoder or decoder holds the prototype
-layer as its first layer and deep copies whose weights of two or more dims
-are redrawn (:func:`_clone_layer`), as in the JAX package.
+Each layer is a ``Layer`` built on the CPU from ``generator`` (None:
+PyTorch's default one); built outside another layer, ``Layer`` places it on
+``device`` (None: the current place; ``"cpu"`` to stay on the host).
+Hidden dropout is ``torch.nn.Dropout`` (``upscale_in_train``). A stacked
+encoder or decoder holds the prototype layer as its first layer and deep
+copies whose weights of two or more dims are redrawn
+(:func:`_clone_layer`), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,9 +27,10 @@ import math
 import torch
 from torch import nn
 
-from ...framework.place import resolve_device
 from .. import functional as F
 from .common import Linear
+from .container import LayerList
+from .layers import Layer
 from .norm import LayerNorm
 
 __all__ = [
@@ -40,13 +42,11 @@ __all__ = [
     "Transformer",
 ]
 
-#: where nested layers are built; the outermost layer moves them
-_HOST = "cpu"
 
-
-def _place(module, device, dtype=None):
-    """Move ``module`` to ``device`` (None: the card) and ``dtype``."""
-    return module.to(device=resolve_device(device), dtype=dtype)
+def _cast(module, dtype):
+    """Cast ``module``'s floating tensors to ``dtype`` (None: as built)."""
+    if dtype is not None:
+        module.to(dtype=dtype)
 
 
 def _convert_attention_mask(attn_mask, dtype):
@@ -60,7 +60,7 @@ def _convert_attention_mask(attn_mask, dtype):
                                   device=attn_mask.device))
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """paddle's ``MultiHeadAttention``: q/k/v/out projections around the
     SDPA router. ``need_weights`` is accepted and, as in the JAX package,
     no attention weights are returned."""
@@ -90,7 +90,6 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = proj(self.kdim)
         self.v_proj = proj(self.vdim)
         self.out_proj = proj(embed_dim)
-        _place(self, device)
 
     def _heads(self, t, b):
         return t.reshape(b, -1, self.num_heads, self.head_dim)
@@ -136,7 +135,7 @@ class MultiHeadAttention(nn.Module):
         return out if cache is None else (out, cache)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """paddle's ``TransformerEncoderLayer``: pre-LN (``normalize_before``)
     or post-LN self-attention and feed-forward blocks; ``activation`` by
     name from the port's ``F``."""
@@ -151,7 +150,7 @@ class TransformerEncoderLayer(nn.Module):
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
             d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
-            bias_attr=bias_attr, device=_HOST, generator=generator)
+            bias_attr=bias_attr, generator=generator)
         self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
                               bias_attr, generator=generator)
         self.dropout = nn.Dropout(act_dropout)
@@ -162,7 +161,6 @@ class TransformerEncoderLayer(nn.Module):
         self.dropout1 = nn.Dropout(dropout)
         self.dropout2 = nn.Dropout(dropout)
         self.activation = getattr(F, activation)
-        _place(self, device)
 
     def forward(self, src, src_mask=None, cache=None):
         residual = src
@@ -191,11 +189,11 @@ class TransformerEncoderLayer(nn.Module):
 
 
 def _stack(layer, num_layers, generator):
-    return nn.ModuleList([layer if i == 0 else _clone_layer(layer, generator)
+    return LayerList([layer if i == 0 else _clone_layer(layer, generator)
                           for i in range(num_layers)])
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` encoder layers: ``encoder_layer`` itself first, then
     clones with redrawn weights; ``norm`` after the last, if given."""
 
@@ -205,7 +203,6 @@ class TransformerEncoder(nn.Module):
         self.layers = _stack(encoder_layer, num_layers, generator)
         self.num_layers = num_layers
         self.norm = norm
-        _place(self, device)
 
     def forward(self, src, src_mask=None, cache=None):
         output = src
@@ -225,7 +222,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """paddle's ``TransformerDecoderLayer``: self-attention, cross-attention
     over ``memory`` and feed-forward blocks, pre- or post-LN."""
 
@@ -239,10 +236,10 @@ class TransformerDecoderLayer(nn.Module):
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
             d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
-            bias_attr=bias_attr, device=_HOST, generator=generator)
+            bias_attr=bias_attr, generator=generator)
         self.cross_attn = MultiHeadAttention(
             d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
-            bias_attr=bias_attr, device=_HOST, generator=generator)
+            bias_attr=bias_attr, generator=generator)
         self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
                               bias_attr, generator=generator)
         self.dropout = nn.Dropout(act_dropout)
@@ -255,7 +252,6 @@ class TransformerDecoderLayer(nn.Module):
         self.dropout2 = nn.Dropout(dropout)
         self.dropout3 = nn.Dropout(dropout)
         self.activation = getattr(F, activation)
-        _place(self, device)
 
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
                 cache=None):
@@ -301,7 +297,7 @@ class TransformerDecoderLayer(nn.Module):
         return incremental, static
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` decoder layers, built as :class:`TransformerEncoder`
     builds its stack."""
 
@@ -311,7 +307,6 @@ class TransformerDecoder(nn.Module):
         self.layers = _stack(decoder_layer, num_layers, generator)
         self.num_layers = num_layers
         self.norm = norm
-        _place(self, device)
 
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
                 cache=None):
@@ -340,9 +335,9 @@ class TransformerDecoder(nn.Module):
 def _clone_layer(layer, generator=None):
     """A deep copy of ``layer`` whose parameters of two or more dims are
     redrawn from ``N(0, 2 / (fan_in + fan_out))`` over their last two dims
-    (the JAX package takes them on paddle's ``[in, out]`` layout; the std
-    is the same on PyTorch's ``[out, in]``). Draws are made on the CPU from
-    ``generator`` and copied to each parameter's device and dtype."""
+    (paddle's ``[in, out]``, as in the JAX package). Draws are made on the
+    CPU from ``generator`` and copied to each parameter's device and
+    dtype."""
     new = copy.deepcopy(layer)
     with torch.no_grad():
         for p in new.parameters():
@@ -354,7 +349,7 @@ def _clone_layer(layer, generator=None):
     return new
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """paddle's encoder-decoder ``Transformer``."""
 
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
@@ -370,25 +365,22 @@ class Transformer(nn.Module):
             enc_layer = TransformerEncoderLayer(
                 d_model, nhead, dim_feedforward, dropout, activation,
                 attn_dropout, act_dropout, normalize_before, weight_attr,
-                bias_attr, device=_HOST, generator=generator)
+                bias_attr, generator=generator)
             enc_norm = LayerNorm(d_model) if normalize_before else None
             self.encoder = TransformerEncoder(
-                enc_layer, num_encoder_layers, enc_norm, device=_HOST,
-                generator=generator)
+                enc_layer, num_encoder_layers, enc_norm, generator=generator)
         if custom_decoder is not None:
             self.decoder = custom_decoder
         else:
             dec_layer = TransformerDecoderLayer(
                 d_model, nhead, dim_feedforward, dropout, activation,
                 attn_dropout, act_dropout, normalize_before, weight_attr,
-                bias_attr, device=_HOST, generator=generator)
+                bias_attr, generator=generator)
             dec_norm = LayerNorm(d_model) if normalize_before else None
             self.decoder = TransformerDecoder(
-                dec_layer, num_decoder_layers, dec_norm, device=_HOST,
-                generator=generator)
+                dec_layer, num_decoder_layers, dec_norm, generator=generator)
         self.d_model = d_model
         self.nhead = nhead
-        _place(self, device)
 
     def forward(self, src, tgt, src_mask=None, tgt_mask=None,
                 memory_mask=None):
@@ -399,7 +391,7 @@ class Transformer(nn.Module):
     def generate_square_subsequent_mask(self, length):
         """fp32 ``[length, length]`` additive causal mask: 0 on and below
         the diagonal, -inf above, on the model's device."""
-        param = next(self.parameters(), None)
+        param = next(iter(self.parameters()), None)
         dev = param.device if param is not None else torch.device("cpu")
         return torch.triu(torch.full((length, length), -math.inf,
                                      device=dev), 1)

@@ -1,25 +1,26 @@
 """LeNet — port of ``paddle_tpu/vision/models/lenet.py``: two conv + relu +
 max-pool stages and three Linears, for 1 x 28 x 28 images. Built on the CPU
-from ``generator``, then moved to ``device`` (None: the card)."""
+from ``generator``, then placed by ``Layer`` on ``device`` (None: the
+current place)."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...nn.layer.activation import ReLU
 from ...nn.layer.common import Linear
+from ...nn.layer.container import Sequential
 from ...nn.layer.conv import Conv2D
+from ...nn.layer.layers import Layer
 from ...nn.layer.pooling import MaxPool2D
-from ...nn.layer.transformer import _place
 
 __all__ = ["LeNet"]
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, *, device=None, generator=None):
         super().__init__()
         self.num_classes = num_classes
-        self.features = nn.Sequential(
+        self.features = Sequential(
             Conv2D(1, 6, 3, stride=1, padding=1, generator=generator),
             ReLU(),
             MaxPool2D(2, 2),
@@ -27,11 +28,10 @@ class LeNet(nn.Module):
             ReLU(),
             MaxPool2D(2, 2))
         if num_classes > 0:
-            self.fc = nn.Sequential(
+            self.fc = Sequential(
                 Linear(400, 120, generator=generator),
                 Linear(120, 84, generator=generator),
                 Linear(84, num_classes, generator=generator))
-        _place(self, device)
 
     def forward(self, inputs):
         x = self.features(inputs)

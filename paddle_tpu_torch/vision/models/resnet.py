@@ -5,21 +5,22 @@ to 152, the wide and the ResNeXt variants).
 The module tree and its names are the JAX model's (``conv1``, ``bn1``,
 ``layer1.0.downsample.0``, ``fc``), so ``models.load_jax_state`` carries a
 JAX ResNet's weights and batch-norm buffers over. Models are built on the
-CPU from ``generator`` (``None``: PyTorch's default one) and then moved to
-``device`` (None: the card; ``"cpu"`` to stay on the host). The factories
+CPU from ``generator`` (``None``: PyTorch's default one) and placed by
+``Layer`` on ``device`` (None: the current place; ``"cpu"`` to stay on the
+host). The factories
 refuse ``pretrained=True``: the weights need a download.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...nn.layer.activation import ReLU
 from ...nn.layer.common import Linear
+from ...nn.layer.container import Sequential
 from ...nn.layer.conv import Conv2D
+from ...nn.layer.layers import Layer
 from ...nn.layer.norm import BatchNorm2D
 from ...nn.layer.pooling import AdaptiveAvgPool2D, MaxPool2D
-from ...nn.layer.transformer import _place
 
 __all__ = [
     "BasicBlock", "BottleneckBlock", "ResNet",
@@ -30,7 +31,7 @@ __all__ = [
 ]
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -57,7 +58,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -93,7 +94,7 @@ _LAYERS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
            101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, *, device=None, generator=None):
         super().__init__()
@@ -123,14 +124,13 @@ class ResNet(nn.Module):
         if num_classes > 0:
             self.fc = Linear(512 * block.expansion, num_classes,
                              generator=generator)
-        _place(self, device)
 
     def _make_layer(self, block, planes, blocks, stride=1, dilate=False, *,
                     generator=None):
         norm_layer, gen = self._norm_layer, generator
         downsample = None
         if stride != 1 or self.inplanes != planes * block.expansion:
-            downsample = nn.Sequential(
+            downsample = Sequential(
                 Conv2D(self.inplanes, planes * block.expansion, 1,
                        stride=stride, bias_attr=False, generator=gen),
                 norm_layer(planes * block.expansion))
@@ -142,7 +142,7 @@ class ResNet(nn.Module):
             layers.append(block(self.inplanes, planes, groups=self.groups,
                                 base_width=self.base_width,
                                 norm_layer=norm_layer, generator=gen))
-        return nn.Sequential(*layers)
+        return Sequential(*layers)
 
     def forward(self, x):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))

@@ -106,14 +106,11 @@ def test_decorate_and_auto_cast_match_jax(level, monkeypatch):
     np.testing.assert_allclose(tloss, jloss,
                                rtol=1e-5 if level == "O2" else 2e-3)
     jparams = dict(jm.named_parameters())
-    linear = {f"{n}.weight" for n, mod in tm.named_modules()
-              if isinstance(mod, torch.nn.Linear)}
     for name, p in tm.named_parameters():
         jp = jparams[name]
         assert str(p.dtype).replace("torch.", "") == str(jp._value.dtype)
         assert p.grad.dtype == p.dtype, name
         want = np.asarray(jnp.asarray(jp.grad._value, jnp.float32))
-        want = want.T if name in linear else want
         err = np.abs(p.grad.float().numpy() - want).max()
         big = np.abs(want).max()
         if level == "O1":

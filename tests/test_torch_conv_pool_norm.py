@@ -30,7 +30,10 @@ import paddle_tpu_torch.nn.functional as PF
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch.framework.layout_autotune import layout_autotune_enabled
 from paddle_tpu_torch.incubate import autotune
-from tests.torch_port_util import FP32_TOL, jax_state
+from tests.torch_port_util import FP32_TOL, jax_state, port_cpu  # noqa: F401
+
+# the layers here are built on the CPU place
+pytestmark = pytest.mark.usefixtures("port_cpu")
 
 TOL = dict(atol=FP32_TOL, rtol=1e-5)
 BF16_STEP = 2.0 ** -7
@@ -567,7 +570,5 @@ def test_momentum_state_of_a_conv_weight_carries_over():
     topt.step()
     for name, p in tm.named_parameters():
         want = np.asarray(dict(jm.named_parameters())[name].numpy())
-        if p.ndim == 2:
-            want = want.T
         np.testing.assert_allclose(p.detach().numpy(), want, **TOL,
                                    err_msg=name)

@@ -53,12 +53,13 @@ def test_cached_prefill_logits_match_uncached():
 
 
 def test_load_jax_state_transposes_linear_weights():
+    # both packages keep paddle's [in, out]: nothing is transposed (C9)
     jm, tm = gpt_pair(layers=1)
     jw = np.asarray(jm.state_dict()["gpt.layers.0.qkv_proj.weight"].numpy())
     assert jw.shape == (128, 384)               # paddle: [in, out]
     tw = tm.gpt.layers[0].qkv_proj.weight.detach().numpy()
-    assert tw.shape == (384, 128)               # torch: [out, in]
-    np.testing.assert_array_equal(tw, jw.T)
+    assert tw.shape == (128, 384)
+    np.testing.assert_array_equal(tw, jw)
 
 
 def test_load_jax_state_rejects_a_mismatched_state():

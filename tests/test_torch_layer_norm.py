@@ -23,7 +23,11 @@ from paddle_tpu.ops.pallas.layer_norm import fused_layer_norm
 from paddle_tpu_torch.nn import LayerNorm
 from paddle_tpu_torch.nn import functional as PF
 from paddle_tpu_torch.ops.cuda import layer_norm as k7
-from tests.torch_port_util import FP32_TOL, no_persistent_compile_cache  # noqa: F401
+from tests.torch_port_util import (FP32_TOL, no_persistent_compile_cache,  # noqa: F401
+                                   port_cpu)
+
+# the LayerNorm modules here are built on the CPU place
+pytestmark = pytest.mark.usefixtures("port_cpu")
 
 BF16_STEP = 2.0 ** -7
 

@@ -120,8 +120,6 @@ def test_load_jax_optimizer_state_resumes_a_jax_run(dtype):
         jm.to(dtype="bfloat16")
         tm.to(torch.bfloat16)
     jparams = dict(jm.named_parameters())
-    linear = {n for n, mod in tm.named_modules()
-              if isinstance(mod, torch.nn.Linear)}
     rng = np.random.RandomState(1)
     grads = [{n: rng.randn(*p.shape).astype(np.float32) * 1e-2
               for n, p in jparams.items()} for _ in range(3)]
@@ -148,14 +146,10 @@ def test_load_jax_optimizer_state_resumes_a_jax_run(dtype):
     jax_step(grads[2])
     for n, p in tm.named_parameters():
         g = _np(jnp.asarray(grads[2][n]).astype(_JNP[dtype]))
-        p.grad = torch.from_numpy(g.T.copy() if n[:-len(".weight")] in linear
-                                  and n.endswith(".weight") else g).to(dtype)
+        p.grad = torch.from_numpy(g).to(dtype)
     topt.step()
     for n, p in tm.named_parameters():
-        want = _np(jparams[n])
-        if n.endswith(".weight") and n[:-len(".weight")] in linear:
-            want = want.T
-        _close_param(p, want, dtype)
+        _close_param(p, _np(jparams[n]), dtype)
 
 
 def test_load_jax_optimizer_state_rejects_an_unknown_entry():
@@ -194,12 +188,6 @@ def test_load_jax_optimizer_state_resumes_momentum_and_a_schedule(kind):
     ``LR_Scheduler`` state) and both run two more steps in step."""
     jm, tm = gpt_pair(layers=1)
     jparams = dict(jm.named_parameters())
-    linear = {n for n, mod in tm.named_modules()
-              if isinstance(mod, torch.nn.Linear)}
-
-    def is_lin_w(n):
-        return n.endswith(".weight") and n[:-len(".weight")] in linear
-
     rng = np.random.RandomState(2)
     grads = [{n: rng.randn(*p.shape).astype(np.float32) * 1e-2
               for n, p in jparams.items()} for _ in range(5)]
@@ -225,8 +213,7 @@ def test_load_jax_optimizer_state_resumes_momentum_and_a_schedule(kind):
         jopt.step()
         jopt.clear_grad()
         for n, p in tm.named_parameters():
-            p.grad = torch.from_numpy(gs[n].T.copy() if is_lin_w(n)
-                                      else gs[n])
+            p.grad = torch.from_numpy(gs[n])
         topt.step()
         topt.clear_grad()
         if jsched is not None:
@@ -234,5 +221,4 @@ def test_load_jax_optimizer_state_resumes_momentum_and_a_schedule(kind):
             topt._learning_rate.step()
         assert topt.get_lr() == jopt.get_lr()
     for n, p in tm.named_parameters():
-        want = _np(jparams[n])
-        _close(p, want.T if is_lin_w(n) else want)
+        _close(p, _np(jparams[n]))

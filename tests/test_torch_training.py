@@ -103,11 +103,8 @@ def _port_run(cfg, state, batches):
 def _check(tm, losses, want_losses, final):
     np.testing.assert_allclose(losses, want_losses, rtol=LOSS_RTOL, atol=0)
     assert losses[-1] < losses[0]
-    linear = {f"{n}.weight" for n, mod in tm.named_modules()
-              if isinstance(mod, torch.nn.Linear)}
     for name, p in tm.named_parameters():
-        want = final[name].T if name in linear else final[name]
-        np.testing.assert_allclose(p.detach().numpy(), want,
+        np.testing.assert_allclose(p.detach().numpy(), final[name],
                                    atol=PARAM_ATOL, rtol=0, err_msg=name)
 
 

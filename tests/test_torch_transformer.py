@@ -31,10 +31,15 @@ from paddle_tpu.nn.layer import transformer as JT
 import paddle_tpu_torch.nn as pnn
 from paddle_tpu_torch.nn.layer import transformer as PT
 from tests.torch_port_util import (  # noqa: F401
+    default_place,
     grads_match,
     model_pair,
     no_persistent_compile_cache,
+    port_cpu,
 )
+
+# layers built here without a device land on the CPU place
+pytestmark = pytest.mark.usefixtures("port_cpu")
 
 ATOL, RTOL = 1e-5, 1e-4
 D, H, FF = 32, 2, 64
@@ -236,9 +241,18 @@ def test_clone_layer_redraws_weights_with_the_xavier_std():
 
 
 def test_layers_default_to_the_card_and_take_no_param_attr():
-    with pytest.raises(NotImplementedError, match="bias_attr"):
-        pnn.Linear(4, 4, bias_attr="b")
+    # Linear takes a ParamAttr (its name, initializer, trainable); the
+    # other layers still refuse one
+    lin = pnn.Linear(4, 4, weight_attr=pnn.ParamAttr(
+        name="w", initializer=pnn.initializer.Constant(0.5)), bias_attr="b")
+    assert lin.weight.name == "w" and lin.bias.name == "b"
+    assert torch.equal(lin.weight, torch.full((4, 4), 0.5))
     assert pnn.Linear(4, 4, bias_attr=False).bias is None
+    with pytest.raises(NotImplementedError, match="bias_attr"):
+        pnn.Conv2D(2, 3, 3, bias_attr="b")
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            pnn.MultiHeadAttention(D, H)
+        with default_place():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                pnn.MultiHeadAttention(D, H)
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                pnn.Linear(4, 4)

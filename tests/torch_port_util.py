@@ -121,12 +121,8 @@ def model_pair(jax_ctor, port_ctor, seed=0):
 
 def grads_match(jax_model, port_model, atol=1e-5, rtol=1e-4):
     """Every parameter's gradient of the port within ``atol`` + ``rtol``
-    relative of JAX's, element by element (paddle's Linear weights are
-    ``[in, out]``: transposed); a parameter off the loss's path has none in
-    either."""
-    from paddle_tpu_torch.models.convert import _linear_weights
-
-    linear = _linear_weights(port_model)
+    relative of JAX's, element by element (both packages keep Paddle's
+    layouts); a parameter off the loss's path has none in either."""
     jgrads = {n: p.grad for n, p in jax_model.named_parameters()}
     tparams = dict(port_model.named_parameters())
     assert set(jgrads) == set(tparams)
@@ -135,7 +131,159 @@ def grads_match(jax_model, port_model, atol=1e-5, rtol=1e-4):
             assert p.grad is None, name
             continue
         want = np.asarray(jgrads[name].numpy(), np.float32)
-        if name in linear:
-            want = want.T
         np.testing.assert_allclose(p.grad.float().numpy(), want, atol=atol,
                                    rtol=rtol, err_msg=name)
+
+
+@pytest.fixture
+def port_cpu():
+    """The port's current place set to the CPU for one test (``set_device``
+    leaves it there otherwise: a Layer built without ``device`` lands on
+    it), and put back after."""
+    from paddle_tpu_torch.framework import place
+
+    prev = place._current
+    place.set_device("cpu")
+    yield
+    place._current = prev
+
+
+@contextlib.contextmanager
+def default_place():
+    """The port's current place at its start, ``gpu:0`` (a card that may
+    not be there), inside a test that runs on the CPU place."""
+    from paddle_tpu_torch.framework import place
+
+    prev = place._current
+    place._current = place.CUDAPlace(0)
+    try:
+        yield
+    finally:
+        place._current = prev
+
+
+# -- the op sweep (paddle_tpu_torch/ops/op_table.py) against the JAX package --
+
+#: forward values in fp32: within this share of the largest magnitude
+SWEEP_FWD_TOL = 1e-5
+#: gradients in fp32 (a product and a sum on top of the forward)
+SWEEP_GRAD_TOL = 1e-4
+#: the linalg entries (LAPACK's routines in both packages, fp32)
+SWEEP_LINALG_TOL = 1e-3
+
+
+def sweep_arrays(entry):
+    """An entry's inputs from ``RandomState(crc32(api))``, as the JAX
+    package's sweep seeds them."""
+    import zlib
+
+    from paddle_tpu_torch.ops.op_table import draw
+
+    rng = np.random.RandomState(zlib.crc32(entry["api"].encode()) % 2 ** 31)
+    return [draw(s, d, rng) for s, d in entry["inputs"]]
+
+
+def jax_sweep_run(entry, arrays, dtype=None, seed=0):
+    """:func:`paddle_tpu_torch.ops.op_table.run` through the JAX package."""
+    import paddle_tpu as jp
+    from paddle_tpu.framework.tensor import Tensor as JT
+
+    from paddle_tpu_torch.ops.op_table import differentiable_inputs, resolve
+
+    fn = resolve(entry["api"], jp)
+    diff = differentiable_inputs(entry)
+    tensors = []
+    for i, a in enumerate(arrays):
+        t = JT(a)
+        if dtype is not None and a.dtype == np.float32:
+            t = t.astype(dtype)
+        t.stop_gradient = i not in diff
+        tensors.append(t)
+    out = fn(*tensors, **entry["kwargs"])
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    grads = None
+    if diff and not outs[0].stop_gradient:
+        c = np.random.RandomState(seed).uniform(-1, 1, outs[0].shape)
+        ct = JT(c.astype(np.float32)).astype(outs[0].dtype)
+        loss = jp.sum(outs[0] * ct)
+        grads = jp.grad(loss, [tensors[i] for i in diff], allow_unused=True)
+        grads = [None if g is None else _f32(g.numpy()) for g in grads]
+    return [_f32(o.numpy()) for o in outs], grads
+
+
+def _f32(a):
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.kind == "V" or str(
+        a.dtype) == "bfloat16" else a
+
+
+def sweep_close(got, want, tol, what):
+    """``got`` within ``tol`` of the largest magnitude of ``want`` (exact
+    for integers and booleans; NaN and Inf where ``want`` has them)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if want.dtype.kind in "biu":
+        np.testing.assert_array_equal(got, want, err_msg=what)
+        return
+    got = got.astype(np.float64)
+    want = want.astype(np.float64)
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin, err_msg=what)
+    np.testing.assert_array_equal(got[~fin], want[~fin], err_msg=what)
+    if fin.any():
+        scale = max(np.abs(want[fin]).max(), 1e-30)
+        err = np.abs(got[fin] - want[fin]).max()
+        assert err <= tol * scale, f"{what}: {err:.3g} > {tol} x {scale:.3g}"
+
+
+def _slice_reference(entry, arrays, seed=0):
+    """``ops.slice`` by numpy: the JAX package's ``slice`` raises (its
+    ``_slice_raw``, ``paddle_tpu/ops/manipulation.py:374``, calls the
+    module's own ``slice`` where it means the builtin)."""
+    x = arrays[0]
+    kw = entry["kwargs"]
+    idx = [slice(None)] * x.ndim
+    for a, s, e in zip(kw["axes"], kw["starts"], kw["ends"]):
+        idx[a] = slice(s, e)
+    out = x[tuple(idx)]
+    grad = np.zeros_like(x)
+    grad[tuple(idx)] = np.random.RandomState(seed).uniform(
+        -1, 1, out.shape).astype(np.float32)
+    return [out], [grad]
+
+
+#: entries whose reference is numpy, with the JAX fault that forces it
+JAX_FAULTY = {"ops.slice": _slice_reference}
+
+
+def sweep_check(entry):
+    """One entry, fp32, forward and gradient: the port on the CPU against
+    the JAX package."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import op_table
+
+    arrays = sweep_arrays(entry)
+    outs, grads = op_table.run(entry, arrays, pt, "cpu")
+    ref = JAX_FAULTY.get(entry["api"], None)
+    jouts, jgrads = (ref(entry, arrays) if ref is not None
+                     else jax_sweep_run(entry, arrays))
+    lin = entry["api"] in op_table.LINALG
+    ftol = SWEEP_LINALG_TOL if lin else SWEEP_FWD_TOL
+    gtol = SWEEP_LINALG_TOL if lin else SWEEP_GRAD_TOL
+    assert len(outs) == len(jouts), entry["api"]
+    for i, (o, j) in enumerate(zip(outs, jouts)):
+        sweep_close(o, j, ftol, f"{entry['api']} output {i}")
+    assert (grads is None) == (jgrads is None), entry["api"]
+    for i, (g, j) in enumerate(zip(grads or [], jgrads or [])):
+        assert (g is None) == (j is None), (entry["api"], i)
+        if g is not None:
+            sweep_close(g, j, gtol, f"{entry['api']} grad {i}")
+
+
+def sweep_ids(entries):
+    counts, out = {}, []
+    for e in entries:
+        n = e["api"]
+        counts[n] = counts.get(n, 0) + 1
+        out.append(n if counts[n] == 1 else f"{n}#{counts[n]}")
+    return out
