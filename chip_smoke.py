@@ -227,7 +227,38 @@
     fp32-only decomposition, bf16, forward and the gradient of
     ``sum(out * c)``; limits ``SWEEP_*_TOL``; an op CUDA refuses fails the
     phase. It prints ``paddle_api ops held N/N`` and the sweep's time.
-15. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
+15. The training runtime (the main path of the hapi slice), after the API
+    phases. ``hapi_gpt2``: GPT-2 124M (``bench.py``'s configuration, bf16
+    with fp32 LayerNorms, dropout 0) behind ``paddle.Model(net).prepare(
+    AdamW(1e-4, multi_precision=True), nn.CrossEntropyLoss())`` and
+    ``fit`` over an in-memory ``io.TensorDataset`` of 13 x 24 sequences of
+    1025 ids (inputs ``ids[:-1]``, labels ``ids[1:]``) through a
+    ``DataLoader`` with 2 worker processes (forkserver), shuffled,
+    ``log_freq=5``: 3 warm-up and 10 timed steps between two hand-written
+    loops (forward, ``F.cross_entropy``, backward, step, clear_grad) over
+    the same batches in the same order from the same init; ms a step on
+    the device clock and tokens/s of each, and whether hapi's median step
+    lies within ``HAPI_STEP_TOL`` of the loops' (printed, not enforced:
+    host-paced steps); the first loss the loops' bits and the fence losses within the
+    loops' spread; K5-K8 12/12/25/25 times a step; the timed steps'
+    synchronising calls (``torch.cuda.set_sync_debug_mode("warn")``) by
+    call site, hapi adding none over the loops' but its fences; then
+    ``evaluate`` on 2 batches (a forward's loss bits) and ``predict`` of 4
+    sequences of 128 stacked (a forward's logits bits). ``hapi_resume``:
+    the same model at batch 8 x 1024, one shuffled epoch of 12 steps
+    (AdamW on a cosine schedule) twice uninterrupted, once with
+    ``fit(resume=dir, ckpt_freq=4)`` and a SIGTERM injected after step 6
+    (``TrainingPreempted``), once resumed by a fresh model and optimizer:
+    parameters, fp32 masters and moments, the schedule, every generator,
+    numpy's state and the cursor bit for bit, steps 7-12 on run 1's input
+    ids, losses within the uninterrupted runs' spread; the checkpoint's
+    bytes, save and restore seconds. ``hapi_lenet``: LeNet behind
+    ``prepare(Adam(1e-3), CrossEntropyLoss(), Accuracy(topk=(1, 2)))``,
+    one epoch of ``fit`` at batch 64 over 60,000 synthetic MNIST images
+    (``synthetic_mnist``, built on the host), ``evaluate`` and ``predict``
+    over 10,000: images/s, the metric line, eval top-1 at least
+    ``LENET_MIN_ACC``; no K1-K11.
+16. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
     K1-K4 and K6 with their bf16 HMMA counts and ptxas registers and
     spills, K9-K11 with their plan a case and their bf16 wgmma kernels'
     HGMMA counts and registers and spills (K9 also beside the cuBLAS
@@ -242,6 +273,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -260,6 +292,25 @@ SMALL_LOSS_TOL = 1e-4
 def _require(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def _descendants():
+    """The processes below this one that still run (a zombie has ended),
+    from each process's parent in /proc."""
+    parent, state = {}, {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        state[int(pid)], parent[int(pid)] = fields[0], int(fields[1])
+    found, frontier = [], [os.getpid()]
+    while frontier:
+        kids = [p for p, pp in parent.items() if pp in frontier]
+        found += [p for p in kids if state[p] != "Z"]
+        frontier = kids
+    return sorted(found)
 
 
 def _card_line():
@@ -3087,6 +3138,585 @@ def paddle_api_op_sweep(torch, np):
     return result
 
 
+#: the hapi_gpt2 phase: warm-up and timed steps, batch, sequence length,
+#: fence cadence (``fit``'s ``log_freq``) and the share of the loops' step
+#: time hapi's may differ by (reported, not enforced)
+HAPI_STEPS = (3, 10)
+HAPI_BATCH, HAPI_SEQ, HAPI_LOG_FREQ = 24, 1024, 5
+HAPI_STEP_TOL = 0.03
+#: the hapi_resume phase: batch, sequence, steps of its one epoch, the
+#: checkpoint cadence and the step SIGTERM lands after
+RESUME_BATCH, RESUME_STEPS, RESUME_CKPT_FREQ, RESUME_KILL_AT = 8, 12, 4, 6
+#: the hapi_lenet phase: images of the synthetic MNIST, batch, and the eval
+#: top-1 accuracy one epoch must reach: the CPU test's epoch of 1,280 images
+#: (20 steps) reaches it
+#: (tests/test_torch_hapi.py::test_synthetic_mnist_is_learnable_in_one_epoch)
+LENET_TRAIN, LENET_TEST, LENET_BATCH = 60000, 10000, 64
+LENET_MIN_ACC = 0.9
+#: the synthetic MNIST's noise against its unit class templates
+MNIST_NOISE = 1.0
+
+
+def synthetic_mnist(np, seed, n, classes=10):
+    """``n`` MNIST-shaped images (``[n, 1, 28, 28]`` fp32) and labels
+    (``[n, 1]`` int64) from ``seed``: each image is its class's template
+    (standard normal, drawn from ``seed`` too) plus ``MNIST_NOISE`` times
+    standard normal noise, so one epoch can learn the classes."""
+    rng = np.random.default_rng(seed)
+    templates = np.random.default_rng(12345).standard_normal(
+        (classes, 1, 28, 28), dtype=np.float32)
+    labels = rng.integers(0, classes, (n, 1), dtype=np.int64)
+    images = rng.standard_normal((n, 1, 28, 28), dtype=np.float32)
+    images *= MNIST_NOISE
+    images += templates[labels[:, 0]]
+    return images, labels
+
+
+def _token_sequences(np, seed, n, seq, vocab):
+    """``n`` sequences of ``seq + 1`` random ids; inputs ``ids[:-1]``,
+    labels ``ids[1:]``."""
+    ids = np.random.RandomState(seed).randint(0, vocab, (n, seq + 1))
+    return ids[:, :-1].copy(), ids[:, 1:].copy()
+
+
+class _SyncLog:
+    """Counts the synchronising CUDA calls ``set_sync_debug_mode("warn")``
+    reports, by Python call site, while it is on (``on()`` / ``off()``
+    inside one ``warnings.catch_warnings`` block)."""
+
+    def __init__(self, torch):
+        import collections
+        import warnings
+
+        self.torch = torch
+        self.sites = collections.Counter()
+        self._catch = warnings.catch_warnings(record=True)
+        self._records = None
+        self._warnings = warnings
+
+
+    def __enter__(self):
+        self._records = self._catch.__enter__()
+        self._warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        self.off()
+        self._catch.__exit__(*exc)
+        return False
+
+    def on(self):
+        self._records.clear()
+        self.torch.cuda.set_sync_debug_mode("warn")
+
+    def off(self):
+        if self.torch.cuda.get_sync_debug_mode() == 0:
+            return
+        self.torch.cuda.set_sync_debug_mode(0)
+        for w in self._records:
+            if "synchroniz" in str(w.message):
+                site = w.filename.replace("\\", "/").split("/repo/")[-1]
+                self.sites[f"{site}:{w.lineno}"] += 1
+        self._records.clear()
+
+
+def _hapi_loop(torch, model, loader, events, syncs, warm):
+    """The hand-written loop of the hapi_gpt2 phase over ``loader`` (the
+    same kind of ``DataLoader`` as ``fit``'s): forward, ``F.cross_entropy``,
+    backward, step, clear_grad, the loss read back where ``fit`` fences (the
+    first step and every ``HAPI_LOG_FREQ``-th: a user's loop logging at
+    that cadence); an event after each step; the timed steps' syncs
+    counted."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True)
+    losses = []
+    for step, (ids, labels) in enumerate(loader):
+        if step == warm:
+            syncs.on()
+        loss = F.cross_entropy(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+        if step == 0 or (step + 1) % HAPI_LOG_FREQ == 0:
+            float(losses[-1])  # the loop's log line
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((ev, time.perf_counter()))
+    syncs.off()
+    return [float(x) for x in losses]
+
+
+def _window_ms(events, warm):
+    """ms a step over the timed steps: from the end of the last warm-up
+    step to the end of the last step, on the device clock."""
+    return events[warm - 1].elapsed_time(events[-1]) / (len(events) - warm)
+
+
+def hapi_gpt2_phase(torch, np):
+    """GPT-2 124M trained through ``paddle.Model``: ``prepare(AdamW(1e-4,
+    multi_precision), nn.CrossEntropyLoss())`` then ``fit`` over an
+    in-memory ``io.TensorDataset`` of 13 x 24 sequences of 1025 ids through
+    a process-worker ``DataLoader`` (2 workers, shuffled), between two
+    hand-written loops over the same kind of ``DataLoader`` (the same
+    batches in the same order) from the same init. Launch counts are
+    zeroed just before ``fit`` and read just after it; the timed steps'
+    synchronising calls are counted by site."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    warm, timed = HAPI_STEPS
+    steps = warm + timed
+    n = steps * HAPI_BATCH
+    inputs, labels = _token_sequences(np, 15, n, HAPI_SEQ, 50304)
+    data = paddle.io.TensorDataset([inputs, labels])
+    # the DataLoader's RandomSampler draws np.random.permutation(n) at the
+    # start of the epoch: every run seeds numpy alike, so all take the same
+    # batches in the same order
+    order_seed = 1234
+    paddle.set_device("gpu")
+    runs = []
+    for kind in ("loop", "hapi", "loop"):
+        model = _gpt124m(torch, 0)
+        loader = paddle.io.DataLoader(data, batch_size=HAPI_BATCH,
+                                      shuffle=True, num_workers=2,
+                                      use_process=True)
+        events, syncs = [], _SyncLog(torch)
+        torch.cuda.synchronize()
+        with syncs:
+            if kind == "loop":
+                np.random.seed(order_seed)
+                losses = _hapi_loop(torch, model, loader, events, syncs,
+                                    warm)
+                fence_losses = None
+            else:
+                hapi = paddle.Model(model)
+                hapi.prepare(paddle.optimizer.AdamW(
+                    learning_rate=1e-4, parameters=model.parameters(),
+                    multi_precision=True), paddle.nn.CrossEntropyLoss())
+                fences = {}
+
+                class Timer(paddle.callbacks.Callback):
+                    def on_train_batch_begin(self, step, logs=None):
+                        if step == warm:
+                            syncs.on()
+
+                    def on_train_batch_end(self, step, logs=None):
+                        ev = torch.cuda.Event(enable_timing=True)
+                        ev.record()
+                        events.append((ev, time.perf_counter()))
+                        if step == 0 or (step + 1) % HAPI_LOG_FREQ == 0:
+                            fences[step] = logs["loss"]
+
+                    def on_train_end(self, logs=None):
+                        syncs.off()
+                        fences[steps - 1] = logs["loss"]
+
+                np.random.seed(order_seed)
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                hapi.fit(loader, epochs=1, log_freq=HAPI_LOG_FREQ,
+                         verbose=0, callbacks=[Timer()])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = kernels.launch_counts()
+                peak = torch.cuda.max_memory_allocated()
+                fence_losses = fences
+                losses = None
+        torch.cuda.synchronize()
+        runs.append({"kind": kind, "losses": losses, "fences": fence_losses,
+                     "step_ms": _window_ms([e for e, _ in events], warm),
+                     "steps_ms": [a.elapsed_time(b) for (a, _), (b, _) in
+                                  zip(events[warm - 1:], events[warm:])],
+                     "host_steps_ms": [1e3 * (b - a) for (_, a), (_, b) in
+                                       zip(events[warm - 1:], events[warm:])],
+                     "steps": len(events), "syncs": dict(syncs.sites),
+                     "model": model if kind == "hapi" else None,
+                     "hapi": hapi if kind == "hapi" else None})
+        if kind == "loop":
+            del model
+            torch.cuda.empty_cache()
+    before, run, after = runs
+    loop_ms = (before["step_ms"], after["step_ms"])
+    _require(all(r["steps"] == steps for r in runs),
+             f"every run took {steps} steps: {[r['steps'] for r in runs]}")
+    fences = run["fences"]
+    _require(sorted(fences) == [0, 4, 9, 12], f"fences at {sorted(fences)}")
+    _require(all(np.isfinite(list(fences.values()))), "hapi losses finite")
+    # the first step is a forward from one init on one batch: the same bits
+    firsts = {fences[0], before["losses"][0], after["losses"][0]}
+    _require(len(firsts) == 1, f"the first loss is the same bits through "
+             f"hapi and the hand-written loops: {firsts}")
+    # later steps follow K6's dq, summed with atomics: hapi's losses at the
+    # fences stay within the two loops' own spread
+    spread = max(abs(a - b) for a, b in zip(before["losses"],
+                                            after["losses"]))
+    for s, v in fences.items():
+        lo = min(before["losses"][s], after["losses"][s]) - spread
+        hi = max(before["losses"][s], after["losses"][s]) + spread
+        _require(lo <= v <= hi, f"hapi's loss at step {s} ({v}) within the "
+                 f"loops' spread [{lo}, {hi}]")
+    # K5-K8 at GPT-2's 12 layers: 12 attention forwards and backwards, 25
+    # LayerNorms (2 a block and the final one) a step
+    per_step = {"flash_attention_packed_fwd": 12,
+                "flash_attention_packed_bwd": 12,
+                "layer_norm": 25, "layer_norm_bwd": 25}
+    for name, k in per_step.items():
+        _require(counts[name] == k * steps, f"{name} launched {counts[name]}"
+                 f" times in {steps} hapi steps (want {k} a step)")
+    # no synchronising call between fences over the hand-written loop's:
+    # the fences (the AsyncMetricBuffer's one read back) are the only sync
+    # sites hapi may add
+    drains = {s: c for s, c in run["syncs"].items()
+              if "metric/async_buffer.py" in s}
+    extra = {s: c for s, c in run["syncs"].items()
+             if s not in drains and c > max(before["syncs"].get(s, 0),
+                                            after["syncs"].get(s, 0))}
+    _require(not extra, f"hapi's timed steps sync where the loops do not: "
+             f"{extra}")
+    # the step-time comparison is a measurement, not a correctness check:
+    # these steps are host-paced, and whole runs of the same loop differ by
+    # up to ~8 % on the card, so it is printed with its verdict and does not
+    # fail the run. The median of the timed steps leaves out the one stall
+    # of the process DataLoader (its last task issued) and fence outliers
+    medians = [float(np.median(r["steps_ms"])) for r in runs]
+    lo, hi = min(medians[0], medians[2]), max(medians[0], medians[2])
+    gate = {"statistic": "median ms of the timed steps",
+            "loop_before": medians[0], "hapi": medians[1],
+            "loop_after": medians[2],
+            "within": lo * (1 - HAPI_STEP_TOL) <= medians[1]
+            <= hi * (1 + HAPI_STEP_TOL),
+            "tolerance": HAPI_STEP_TOL}
+    # evaluate on 2 batches: the logged loss is the last batch's, the bits
+    # of a forward of the same weights
+    hapi, model = run["hapi"], run["model"]
+    ev_loader = paddle.io.DataLoader(
+        paddle.io.TensorDataset([inputs[:2 * HAPI_BATCH],
+                                 labels[:2 * HAPI_BATCH]]),
+        batch_size=HAPI_BATCH)
+    t0 = time.perf_counter()
+    ev = hapi.evaluate(ev_loader, verbose=0)
+    eval_s = time.perf_counter() - t0
+    model.eval()
+    with torch.no_grad():
+        x = torch.from_numpy(inputs[HAPI_BATCH:2 * HAPI_BATCH]).cuda()
+        y = torch.from_numpy(labels[HAPI_BATCH:2 * HAPI_BATCH]).cuda()
+        want = float(F.cross_entropy(model(x), y))
+    _require(ev["loss"] == want and ev["eval_samples"] == 2 * HAPI_BATCH,
+             f"evaluate's loss {ev} is a forward's {want}")
+    # predict 4 sequences of 128, stacked: a forward of the same weights
+    short = inputs[:4, :128]
+    pred = hapi.predict(paddle.io.TensorDataset([short]), batch_size=4,
+                        stack_outputs=True, verbose=0)
+    with torch.no_grad():
+        want = model(torch.from_numpy(short).cuda()).float().cpu().numpy()
+    _require(len(pred) == 1 and pred[0].shape == (4, 128, 50304)
+             and pred[0].dtype == np.float32
+             and np.array_equal(pred[0], want),
+             "predict stacks a forward's logits (bf16 as fp32)")
+    tokens = HAPI_BATCH * HAPI_SEQ
+    out = {
+        "batch": HAPI_BATCH, "seq": HAPI_SEQ, "warmup_steps": warm,
+        "timed_steps": timed, "log_freq": HAPI_LOG_FREQ,
+        "dataloader": "process workers 2, shuffled, forkserver",
+        "step_ms": {"loop_before": loop_ms[0], "hapi": run["step_ms"],
+                    "loop_after": loop_ms[1]},
+        "step_gate": gate,
+        "timed_steps_ms": {k: r["steps_ms"] for k, r in zip(
+            ("loop_before", "hapi", "loop_after"), runs)},
+        "timed_steps_host_ms": {k: r["host_steps_ms"] for k, r in zip(
+            ("loop_before", "hapi", "loop_after"), runs)},
+        "tokens_per_s": {"loop_before": tokens * 1e3 / loop_ms[0],
+                         "hapi": tokens * 1e3 / run["step_ms"],
+                         "loop_after": tokens * 1e3 / loop_ms[1]},
+        "fit_wall_s": wall,
+        "hapi_fence_losses": {str(k): v for k, v in sorted(fences.items())},
+        "loop_losses": [before["losses"], after["losses"]],
+        "first_loss_same_bits": True, "loop_run_to_run_spread": spread,
+        "syncs_per_step": {k: sum(r["syncs"].values()) / timed
+                           for k, r in zip(("loop_before", "hapi",
+                                            "loop_after"), runs)},
+        "sync_sites": {k: r["syncs"] for k, r in zip(
+            ("loop_before", "hapi", "loop_after"), runs)},
+        "fence_syncs": drains,
+        "peak_memory_gib": peak / 2 ** 30,
+        "evaluate": {"loss": ev["loss"], "samples": ev["eval_samples"],
+                     "seconds": eval_s},
+        "predict_shape": list(pred[0].shape),
+        "launches": counts,
+        "launches_per_step": {k: v / steps for k, v in counts.items()}}
+    for r in runs:
+        r.clear()
+    del hapi, model, run, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rng_states(torch):
+    """Every generator ``fault.TrainState`` keeps, as host copies."""
+    from paddle_tpu_torch.framework import random as prandom
+
+    return {"seed": prandom._seed,
+            "port_cpu": prandom.get_rng_state().clone(),
+            "port_cuda": prandom.get_cuda_rng_state().clone(),
+            "torch_cpu": torch.get_rng_state(),
+            "torch_cuda": [s.clone() for s in torch.cuda.get_rng_state_all()]}
+
+
+def _host_state(torch, hapi):
+    """Host copies of a training pair's live state: parameters, the
+    optimizer's ``state_dict`` (masters and moments), its LR scheduler,
+    every torch generator and numpy's."""
+    def host(v):
+        return v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v
+
+    opt = hapi._optimizer
+    return {"params": {k: host(v)
+                       for k, v in hapi.network.state_dict().items()},
+            "optimizer": {k: host(v) for k, v in opt.state_dict().items()},
+            "scheduler": dict(opt._learning_rate.state_dict()),
+            "rng": _rng_states(torch)}
+
+
+def _same_state(torch, got, want):
+    """Names of the entries of two ``_host_state`` that differ in a bit."""
+    bad = []
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            if not isinstance(b, torch.Tensor) or a.shape != b.shape:
+                return False
+            if a.dtype != b.dtype:
+                # a checkpoint holds a bf16 tensor as fp32 (exact), and an
+                # accumulator not made yet keeps the fp32 it was read as
+                if {a.dtype, b.dtype} != {torch.bfloat16, torch.float32}:
+                    return False
+                a, b = a.float(), b.float()
+            return torch.equal(a, b)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return a == b
+
+    for part in ("params", "optimizer", "scheduler", "rng"):
+        for k in want[part]:
+            if k not in got[part] or not same(got[part][k], want[part][k]):
+                bad.append(f"{part}.{k}")
+    return bad
+
+
+def hapi_resume_phase(torch, np):
+    """GPT-2 124M through ``fit`` at batch 8 x 1024, one shuffled epoch of
+    12 steps (AdamW multi_precision on a cosine schedule): two uninterrupted
+    runs; a run with ``fit(resume=dir, ckpt_freq=4)`` stopped by an injected
+    SIGTERM after step 6; a fresh model and optimizer resuming from the
+    directory. The resumed state must be the stopped run's at step 6 bit for
+    bit, steps 7-12 must see run 1's input ids and stay within the two
+    uninterrupted runs' spread."""
+    import hashlib
+    import os
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.fault import TrainingPreempted, inject
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.profiler import telemetry
+
+    n = RESUME_BATCH * RESUME_STEPS
+    inputs, labels = _token_sequences(np, 16, n, HAPI_SEQ, 50304)
+    data = paddle.io.TensorDataset([inputs, labels])
+    ckpt = tempfile.mkdtemp(prefix="hapi_resume_")
+
+    def make():
+        net = _gpt124m(torch, 0)
+        hapi = paddle.Model(net)
+        sched = paddle.optimizer.lr.CosineAnnealingDecay(
+            learning_rate=1e-4, T_max=RESUME_STEPS)
+        hapi.prepare(paddle.optimizer.AdamW(
+            learning_rate=sched, parameters=net.parameters(),
+            multi_precision=True), paddle.nn.CrossEntropyLoss())
+        seen = []
+        net.register_forward_pre_hook(lambda layer, args: seen.append(
+            hashlib.sha1(args[0].cpu().numpy().tobytes()).hexdigest()[:12]))
+        return hapi, seen
+
+    class Record(paddle.callbacks.Callback):
+        def __init__(self, keep_at=None):
+            super().__init__()
+            self.losses, self.first_step = [], None
+            self.keep_at, self.kept, self.begin = keep_at, None, None
+            self.epoch_np = None
+
+        def on_train_begin(self, logs=None):
+            self.begin = (time.perf_counter(),
+                          _host_state(torch, self.model))
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.epoch_np = np.random.get_state()[1].copy()
+
+        def on_train_batch_begin(self, step, logs=None):
+            if self.first_step is None:
+                self.first_step = step
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            if step + 1 == self.keep_at:
+                self.kept = _host_state(torch, self.model)
+
+    def fit(hapi, cb, seed=77, **kw):
+        # the epoch's shuffle draws from numpy; a resumed run is seeded
+        # otherwise, and its checkpoint must bring the order back
+        np.random.seed(seed)
+        hapi.fit(data, batch_size=RESUME_BATCH, epochs=1, shuffle=True,
+                 log_freq=1, verbose=0, callbacks=[cb], **kw)
+
+    try:
+        kernels.reset_launch_counts()
+        full = []
+        for _ in range(2):
+            hapi, seen = make()
+            cb = Record()
+            fit(hapi, cb)
+            full.append((cb.losses, seen))
+            del hapi
+            torch.cuda.empty_cache()
+        # run 2: SIGTERM lands after step 6; the checkpoint is flushed then
+        hapi, seen2 = make()
+        stopped = Record(keep_at=RESUME_KILL_AT)
+        telemetry.reset()
+        telemetry.enable()
+        inject.arm("sigterm", "train.step", at=RESUME_KILL_AT)
+        try:
+            fit(hapi, stopped, resume=ckpt, ckpt_freq=RESUME_CKPT_FREQ,
+                keep_last_n=1)
+            raise AssertionError("fit ran past the injected SIGTERM")
+        except TrainingPreempted:
+            pass
+        finally:
+            inject.disarm_all()
+            telemetry.disable()
+        tm = telemetry.get_telemetry()
+        saves = {"count": tm.stat("fault.ckpt_save_s", "count"),
+                 "mean_s": tm.stat("fault.ckpt_save_s", "mean"),
+                 "max_s": tm.stat("fault.ckpt_save_s", "max")}
+        telemetry.reset()
+        step_dir = os.path.join(ckpt, f"step_{RESUME_KILL_AT:08d}")
+        ckpt_bytes = {f: os.path.getsize(os.path.join(step_dir, f))
+                      for f in sorted(os.listdir(step_dir))}
+        del hapi
+        torch.cuda.empty_cache()
+        # run 3: a fresh model and optimizer from the directory
+        hapi, seen3 = make()
+        resumed = Record()
+        t0 = time.perf_counter()
+        fit(hapi, resumed, seed=99, resume=ckpt, keep_last_n=1)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        restore_s = resumed.begin[0] - t0
+        del hapi
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    bad = _same_state(torch, resumed.begin[1], stopped.kept)
+    _require(not bad, f"the resumed state differs from the stopped run's "
+             f"at step {RESUME_KILL_AT}: {bad}")
+    _require(resumed.epoch_np is not None
+             and np.array_equal(resumed.epoch_np, stopped.epoch_np),
+             "numpy's state is the stopped run's at its epoch's start")
+    _require(resumed.first_step == RESUME_KILL_AT,
+             f"the resumed run starts at step {resumed.first_step}")
+    (l1, s1), (l2, s2) = full
+    _require(s1 == s2 and seen2 == s1[:RESUME_KILL_AT]
+             and seen3 == s1[RESUME_KILL_AT:],
+             "every run sees run 1's input ids at every step")
+    losses = stopped.losses + resumed.losses
+    spread = max(abs(a - b) for a, b in zip(l1, l2))
+    for s in range(RESUME_STEPS):
+        lo, hi = min(l1[s], l2[s]) - spread, max(l1[s], l2[s]) + spread
+        _require(lo <= losses[s] <= hi, f"step {s + 1}'s loss {losses[s]} "
+                 f"within the uninterrupted runs' spread [{lo}, {hi}]")
+    _require(counts["flash_attention_packed_fwd"] > 0
+             and counts["layer_norm_bwd"] > 0, "K5-K8 launched")
+    return {"batch": RESUME_BATCH, "seq": HAPI_SEQ, "steps": RESUME_STEPS,
+            "ckpt_freq": RESUME_CKPT_FREQ, "sigterm_after": RESUME_KILL_AT,
+            "restored_bit_for_bit": ["params", "optimizer (fp32 masters, "
+                                     "moments, @step)", "LR scheduler",
+                                     "port and torch generators", "numpy",
+                                     "cursor"],
+            "losses_uninterrupted": [l1, l2], "losses_resumed": losses,
+            "uninterrupted_spread": spread,
+            "input_hashes_replayed": True,
+            "checkpoint_bytes": ckpt_bytes,
+            "checkpoint_bytes_total": sum(ckpt_bytes.values()),
+            "save_s": saves, "restore_s": restore_s,
+            "launches": counts}
+
+
+def hapi_lenet_phase(torch, np):
+    """LeNet (``BASELINE.json`` config 1) through ``paddle.Model``:
+    ``prepare(Adam(1e-3), CrossEntropyLoss(), Accuracy(topk=(1, 2)))``, one
+    epoch of ``fit`` at batch 64 over 60,000 synthetic MNIST images built on
+    the host, then ``evaluate`` and ``predict`` over 10,000: images/s
+    (host clock around work that ends in a synchronize), the metric line,
+    and the eval accuracy against ``LENET_MIN_ACC``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.vision.models import LeNet
+
+    t0 = time.perf_counter()
+    x, y = synthetic_mnist(np, 0, LENET_TRAIN)
+    tx, ty = synthetic_mnist(np, 1, LENET_TEST)
+    build_s = time.perf_counter() - t0
+    torch.manual_seed(3)
+    net = LeNet(num_classes=10)
+    hapi = paddle.Model(net)
+    hapi.prepare(paddle.optimizer.Adam(learning_rate=1e-3,
+                                       parameters=net.parameters()),
+                 paddle.nn.CrossEntropyLoss(),
+                 paddle.metric.Accuracy(topk=(1, 2)))
+    kernels.reset_launch_counts()
+    np.random.seed(5)
+    t0 = time.perf_counter()
+    logs = hapi.fit(paddle.io.TensorDataset([x, y]), batch_size=LENET_BATCH,
+                    epochs=1, log_freq=100, verbose=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = hapi.evaluate(paddle.io.TensorDataset([tx, ty]),
+                       batch_size=LENET_BATCH, verbose=0)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = hapi.predict(paddle.io.TensorDataset([tx]), batch_size=LENET_BATCH,
+                        stack_outputs=True, verbose=0)
+    predict_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    acc = float((pred[0].argmax(-1) == ty[:, 0]).mean())
+    _require(pred[0].shape == (LENET_TEST, 10), "predict's stacked logits")
+    _require(abs(acc - ev["acc_top1"]) < 1e-9,
+             f"predict's accuracy {acc} is evaluate's {ev['acc_top1']}")
+    _require(ev["acc_top1"] >= LENET_MIN_ACC, f"LeNet's eval top-1 accuracy "
+             f"{ev['acc_top1']} reaches {LENET_MIN_ACC} after one epoch")
+    _no_kernel_launched(counts, "hapi_lenet")
+    return {"train_images": LENET_TRAIN, "test_images": LENET_TEST,
+            "batch": LENET_BATCH, "host_data_bytes": int(
+                x.nbytes + y.nbytes + tx.nbytes + ty.nbytes),
+            "data_build_s": build_s,
+            "train_images_per_s": LENET_TRAIN / train_s,
+            "eval_images_per_s": LENET_TEST / eval_s,
+            "predict_images_per_s": LENET_TEST / predict_s,
+            "train_logs": logs, "eval_logs": ev,
+            "min_accuracy": LENET_MIN_ACC, "launches": counts}
+
+
 _TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
                "cached_tc_kernel", "packed_bwd_tc_kernel",
                "ce_bwd_cluster_kernel", "ce_fwd_wgmma_kernel")
@@ -3427,6 +4057,30 @@ def main():
     print(f"paddle_api checkpoint: {json.dumps(ckpt)}")
     sweep = paddle_api_op_sweep(torch, np)
     print(f"paddle_api op sweep: {json.dumps(sweep)}")
+    hapi = hapi_gpt2_phase(torch, np)
+    print(f"hapi_gpt2: {json.dumps(hapi)}")
+    ms, tps = hapi["step_ms"], hapi["tokens_per_s"]
+    gate = hapi["step_gate"]
+    print(f"hapi_gpt2: GPT-2 124M step {ms['hapi']:.2f} ms through "
+          f"Model.fit ({tps['hapi']:.1f} tokens/s), the hand-written loop's "
+          f"{ms['loop_before']:.2f} ms before it and {ms['loop_after']:.2f} "
+          f"ms after it; medians {gate['loop_before']:.2f} / "
+          f"{gate['hapi']:.2f} / {gate['loop_after']:.2f} ms, within "
+          f"{100 * gate['tolerance']:.0f} %: {gate['within']}; syncs a timed "
+          f"step {json.dumps(hapi['syncs_per_step'])}; peak "
+          f"{hapi['peak_memory_gib']:.2f} GiB on {card}")
+    resume = hapi_resume_phase(torch, np)
+    print(f"hapi_resume: {json.dumps(resume)}")
+    print(f"hapi_resume: checkpoint {resume['checkpoint_bytes_total'] / 2 ** 30:.2f}"
+          f" GiB, save {resume['save_s']['mean_s']:.2f} s, restore "
+          f"{resume['restore_s']:.2f} s, every state restored bit for bit "
+          f"on {card}")
+    lenet_fit = hapi_lenet_phase(torch, np)
+    print(f"hapi_lenet: {json.dumps(lenet_fit)}")
+    print(f"hapi_lenet: {lenet_fit['train_images_per_s']:.1f} images/s "
+          f"training, {lenet_fit['eval_images_per_s']:.1f} evaluating, eval "
+          f"top-1 {lenet_fit['eval_logs']['acc_top1']:.4f} (at least "
+          f"{LENET_MIN_ACC}) on {card}")
     for c in k8_cases:
         c.update(_k8_launches_apart(torch, timer, c.pop("_split")))
     print("K8's launches apart (torch.profiler, device ms): " + json.dumps(
@@ -3457,9 +4111,12 @@ def main():
                 "resnet50_train": vision["launches"][name],
                 "resnet50_eval": vision_eval["launches"][name],
                 "lenet": lenet["launches"][name],
-                "paddle_api": api["launches"][name]}
+                "paddle_api": api["launches"][name],
+                "hapi_gpt2": hapi["launches"][name],
+                "hapi_resume": resume["launches"][name],
+                "hapi_lenet": lenet_fit["launches"][name]}
 
-    vision_paths = ("resnet50_train", "resnet50_eval", "lenet")
+    vision_paths = ("resnet50_train", "resnet50_eval", "lenet", "hapi_lenet")
 
     def only(name, *keys):
         # the vision paths launch none of K1-K11: every entry says so
@@ -3492,12 +4149,12 @@ def main():
               "paddle_tpu/ops/pallas/flash_attention_packed.py:127", k5_cases,
               "train", only("flash_attention_packed_fwd", "serving",
                             "training", "recipe", "gpt2_dropout",
-                            "paddle_api")),
+                            "paddle_api", "hapi_gpt2", "hapi_resume")),
         entry("flash_attention_packed_bwd", packed,
               "paddle_tpu/ops/pallas/flash_attention_packed.py:236", k6_cases,
               "train", only("flash_attention_packed_bwd", "serving",
                             "training", "recipe", "gpt2_dropout",
-                            "paddle_api")),
+                            "paddle_api", "hapi_gpt2", "hapi_resume")),
         entry("layer_norm", ln_src, "paddle_tpu/ops/pallas/layer_norm.py:34",
               ln_cases, "rows=8", paths("layer_norm")),
         entry("layer_norm_bwd", ln_src,
@@ -3608,6 +4265,14 @@ def main():
     kernels[-1]["chunked_loop_ms"] = chunked["backward_ms"]
     for k in kernels:
         _require(k["launches"] > 0, f"kernel {k['name']} launched on its path")
+    # every process a phase started has ended: the DataLoader's workers,
+    # their forkserver and multiprocessing's resource tracker are stopped
+    # and waited for (the library also does this at exit)
+    from paddle_tpu_torch.io.worker import shutdown_workers
+
+    shutdown_workers()
+    left = _descendants()
+    _require(not left, f"no process left running at the end (pids {left})")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           f"{build_s:.1f} s of it")
     print(json.dumps({"kernels": kernels}))

@@ -22,8 +22,11 @@ gradient clipping and regularizers, ``amp`` (``auto_cast``, ``decorate``,
 ERNIE (``models.ErnieForPretraining`` and its heads); and the vision path:
 ``vision.models`` (LeNet, the ResNet family) on ``nn``'s convolutions, batch
 norms and pooling, with ``incubate.autotune``'s layout autotune
-(channels-last convolutions). It imports neither ``jax`` nor
-``paddle_tpu``.
+(channels-last convolutions); and the training runtime: ``paddle.Model``
+(``prepare``/``fit``/``evaluate``/``predict`` with callbacks and
+``paddle.metric``), ``paddle.io``'s ``DataLoader`` with its worker
+processes, ``paddle.fault``'s checkpoint/resume, ``summary``/``flops`` and
+``paddle.batch``. It imports neither ``jax`` nor ``paddle_tpu``.
 """
 from __future__ import annotations
 
@@ -92,6 +95,11 @@ from . import autograd  # noqa: E402,F401
 
 from . import (amp, framework, incubate, io, models, nn,  # noqa: E402,F401
                ops, optimizer, regularizer, serving, vision)
+from . import fault, hapi, metric, reader  # noqa: E402,F401
+from . import callbacks  # noqa: E402,F401
+from .batch import batch  # noqa: E402,F401
+from .hapi.model import Model  # noqa: E402,F401
+from .hapi.model_summary import flops, summary  # noqa: E402,F401
 from .nn.layer.container import (LayerDict, LayerList,  # noqa: E402,F401
                                  ParameterList, Sequential)
 from .nn.layer.layers import ParamAttr  # noqa: E402,F401

@@ -22,7 +22,7 @@ _NAMES = {
     _attention: ("flash_attention", "scaled_dot_product_attention"),
     _common: ("embedding", "linear", "matmul"),
     _conv: ("conv1d", "conv2d", "conv3d"),
-    _loss: ("cross_entropy",),
+    _loss: ("cross_entropy", "l1_loss", "mse_loss"),
     _norm: ("batch_norm", "layer_norm"),
     _pooling: ("adaptive_avg_pool1d", "adaptive_avg_pool2d",
                "adaptive_avg_pool3d", "adaptive_max_pool2d", "avg_pool1d",

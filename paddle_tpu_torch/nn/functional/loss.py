@@ -1,5 +1,6 @@
 """Loss functionals — port of ``paddle_tpu/nn/functional/loss.py``
-(``cross_entropy`` and the routes it takes), in plain PyTorch.
+(``cross_entropy`` and the routes it takes, ``mse_loss`` and ``l1_loss``),
+in plain PyTorch.
 
 ``cross_entropy`` has the JAX package's three routes, each behind the
 ``amp`` hook of its JAX op names (all on the black list, so they run in
@@ -24,7 +25,7 @@ import torch
 
 from ...amp.auto_cast import cast_inputs as _amp_cast
 
-__all__ = ["cross_entropy"]
+__all__ = ["cross_entropy", "mse_loss", "l1_loss"]
 
 
 def _reduce(out, reduction):
@@ -122,3 +123,17 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
                              axis)
     return _softmax_ce(input, label, soft_label, axis, ignore_index,
                        reduction, label_smoothing)
+
+
+def mse_loss(input, label, reduction="mean", name=None):
+    """``paddle.nn.functional.mse_loss``: the squared difference, reduced
+    (``amp`` hook ``mse_loss_op``)."""
+    input, label = _amp_cast("mse_loss_op", input, label)
+    return _reduce(torch.square(input - label), reduction)
+
+
+def l1_loss(input, label, reduction="mean", name=None):
+    """``paddle.nn.functional.l1_loss``: the absolute difference, reduced
+    (``amp`` hook ``l1_loss_op``)."""
+    input, label = _amp_cast("l1_loss_op", input, label)
+    return _reduce(torch.abs(input - label), reduction)

@@ -8,6 +8,7 @@ from .common import Linear  # noqa: F401
 from .container import LayerDict, LayerList, ParameterList, Sequential  # noqa: F401
 from .conv import Conv1D, Conv2D, Conv3D  # noqa: F401
 from .layers import Layer, ParamAttr  # noqa: F401
+from .loss import CrossEntropyLoss, L1Loss, MSELoss  # noqa: F401
 from .norm import (  # noqa: F401
     BatchNorm,
     BatchNorm1D,

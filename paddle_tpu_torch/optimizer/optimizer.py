@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..framework.dtype import LOW_PRECISION, weak_scalar
+from ..framework.tensor import unwrap
 from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
 
@@ -275,10 +276,15 @@ class Optimizer:
     # -- state dict ----------------------------------------------------------
     def state_dict(self):
         """``{f"{param_key}_{accumulator}": tensor, "@step": int}`` (and
-        ``"LR_Scheduler"`` with a scheduler), the tensors copied."""
+        ``"LR_Scheduler"`` with a scheduler), the tensors copied; entries
+        restored but not used yet are included."""
         sd = {f"{key}_{name}": v.detach().clone()
               for name, store in self._accumulators.items()
               for key, v in store.items()}
+        # entries restored by set_state_dict whose accumulator is not made
+        # yet (no step since): a save right after a restore keeps them
+        sd.update({k: torch.as_tensor(v).detach().clone()
+                   for k, v in self._pending_state.items()})
         sd["@step"] = self._step_count
         if isinstance(self._learning_rate, LRScheduler):
             sd["LR_Scheduler"] = self._learning_rate.state_dict()
@@ -286,7 +292,9 @@ class Optimizer:
 
     def set_state_dict(self, state_dict):
         """Restore accumulators (each keeps its device and dtype); entries
-        for accumulators not made yet wait for their first use."""
+        for accumulators not made yet wait for their first use. Paddle
+        Tensors (``paddle.load``'s) are taken as plain tensors."""
+        state_dict = {k: unwrap(v) for k, v in state_dict.items()}
         if "@step" in state_dict:
             self._step_count = int(state_dict["@step"])
         if ("LR_Scheduler" in state_dict

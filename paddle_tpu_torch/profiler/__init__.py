@@ -1,2 +1,2 @@
-"""Request tracing and telemetry (copies of the JAX package's jax-free
-``profiler/tracing.py``, ``telemetry.py`` and ``export.py``)."""
+"""Request tracing, telemetry and SLOs (copies of the JAX package's jax-free
+``profiler/tracing.py``, ``telemetry.py``, ``export.py`` and ``slo.py``)."""

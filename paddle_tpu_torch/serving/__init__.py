@@ -12,4 +12,5 @@ from .kv_cache import (  # noqa: F401
     default_buckets,
     pick_bucket,
 )
-from .scheduler import FINISH_REASONS, Request, Scheduler  # noqa: F401
+from .scheduler import (FINISH_REASONS, Request, Scheduler,  # noqa: F401
+                        default_slo_monitor)

@@ -3,10 +3,10 @@
 Port of ``paddle_tpu/serving/scheduler.py``: the same pure-Python
 scheduler over :class:`paddle_tpu_torch.serving.GenerationEngine`.
 Differences from the JAX package: a device OOM is also recognised as
-``torch.cuda.OutOfMemoryError``; ``CostAwareAdmission`` and
-``default_slo_monitor`` are not ported yet (they need the engine's
-``predicted_footprints`` and the ``slo`` module), so the ``admission=`` and
-``slo=`` hooks take any callable/monitor the caller provides. The engine's
+``torch.cuda.OutOfMemoryError``; ``CostAwareAdmission`` is not ported yet
+(it needs the engine's ``predicted_footprints``), so the ``admission=`` hook
+takes any callable the caller provides. ``default_slo_monitor`` gives the
+shipped serving SLOs (``profiler.slo.SERVING_SLOS``). The engine's
 fault-injection points fire before any cache write, so a retry runs
 against an intact cache.
 
@@ -122,8 +122,10 @@ and ``serve.queue_depth`` are retired when ``run()`` drains the batch and
 on :meth:`Scheduler.shutdown` so a dead scheduler can't leave stale
 in-flight stats in ``report()`` or a ``/metrics`` scrape.
 
-SLO hook: pass ``slo=`` any object with a ``check()`` method and the
-scheduler calls it every ``slo_check_every`` ticks (plus once at drain).
+SLO hook: pass ``slo=`` any object with a ``check()`` method — an
+:class:`~paddle_tpu_torch.profiler.slo.SLOMonitor`, e.g.
+:func:`default_slo_monitor` — and the scheduler calls it every
+``slo_check_every`` ticks (plus once at drain).
 """
 from __future__ import annotations
 
@@ -235,6 +237,15 @@ class Request:
         if not self.finished:
             return None
         return (self.done_ns - self.submit_ns) / 1e9
+
+
+def default_slo_monitor(**kwargs):
+    """An :class:`~paddle_tpu_torch.profiler.slo.SLOMonitor` over the
+    shipped serving overload specs (``SERVING_SLOS``) — pass straight to
+    ``Scheduler(slo=default_slo_monitor())``."""
+    from ..profiler.slo import SERVING_SLOS, SLOMonitor
+
+    return SLOMonitor(SERVING_SLOS, **kwargs)
 
 
 class Scheduler:

@@ -17,10 +17,6 @@ import paddle_tpu_torch as pt
 #: top-level names still to port, by queue item
 WAITING = {
     "DataParallel": "A8 (distributed)",
-    "Model": "A4 (hapi.Model)",
-    "summary": "A4 (hapi.model_summary)",
-    "flops": "A4 (hapi.model_summary)",
-    "batch": "A4 (io: the reader decorators)",
     "enable_static": "A10 (static)",
     "disable_static": "A10 (static)",
     "TPUPlace": "none: the port has no TPU (ROADMAP.md C)",
