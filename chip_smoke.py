@@ -258,7 +258,42 @@
     (``synthetic_mnist``, built on the host), ``evaluate`` and ``predict``
     over 10,000: images/s, the metric line, eval top-1 at least
     ``LENET_MIN_ACC``; no K1-K11.
-16. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
+16. Serving under chaos, the profiler and devprof (the main paths of the
+    serving-remainder and profiler slice), after the hapi phases.
+    ``serving_chaos``: ``torch_tools/torch_chaos_serve.py``'s ``run_chaos``
+    on GPT-2 124M behind ``GenerationEngine(max_batch=8, max_len=1024,
+    prefill_chunk=256, spec_k=4)`` (``CHAOS``): faults armed at fixed hits
+    (a prefill error, a draft fault, two verify errors and a stall, a
+    decode OOM), every request ending with exactly one reason, the
+    ``serve.*`` counters agreeing with the records, survivors equal to the
+    clean plain-greedy pass, the serving SLO firing on the shed burst, and
+    tokens/s after recovery within 10 % of a never-faulted engine (medians
+    of 18 interleaved passes each; each pass printed); K4 and K7 launched. In
+    bf16 a verify window rounds otherwise than a decode tick (cuBLAS picks
+    its kernel by shape), so a survivor's greedy stream may leave the plain
+    pass at a near-tie: the bf16 run reports those survivors, and the same
+    run on the model in fp32 must keep every survivor's stream (its
+    recovery, one pass each, is reported). Then
+    ``CostAwareAdmission(policy="bytes")`` on the engine's measured
+    ``predicted_footprints()`` (its keys and the card's total memory
+    printed) sheds the second of two requests at a capacity just under
+    base + two requests' bytes, and the default capacity admits both.
+    ``profiler_serving``: ``Profiler(targets=[CPU, GPU])`` over a
+    ``make_scheduler`` window of 4 scheduler ticks of 8 requests decoding
+    (after one throwaway capture that pays CUPTI's start-up): the chrome
+    export loads back with the same events, ``RecordEvent`` names in the
+    host and device traces, K4's and K7's kernels in the device trace
+    with time; one decode tick's wall time and device time split into the
+    hand-written kernels, cuBLAS products and the rest. ``devprof_hapi``:
+    GPT-2 124M through ``Model.fit`` at batch 8 x 1024 (3 steps) with
+    ``DeviceStatsLogger``: ``model.device_report()`` is the callback's
+    report, the memory identity holds, its peak equals the first step's
+    ``max_memory_allocated``, its flops within 2 % of the products counted
+    by hand plus K5's Pallas estimates, K6-K8 listed uncounted; then a
+    batch of 1024 x 1024 raises a real ``torch.cuda.OutOfMemoryError``
+    through the OOM forensics, ``memory_allocated`` returns to its value
+    before, and training goes on.
+17. Prints the ``kernels`` JSON line (K1-K11; K1-K6 with their routes,
     K1-K4 and K6 with their bf16 HMMA counts and ptxas registers and
     spills, K9-K11 with their plan a case and their bf16 wgmma kernels'
     HGMMA counts and registers and spills (K9 also beside the cuBLAS
@@ -272,10 +307,16 @@ Any failure raises and exits non-zero; nothing is printed as a result then.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import math
 import os
+import re
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
@@ -3724,6 +3765,372 @@ _TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
 _WGMMA_KERNELS = ("ce_bwd_cluster_kernel", "ce_fwd_wgmma_kernel")
 
 
+# -- 16. serving under chaos, the profiler and devprof (ROADMAP A5, A6) -----
+
+#: ``torch_chaos_serve.run_chaos``'s settings on the card: the serving
+#: phase's engine (GPT-2 124M, 8 slots, 1024 positions, chunk 256,
+#: ``spec_k`` 4), 24 prompts of 16-599 ids drawn from the first 256 (so the
+#: n-gram proposer finds drafts), 32 new tokens each, a queue of 4
+CHAOS = dict(max_batch=8, max_len=1024, prefill_buckets=None,
+             prefill_chunk=256, max_new=32, prompt_lens=(16, 600),
+             prompt_vocab=256)
+#: interleaved throughput passes of each engine for the recovery bar: on
+#: an H100 one pass's tokens/s moves ~8 % (host-paced serving), and the
+#: medians of 5 passes missed the 10 % bar on noise in 2 runs of 12; 18
+#: pairs put the bar ~2.7 standard deviations of their ratio away
+CHAOS_REPS = 18
+#: the profiled serving window in scheduler ticks: closed, ready, record
+PROFILE_TICKS = (2, 1, 4)
+PROFILE_REQUESTS, PROFILE_PROMPT, PROFILE_NEW = 8, 100, 40
+#: the kernels written for this port, as the device trace names them
+HANDWRITTEN_KERNELS = (
+    "cached_fwd_kernel", "cached_merge_kernel", "cached_split_kernel",
+    "cached_tc_kernel", "cast_kernel", "ce_bwd_cluster_kernel",
+    "ce_bwd_kernel", "ce_bwd_stream_kernel", "ce_fwd_kernel",
+    "ce_fwd_merge_kernel", "ce_fwd_stream_kernel", "ce_fwd_wgmma_kernel",
+    "dkv_kernel", "dkv_tc_kernel", "dkv_wide_kernel", "dq_kernel",
+    "dq_tc_kernel", "dq_wide_kernel", "fwd_kernel", "fwd_tc_kernel",
+    "fwd_wide_kernel", "keep_mask_kernel", "ln_bwd_general",
+    "ln_bwd_reduce", "ln_bwd_rows", "ln_fwd_general", "ln_fwd_rows",
+    "packed_bwd_kernel", "packed_bwd_tc_kernel", "packed_delta_kernel")
+#: cuBLAS's (and its CUTLASS-built) product kernels, by name
+CUBLAS_MARKS = ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitk")
+DEVPROF_BATCH, DEVPROF_STEPS = 8, 3
+#: a batch whose activations cannot fit in 80 GB (its logits alone take
+#: 1024 x 1024 x 50304 bf16 = 105 GB)
+OOM_BATCH = 1024
+FLOPS_TOL = 0.02
+
+
+def _torch_tool(name):
+    import importlib
+
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "torch_tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(name)
+
+
+def serving_chaos_phase(torch, np):
+    """``torch_tools/torch_chaos_serve.py``'s ``run_chaos`` on GPT-2 124M
+    (``CHAOS``), bf16 and fp32: every request accounted for, the serving
+    SLO firing on the shed burst, bf16 tokens/s after recovery within 10 %
+    of the never-faulted engine (medians of ``CHAOS_REPS`` interleaved
+    passes), survivors equal to the clean plain-greedy pass in fp32 (in
+    bf16 the survivors that left it are reported); then
+    ``CostAwareAdmission(policy="bytes")``
+    on the bf16 engine's measured ``predicted_footprints()``. Returns the
+    result and the bf16 model."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.serving import (CostAwareAdmission,
+                                          GenerationEngine, Request,
+                                          Scheduler)
+
+    chaos = _torch_tool("torch_chaos_serve")
+    model = _gpt124m(torch, 0)
+    model.eval()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = chaos.run_chaos(seed=0, reps=CHAOS_REPS, model=model, **CHAOS)
+    # bf16: a verify window's products round otherwise than a decode
+    # tick's (cuBLAS picks its kernel by shape), so a greedy stream may
+    # leave the plain pass at a near-tie; the parity contract is held on
+    # the same model in fp32 (its recovery, one pass each, is reported)
+    res32 = chaos.run_chaos(seed=0, reps=1, model=_gpt124m_fp32(torch, 0),
+                            **CHAOS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    others = [p for p in res["problems"] if not p.startswith("survivor")]
+    _require(not others, "serving under chaos (bf16) kept its contract ("
+             + "; ".join(others) + ")")
+    others32 = [p for p in res32["problems"]
+                if not p.startswith("post-chaos throughput")]
+    _require(not others32, "serving under chaos (fp32) kept its contract, "
+             "survivor parity included (" + "; ".join(others32) + ")")
+    for name in ("flash_attention_cached", "layer_norm"):
+        _require(counts[name] > 0, f"kernel {name} launched under chaos")
+    clean = res["clean_passes"]
+    spread = (max(clean) - min(clean)) / statistics.median(clean)
+
+    # byte-based shedding on the footprints measured on the card
+    eng = GenerationEngine(model, max_batch=8, max_len=1024,
+                           prefill_chunk=256, spec_k=4)
+    fp = eng.predicted_footprints()
+    total = torch.cuda.mem_get_info()[1]
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    transient = fp["decode_peak_bytes"] - params - fp["cache_bytes"]
+    _require(transient > 0 and fp["timeline"] is None,
+             "the measured decode tick allocated above the resident bytes")
+    prompt = list(range(1, 201))
+    one = CostAwareAdmission(policy="bytes").estimate_bytes(
+        Request(prompt=prompt, max_new_tokens=32), eng)
+    # just under base + two requests' bytes: the first fits, the second
+    # sheds
+    cap = fp["base_bytes"] + 2 * one - 1
+    sched = Scheduler(eng, admission=CostAwareAdmission(
+        policy="bytes", capacity_bytes=cap))
+    reqs = [sched.submit(Request(prompt=prompt, max_new_tokens=32))
+            for _ in range(2)]
+    _require(reqs[0].finish_reason is None
+             and reqs[1].finish_reason == "shed",
+             "the byte policy admitted the first request and shed the "
+             "second")
+    sched.run()
+    _require(reqs[0].finish_reason == "length", "the admitted one finished")
+    roomy = Scheduler(eng, admission=CostAwareAdmission(policy="bytes"))
+    more = [roomy.submit(Request(prompt=prompt, max_new_tokens=32))
+            for _ in range(2)]
+    _require(not any(r.finish_reason == "shed" for r in more),
+             "the default capacity (the card's memory) admitted both")
+    roomy.run()
+    return {
+        "wall_s": wall, "launches": counts,
+        "finish_reasons": res["finish_reasons"],
+        "submitted": res["submitted"], "survivors": res["survivors"],
+        "slo_alerts": res["slo_alerts"],
+        "clean_tokens_per_s": res["clean_tokens_per_sec"],
+        "recovery_tokens_per_s": res["recovery_tokens_per_sec"],
+        "clean_passes": clean, "recovery_passes": res["recovery_passes"],
+        "clean_spread": spread, "counters": res["counters"],
+        "bf16_survivors_diverged": res["diverged"],
+        "fp32": {k: res32[k] for k in (
+            "finish_reasons", "survivors", "diverged", "slo_alerts",
+            "clean_tokens_per_sec", "recovery_tokens_per_sec",
+            "clean_passes", "recovery_passes")},
+        "footprints": {k: v for k, v in fp.items() if k != "timeline"},
+        "footprint_keys": sorted(fp), "decode_transient_bytes": transient,
+        "device_total_bytes": total, "byte_policy_capacity": cap,
+        "bytes_a_request": one,
+    }, model
+
+
+def _kernel_kind(name):
+    if any(re.search(rf"\b{k}\b", name) for k in HANDWRITTEN_KERNELS):
+        return "handwritten"
+    low = name.lower()
+    if any(m in low for m in CUBLAS_MARKS):
+        return "cublas"
+    return "rest"
+
+
+def profiler_serving_phase(torch, np, model):
+    """``paddle.profiler.Profiler(targets=[CPU, GPU])`` over a
+    ``make_scheduler`` window of ``PROFILE_TICKS`` scheduler ticks of 8
+    requests decoding plain (every tick a decode tick after the first):
+    the chrome export loads back with the same events, the
+    ``RecordEvent`` names are in both traces, the device trace holds K4's
+    and K7's kernels with time; one decode tick's wall time (profiled and
+    not) and device time split into the hand-written kernels, cuBLAS
+    products and the rest."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.profiler import (Profiler, ProfilerTarget,
+                                           RecordEvent,
+                                           export_chrome_tracing,
+                                           load_profiler_result,
+                                           make_scheduler)
+    from paddle_tpu_torch.profiler import telemetry
+    from paddle_tpu_torch.profiler.profiler import DEVICE_TRACE
+    from paddle_tpu_torch.serving import GenerationEngine, Request, Scheduler
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    # CUPTI's start-up stays out of every number: one throwaway capture
+    with torch.profiler.profile(activities=acts):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    eng = GenerationEngine(model, max_batch=8, max_len=1024,
+                           prefill_chunk=256, spec_k=4)
+    sched = Scheduler(eng, speculative=False)
+    rng = np.random.RandomState(3)
+    for _ in range(PROFILE_REQUESTS):
+        sched.submit(Request(prompt=rng.randint(
+            0, model.cfg.vocab_size, PROFILE_PROMPT).tolist(),
+            max_new_tokens=PROFILE_NEW))
+    closed, ready, record = PROFILE_TICKS
+    telemetry.reset()  # no telemetry span of an earlier phase in the trace
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    prof = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU],
+                    scheduler=make_scheduler(closed=closed, ready=ready,
+                                             record=record, repeat=1),
+                    on_trace_ready=export_chrome_tracing(
+                        out_dir, worker_name="serving"))
+    kernels.reset_launch_counts()
+    ticks = []
+    prof.start()
+    try:
+        while sched.queue or sched.active or sched.prefilling:
+            state = prof.current_state.name
+            t0 = time.perf_counter()
+            with RecordEvent("scheduler_tick"):
+                sched.step()
+            torch.cuda.synchronize()
+            ticks.append((state, 1e3 * (time.perf_counter() - t0)))
+            prof.step()
+    finally:
+        prof.stop()
+    counts = kernels.launch_counts()
+    _require(not torch.autograd.profiler._is_profiler_enabled,
+             "the device capture stopped with the window")
+    res = prof.profiler_result
+    files = [f for f in os.listdir(out_dir) if f.startswith("serving")]
+    _require(len(files) == 1, "one chrome export of the window")
+    loaded = load_profiler_result(os.path.join(out_dir, files[0]))
+    same = [(e.name, e.tid, e.start_ns // 1000) for e in loaded.events] == [
+        (e.name, e.tid, e.start_ns // 1000) for e in res.events]
+    _require(same and len(res.events) == record,
+             "the exported chrome trace loads back with the same events")
+    _require({e.name for e in res.events} == {"scheduler_tick"},
+             "the RecordEvent spans are in the host trace")
+    with open(os.path.join(res.xplane_dir, DEVICE_TRACE)) as f:
+        trace = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in trace}
+    _require("scheduler_tick" in names,
+             "the RecordEvent names are in the device trace")
+    kern = [e for e in trace if e.get("cat") == "kernel"]
+    by_kind = {"handwritten": 0.0, "cublas": 0.0, "rest": 0.0}
+    for e in kern:
+        by_kind[_kernel_kind(e["name"])] += e.get("dur", 0.0) / 1e3
+    k4 = sum(e["dur"] for e in kern if "cached_" in e["name"]) / 1e3
+    k7 = sum(e["dur"] for e in kern if "ln_fwd" in e["name"]) / 1e3
+    _require(k4 > 0 and k7 > 0, "the device trace holds K4's and K7's "
+             "kernels with time")
+    top = {}
+    for e in kern:
+        top[e["name"][:90]] = top.get(e["name"][:90], 0.0) + e["dur"] / 1e3
+    for d in (out_dir, res.xplane_dir):
+        shutil.rmtree(d)
+    rec = [ms for st, ms in ticks if st.startswith("RECORD")]
+    plain = [ms for st, ms in ticks[closed + ready + record:]]
+    device = {k: v / record for k, v in by_kind.items()}
+    device_ms = sum(device.values())
+    return {
+        "launches": counts, "ticks": len(ticks),
+        "record_ticks": len(rec),
+        "decode_tick_wall_ms": {
+            "profiled_median": statistics.median(rec),
+            "unprofiled_median": statistics.median(plain),
+            "unprofiled_min": min(plain)},
+        "decode_tick_device_ms": dict(device, total=device_ms),
+        "decode_tick_idle_share": 1 - device_ms / statistics.median(rec),
+        "k4_ms_a_tick": k4 / record, "k7_ms_a_tick": k7 / record,
+        "kernels_a_tick": len(kern) / record,
+        "top_kernels_ms_a_tick": dict(sorted(
+            ((k, v / record) for k, v in top.items()),
+            key=lambda kv: -kv[1])[:8]),
+        "step_info": prof.step_info(),
+    }
+
+
+def devprof_hapi_phase(torch, np):
+    """GPT-2 124M through ``Model.fit`` at batch 8 x 1024 with
+    ``DeviceStatsLogger``: the first step's report is the model's, its
+    memory identity holds and its peak is that step's
+    ``max_memory_allocated``, its flops within ``FLOPS_TOL`` of the
+    products counted by hand plus K5's Pallas estimates, K6-K8 listed
+    uncounted. Then a batch of ``OOM_BATCH`` raises a real
+    ``torch.cuda.OutOfMemoryError`` through OOM forensics, the allocation
+    returns to its value before, and training goes on."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi.callbacks import DeviceStatsLogger
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.profiler import devprof
+
+    paddle.set_device("gpu")
+    model = _gpt124m(torch, 0)
+    cfg = model.cfg
+    hapi = paddle.Model(model)
+    hapi.prepare(paddle.optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters(),
+        multi_precision=True), paddle.nn.CrossEntropyLoss())
+    inputs, labels = _token_sequences(np, 16, DEVPROF_STEPS * DEVPROF_BATCH,
+                                      HAPI_SEQ, cfg.vocab_size)
+    data = paddle.io.TensorDataset([inputs, labels])
+    peaks = {}
+
+    class FirstPeak(paddle.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            if step == 0:
+                peaks["step0"] = torch.cuda.max_memory_allocated()
+
+    cb = DeviceStatsLogger(print_report=False)
+    devprof.clear_reports()
+    kernels.reset_launch_counts()
+    hapi.fit(data, batch_size=DEVPROF_BATCH, epochs=1, shuffle=False,
+             verbose=0, callbacks=[cb, FirstPeak()])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    rep = cb.report
+    _require(rep is not None and hapi.device_report() is rep,
+             "model.device_report() is the callback's report")
+    m = rep.memory
+    _require(m.argument_bytes + m.output_bytes + m.temp_bytes
+             + m.generated_code_bytes - m.alias_bytes == m.peak_bytes,
+             "the memory identity holds")
+    _require(m.peak_bytes == peaks["step0"], f"the report's peak "
+             f"{m.peak_bytes} is the harvested step's max_memory_allocated "
+             f"{peaks['step0']}")
+    tokens, h, vocab = DEVPROF_BATCH * HAPI_SEQ, cfg.hidden_size, \
+        cfg.vocab_size
+    layers, heads = cfg.num_layers, cfg.num_heads
+    # each product's forward, dX and dW, 2 flops a multiply-add: four
+    # projections (12 h^2 a token) a layer and the tied head (h V)
+    products = 3 * 2 * tokens * (layers * 12 * h * h + h * vocab)
+    # K5's Pallas estimate, causal: 4 b h s^2 d / 2, once a layer
+    k5 = layers * 4 * DEVPROF_BATCH * heads * HAPI_SEQ * HAPI_SEQ \
+        * (h // heads) * 0.5
+    hand = products + k5
+    rel = abs(rep.flops - hand) / hand
+    _require(rel <= FLOPS_TOL, f"the report's flops {rep.flops:.6g} within "
+             f"{FLOPS_TOL:.0%} of the hand count {hand:.6g}")
+    _require(rep.uncounted_kernels == ["K6 flash_attention_packed_bwd",
+                                       "K7 layer_norm", "K8 layer_norm_bwd"],
+             f"K6-K8 listed uncounted ({rep.uncounted_kernels})")
+    _require(rep.kernels == {"K5 flash_attention_packed_fwd": layers},
+             f"K5 counted once a layer ({rep.kernels})")
+    table = rep.table()
+
+    # one real out-of-memory error through the forensics
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    big = paddle.io.TensorDataset(list(_token_sequences(
+        np, 17, OOM_BATCH, HAPI_SEQ, cfg.vocab_size)))
+    oom = None
+    try:
+        hapi.fit(big, batch_size=OOM_BATCH, epochs=1, shuffle=False,
+                 verbose=0)
+    except torch.cuda.OutOfMemoryError as e:
+        oom = str(e).splitlines()[0][:160]
+    _require(oom is not None, "the oversized batch raised "
+             "torch.cuda.OutOfMemoryError")
+    fo = devprof.last_oom_report()
+    _require(fo is not None and fo.step_name == "train_step"
+             and isinstance(fo.memory, devprof.MemoryBreakdown)
+             and tuple(fo.batch[0]["shape"]) == (OOM_BATCH, HAPI_SEQ),
+             "the OOM went through the forensics, citing the harvest")
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    _require(after == before, f"memory_allocated back to {before} after the "
+             f"OOM (got {after})")
+    logs = hapi.fit(data, batch_size=DEVPROF_BATCH, epochs=1, shuffle=False,
+                    verbose=0)
+    _require(math.isfinite(float(logs["loss"])), "training went on")
+    return {
+        "launches": counts, "report": rep.as_dict(), "table": table,
+        "flops": rep.flops, "flops_hand": hand, "flops_products": products,
+        "flops_k5": k5, "flops_rel_diff": rel,
+        "peak_bytes": m.peak_bytes, "max_memory_allocated_step0":
+            peaks["step0"],
+        "oom": {"error": oom, "forensics_step": fo.step_name,
+                "allocated_before": before, "allocated_after": after,
+                "state_rows": len(fo.state)},
+        "loss_after_oom": float(logs["loss"]),
+    }
+
+
 def _tc_instantiations():
     """``{kernel: bf16 instantiations}``: K1-K3 one a tensor-core width
     (16..128) and dropout switch, K4's prefill one a width, K6 one a packed
@@ -4081,6 +4488,41 @@ def main():
           f"training, {lenet_fit['eval_images_per_s']:.1f} evaluating, eval "
           f"top-1 {lenet_fit['eval_logs']['acc_top1']:.4f} (at least "
           f"{LENET_MIN_ACC}) on {card}")
+    chaos, serve_model = serving_chaos_phase(torch, np)
+    print(f"serving_chaos: {json.dumps(chaos)}")
+    print(f"serving_chaos: {chaos['submitted']} requests, reasons "
+          f"{json.dumps(chaos['finish_reasons'])}, {chaos['survivors']} "
+          f"survivors ({len(chaos['bf16_survivors_diverged'])} left the "
+          f"plain pass in bf16, {len(chaos['fp32']['diverged'])} in fp32), "
+          f"{chaos['slo_alerts']} SLO alerts; "
+          f"tokens/s clean {chaos['clean_tokens_per_s']:.1f} (passes spread "
+          f"{100 * chaos['clean_spread']:.1f} %), after recovery "
+          f"{chaos['recovery_tokens_per_s']:.1f}; footprints "
+          f"{json.dumps(chaos['footprint_keys'])}, decode peak "
+          f"{chaos['footprints']['decode_peak_bytes'] / 2 ** 30:.3f} GiB of "
+          f"the card's {chaos['device_total_bytes'] / 2 ** 30:.2f} GiB on "
+          f"{card}")
+    prof_serve = profiler_serving_phase(torch, np, serve_model)
+    del serve_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"profiler_serving: {json.dumps(prof_serve)}")
+    tick = prof_serve["decode_tick_device_ms"]
+    wall = prof_serve["decode_tick_wall_ms"]
+    print(f"profiler_serving: a decode tick (8 slots) {wall['unprofiled_median']:.2f} "
+          f"ms wall ({wall['profiled_median']:.2f} profiled), device "
+          f"{tick['total']:.3f} ms: hand-written kernels "
+          f"{tick['handwritten']:.3f}, cuBLAS products {tick['cublas']:.3f}, "
+          f"the rest {tick['rest']:.3f}; idle "
+          f"{100 * prof_serve['decode_tick_idle_share']:.1f} % on {card}")
+    dev = devprof_hapi_phase(torch, np)
+    print(f"devprof_hapi: {json.dumps({k: v for k, v in dev.items() if k != 'table'})}")
+    print(dev["table"])
+    print(f"devprof_hapi: flops {dev['flops']:.6g} against the hand count "
+          f"{dev['flops_hand']:.6g} ({100 * dev['flops_rel_diff']:.3f} %), "
+          f"peak {dev['peak_bytes'] / 2 ** 30:.3f} GiB = max_memory_allocated "
+          f"of the step; the OOM went through the forensics and memory "
+          f"returned to {dev['oom']['allocated_after']} bytes on {card}")
     for c in k8_cases:
         c.update(_k8_launches_apart(torch, timer, c.pop("_split")))
     print("K8's launches apart (torch.profiler, device ms): " + json.dumps(
@@ -4114,7 +4556,10 @@ def main():
                 "paddle_api": api["launches"][name],
                 "hapi_gpt2": hapi["launches"][name],
                 "hapi_resume": resume["launches"][name],
-                "hapi_lenet": lenet_fit["launches"][name]}
+                "hapi_lenet": lenet_fit["launches"][name],
+                "serving_chaos": chaos["launches"][name],
+                "profiler_serving": prof_serve["launches"][name],
+                "devprof_hapi": dev["launches"][name]}
 
     vision_paths = ("resnet50_train", "resnet50_eval", "lenet", "hapi_lenet")
 
@@ -4144,17 +4589,20 @@ def main():
               "paddle_tpu_torch/csrc/flash_attention_cached.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:547", fa_cases,
               "decode", only("flash_attention_cached", "serving",
-                             "gpt3_large_generate")),
+                             "gpt3_large_generate", "serving_chaos",
+                             "profiler_serving")),
         entry("flash_attention_packed_fwd", flash,
               "paddle_tpu/ops/pallas/flash_attention_packed.py:127", k5_cases,
               "train", only("flash_attention_packed_fwd", "serving",
                             "training", "recipe", "gpt2_dropout",
-                            "paddle_api", "hapi_gpt2", "hapi_resume")),
+                            "paddle_api", "hapi_gpt2", "hapi_resume",
+                            "devprof_hapi")),
         entry("flash_attention_packed_bwd", packed,
               "paddle_tpu/ops/pallas/flash_attention_packed.py:236", k6_cases,
               "train", only("flash_attention_packed_bwd", "serving",
                             "training", "recipe", "gpt2_dropout",
-                            "paddle_api", "hapi_gpt2", "hapi_resume")),
+                            "paddle_api", "hapi_gpt2", "hapi_resume",
+                            "devprof_hapi")),
         entry("layer_norm", ln_src, "paddle_tpu/ops/pallas/layer_norm.py:34",
               ln_cases, "rows=8", paths("layer_norm")),
         entry("layer_norm_bwd", ln_src,

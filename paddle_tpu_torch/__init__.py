@@ -95,7 +95,7 @@ from . import autograd  # noqa: E402,F401
 
 from . import (amp, framework, incubate, io, models, nn,  # noqa: E402,F401
                ops, optimizer, regularizer, serving, vision)
-from . import fault, hapi, metric, reader  # noqa: E402,F401
+from . import fault, hapi, metric, profiler, reader  # noqa: E402,F401
 from . import callbacks  # noqa: E402,F401
 from .batch import batch  # noqa: E402,F401
 from .hapi.model import Model  # noqa: E402,F401

@@ -1,7 +1,8 @@
 # Copied from paddle_tpu/hapi/callbacks.py (the port imports nothing of the
 # JAX package); VisualDL and TelemetryLogger run on the port's copies of
-# utils/log_writer.py, profiler/telemetry.py and profiler/slo.py, and
-# DeviceStatsLogger raises until profiler/devprof is ported (ROADMAP.md A6).
+# utils/log_writer.py, profiler/telemetry.py, profiler/slo.py and
+# profiler/devprof.py, and DeviceStatsLogger reads the report the port
+# measures on the train step's first call (not a compiled program's).
 """hapi callbacks (reference ``python/paddle/hapi/callbacks.py``):
 Callback base + CallbackList dispatch, ProgBarLogger, ModelCheckpoint,
 LRScheduler, EarlyStopping, Terminate-on-NaN-style guards live in user land.
@@ -407,15 +408,67 @@ class TelemetryLogger(Callback):
 
 
 class DeviceStatsLogger(Callback):
-    """The JAX package's callback prints the compiled train step's device
-    cost report (``profiler/devprof``: FLOPs, bytes, the memory peak broken
-    down, collective bytes). The port has no ``devprof`` yet
-    (``ROADMAP.md`` A6): constructing it raises."""
+    """Surface the device ground truth of the run's train step: with
+    telemetry enabled (this callback enables it, and restores the flag at
+    train end), the step's first call is measured into a
+    ``profiler.devprof.DeviceCostReport`` — FLOPs, the memory peak broken
+    into argument/output/temp, the kernels launched. The report prints at
+    train end, is kept on ``self.report``, and its ``hbm.*``/``comm.*``/
+    ``cost.*`` scalars export to a LogWriter JSONL.
+
+    Args:
+        log_dir: JSONL output directory; ``None`` keeps it in-memory.
+        print_report: print ``report.table()`` at train end.
+    """
 
     def __init__(self, log_dir=None, print_report=True):
-        raise NotImplementedError(
-            "DeviceStatsLogger reads profiler/devprof, which the port does "
-            "not have yet (ROADMAP.md A6)")
+        super().__init__()
+        self.log_dir = log_dir
+        self.print_report = print_report
+        self.report = None
+        self._enabled_here = False
+
+    def _tm(self):
+        from ..profiler import telemetry
+
+        return telemetry
+
+    def on_train_begin(self, logs=None):
+        telemetry = self._tm()
+        self.report = None
+        if not telemetry.enabled():
+            telemetry.enable()
+            self._enabled_here = True
+
+    def _fetch(self):
+        if self.report is not None:
+            return self.report
+        from ..profiler import devprof
+
+        if self.model is not None:
+            self.report = self.model.device_report()
+        if self.report is None:
+            self.report = devprof.last_report()
+        return self.report
+
+    def on_train_batch_end(self, step, logs=None):
+        # the harvest exists after the first batch; grab it early so it
+        # survives a telemetry reset by other callbacks
+        self._fetch()
+
+    def on_train_end(self, logs=None):
+        rep = self._fetch()
+        telemetry = self._tm()
+        if self.log_dir:
+            from ..utils.log_writer import LogWriter
+
+            with LogWriter(self.log_dir) as w:
+                telemetry.get_telemetry().export_scalars(w)
+        if self.print_report and rep is not None:
+            print(rep.table())
+        if self._enabled_here:
+            telemetry.disable()
+            self._enabled_here = False
 
 
 class EarlyStopping(Callback):

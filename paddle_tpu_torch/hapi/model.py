@@ -60,6 +60,8 @@ class Model:
         self._loss = None
         self._metrics = []
         self.stop_training = False
+        self._devprof_done = False
+        self._device_report = None
 
     # ------------------------------------------------------------------
     # setup
@@ -84,6 +86,7 @@ class Model:
                 "prepare(graph_lint=True) lints with the analysis package "
                 "(ROADMAP.md A9)")
         self._optimizer = optimizer
+        self._devprof_done = False  # a new step: harvest its first call
         if loss is not None and not (isinstance(loss, Layer) or callable(loss)):
             raise TypeError("loss must be a Layer or callable")
         self._loss = loss
@@ -129,6 +132,45 @@ class Model:
         opt.clear_grad()
         outs = [o.detach() for o in _to_list(outputs)] if keep_outputs else []
         return loss.detach(), outs
+
+    #: the registry name of the train step's device cost report
+    REPORT_NAME = "train_step"
+
+    def _dispatch(self, mode, step_fn, ins, labs):
+        """Where the JAX package dispatches its compiled step
+        (``jit/functionalize.py:317-373``): the ``dispatch`` injection
+        point, OOM forensics around the step, and, for the first train
+        step while telemetry is on, the devprof harvest
+        (:class:`~paddle_tpu_torch.profiler.devprof.Harvest`)."""
+        from ..profiler import devprof, telemetry
+
+        keep = bool(self._metrics)
+
+        def call(ins, labs):
+            if (mode == "train" and not self._devprof_done
+                    and telemetry.enabled() and devprof.auto_harvest_enabled()):
+                self._devprof_done = True
+                with devprof.Harvest(self.REPORT_NAME,
+                                     (self.network, ins, labs)) as h:
+                    out = step_fn(ins, labs, keep_outputs=keep)
+                self._device_report = h.report
+                return out
+            return step_fn(ins, labs, keep_outputs=keep)
+
+        return devprof.forensics_at_dispatch(
+            f"{mode}_step", call, (ins, labs), state=self._state_tensors)
+
+    def _state_tensors(self):
+        """``(path, tensor)`` of the network's parameters and buffers and
+        the optimizer's accumulators (for OOM forensics)."""
+        rows = [(f"network.{n}", t) for n, t in
+                self.network.named_parameters()]
+        rows += [(f"network.{n}", t) for n, t in self.network.named_buffers()]
+        for acc, store in getattr(self._optimizer, "_accumulators",
+                                  {}).items():
+            rows += [(f"opt.{acc}.{k}", t) for k, t in store.items()
+                     if isinstance(t, torch.Tensor)]
+        return rows
 
     def _eval_step(self, ins, labs, keep_outputs=True):
         net = self.network
@@ -371,8 +413,7 @@ class Model:
                 # the eager step's host time is the JAX package's dispatch
                 # phase: the card runs it after the host has moved on
                 with telemetry.phase_span("dispatch"):
-                    loss, outs = step_fn(ins, labs,
-                                         keep_outputs=bool(self._metrics))
+                    loss, outs = self._dispatch(mode, step_fn, ins, labs)
             buf.append(loss)
             # fence at log_freq boundaries; also once at the first step so
             # logs['loss'] exists from the first callback onward (between
@@ -436,11 +477,12 @@ class Model:
         return self.network.parameters(*args, **kwargs)
 
     def device_report(self):
-        """The JAX package returns the compiled step's device cost report
-        (``profiler/devprof``), which the port does not have yet."""
-        raise NotImplementedError(
-            "device_report() reads profiler/devprof, which the port does not "
-            "have yet (ROADMAP.md A6)")
+        """The train step's harvested
+        :class:`~paddle_tpu_torch.profiler.devprof.DeviceCostReport`
+        (measured on its first call while telemetry is enabled — e.g. under
+        the ``DeviceStatsLogger``/``TelemetryLogger`` callbacks), else
+        None."""
+        return self._device_report
 
     def summary(self, input_size=None, dtype=None):
         from .model_summary import summary

@@ -9,10 +9,11 @@ Serving passes ``cache=`` (one :mod:`~paddle_tpu_torch.serving.kv_cache`
 view per layer) and a ``LengthMask``; attention then runs the cached kernel
 K4 on the card. Training calls :meth:`GPTForCausalLM.loss`: causal attention
 runs the packed kernels K5/K6 and the LayerNorms K7/K8 on the card, and the
-loss is the chunked ``fused_linear_cross_entropy``. Tensor, sequence and
-pipeline parallelism and the deprecated tuple cache of the JAX model are not
-ported (see ROADMAP.md): ``use_tp`` and ``use_sep`` keep the JAX package's
-meaning at degree 1 (the plain model), and a degree above 1 raises.
+loss is the chunked ``fused_linear_cross_entropy``. A ``(k, v)`` tuple as
+``cache=`` takes the JAX model's deprecated grow-by-concat path (it warns
+once). Tensor, sequence and pipeline parallelism are not ported (see
+ROADMAP.md): ``use_tp`` and ``use_sep`` keep the JAX package's meaning at
+degree 1 (the plain model), and a degree above 1 raises.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from ..nn.layer.common import Linear
 from ..nn.layer.container import LayerList
 from ..nn.layer.layers import Layer, ParamAttr
 from ..nn.layer.norm import LayerNorm
+from ..utils import warn_once
 
 __all__ = ["GPTConfig", "GPTEmbeddings", "GPTDecoderLayer", "GPTModel",
            "GPTForCausalLM"]
@@ -153,7 +155,19 @@ class GPTDecoderLayer(Layer):
         qkv = _apply(self.qkv_proj, y).view(b, s, 3, self.num_heads,
                                             self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if cache is not None:
+        if isinstance(cache, (tuple, list)):
+            # DEPRECATED grow-by-concat path (the JAX model's shim): every
+            # step re-materialises the whole K/V and changes its shape
+            warn_once(
+                "gpt-kv-cache-concat",
+                "tuple KV cache on GPTDecoderLayer is deprecated: it "
+                "grows by concat and copies the whole cache at every "
+                "position. Use paddle_tpu_torch.serving.KVCache / "
+                "GenerationEngine for O(1) static-shape decode.")
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+            cache = (k.detach(), v.detach())
+        elif cache is not None:
             # serving.KVCache view: writes the new rows into the cache in
             # place and returns the K/V attention reads; causality and
             # validity live in attn_mask

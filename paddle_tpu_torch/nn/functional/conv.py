@@ -49,9 +49,11 @@ def _norm_tuple(v, n):
     return tuple(v * n) if len(v) == 1 else tuple(v)
 
 
-def _norm_padding(padding, n):
+def _norm_padding(padding, n, channel_last=False):
     """``"SAME"``, ``"VALID"`` or ``[(l, r)] * n``, as the JAX package's
-    ``_norm_padding`` reads ``padding``."""
+    ``_norm_padding`` reads ``padding``; ``n + 2`` nested pairs carry the
+    batch and channel pairs (zeros) where ``data_format`` puts those axes
+    (Paddle's form, which the JAX package refuses)."""
     if isinstance(padding, str):
         spec = padding.upper()
         if spec not in ("SAME", "VALID"):
@@ -71,7 +73,12 @@ def _norm_padding(padding, n):
     flat = [list(p) if isinstance(p, (list, tuple)) else [p, p]
             for p in padding]
     if len(flat) == n + 2:
-        flat = flat[2:] if flat[0] == [0, 0] else flat[-n:]
+        spatial = flat[1:n + 1] if channel_last else flat[2:]
+        others = [flat[0], flat[-1] if channel_last else flat[1]]
+        if any(int(v) for pair in others for v in pair):
+            raise ValueError(f"padding {padding}: the batch and channel "
+                             "pairs must be [0, 0]")
+        flat = spatial
     return [(int(lo), int(hi)) for lo, hi in flat[:n]]
 
 
@@ -85,10 +92,10 @@ def same_pads(sizes, windows, strides):
     return pads
 
 
-def explicit_pads(padding, sizes, windows, strides):
+def explicit_pads(padding, sizes, windows, strides, channel_last=False):
     """``[(l, r)]`` a spatial dim for any padding form; ``windows`` are the
     dilated window sizes."""
-    spec = _norm_padding(padding, len(sizes))
+    spec = _norm_padding(padding, len(sizes), channel_last)
     if spec == "VALID":
         return [(0, 0)] * len(sizes)
     if spec == "SAME":
@@ -114,7 +121,7 @@ def _conv(x, weight, bias, stride, padding, dilation, groups, data_format, nd):
         x = x.contiguous(memory_format=fmt)
         weight = weight.contiguous(memory_format=fmt)
     windows = [d * (k - 1) + 1 for d, k in zip(dilation, weight.shape[2:])]
-    pads = explicit_pads(padding, x.shape[2:], windows, stride)
+    pads = explicit_pads(padding, x.shape[2:], windows, stride, channel_last)
     if all(lo == hi >= 0 for lo, hi in pads):
         pad_arg = tuple(lo for lo, _ in pads)
     else:

@@ -45,10 +45,10 @@ _MAX = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
 _AVG = {2: TF.avg_pool2d, 3: TF.avg_pool3d}
 
 
-def _pads(padding, sizes, ks, st, ceil_mode):
+def _pads(padding, sizes, ks, st, ceil_mode, channel_last):
     """``([(l, r)] a spatial dim, whether padding was VALID)``, with JAX's
     ``_ceil_pad`` applied to explicit pads under ``ceil_mode``."""
-    spec = _norm_padding(padding, len(sizes))
+    spec = _norm_padding(padding, len(sizes), channel_last)
     if spec == "VALID":
         return [(0, 0)] * len(sizes), True
     if spec == "SAME":
@@ -87,7 +87,7 @@ def _max_pool(x, kernel_size, stride, padding, return_mask, ceil_mode,
     if channel_last:
         x = x.movedim(-1, 1)
     sizes = list(x.shape[2:])
-    pads, _ = _pads(padding, sizes, ks, st, ceil_mode)
+    pads, _ = _pads(padding, sizes, ks, st, ceil_mode, channel_last)
     if _native(pads, ks):
         xp, pad_arg = x, tuple(lo for lo, _ in pads)
     else:
@@ -123,7 +123,8 @@ def _avg_pool(x, kernel_size, stride, padding, exclusive, ceil_mode,
     st = _norm_tuple(stride if stride is not None else kernel_size, nd)
     if channel_last:
         x = x.movedim(-1, 1)
-    pads, valid = _pads(padding, list(x.shape[2:]), ks, st, ceil_mode)
+    pads, valid = _pads(padding, list(x.shape[2:]), ks, st, ceil_mode,
+                        channel_last)
     out = _window_sum(x, ks, st, pads, nd)
     if exclusive and not valid:
         ones = torch.ones((1, 1, *x.shape[2:]), dtype=x.dtype,

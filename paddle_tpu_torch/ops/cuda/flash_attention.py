@@ -64,6 +64,7 @@ import torch
 
 from .. import philox
 from ._build import check, dtype_code, library, needs_grad, stream_of
+from .cost import costed
 
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_dq",
@@ -289,6 +290,7 @@ def _cached_launch(q, k, v, q_pos, kv_len, scale, probe):
     return out, ctas.value, ws
 
 
+@costed("K4")
 def flash_attention_cached(q, k, v, q_pos, kv_len=None, *, scale=None):
     """Length-masked attention over a static-shape KV cache.
 
@@ -542,6 +544,7 @@ def _tail(q, scale, causal, dropout_p, seed):
             stream_of(q))
 
 
+@costed("K1")
 def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
                         dropout_p=0.0, seed=None):
     """``(out, lse)``: CPU tensors take the plain version; CUDA tensors
@@ -563,6 +566,7 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
     return out, lse
 
 
+@costed("K2")
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, bias=None, causal=False,
                            scale=None, dropout_p=0.0, seed=None):
     """dq from the forward's ``out`` and ``lse``: CPU tensors take the plain
@@ -585,6 +589,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, bias=None, causal=False,
     return dq
 
 
+@costed("K3")
 def flash_attention_bwd_dkv(q, k, v, out, lse, dout, bias=None, causal=False,
                             scale=None, dropout_p=0.0, seed=None):
     """``(dk, dv)`` from the forward's ``out`` and ``lse``: CPU tensors take

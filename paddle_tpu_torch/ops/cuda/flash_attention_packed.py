@@ -44,6 +44,7 @@ import torch
 
 from .. import philox
 from ._build import check, dtype_code, library, needs_grad, stream_of
+from .cost import costed
 from .flash_attention import (_dropped, _pick_block, dropout_seed_words,
                               flash_attention_fwd_plain, kernel_route)
 
@@ -222,6 +223,7 @@ def _tail(scale, causal, dropout_p, seed, dtype, t):
             stream_of(t))
 
 
+@costed("K5")
 def flash_attention_packed_fwd(q, k, v, num_heads, bias=None, causal=False,
                                scale=None, dropout_p=0.0, seed=None):
     """``(out, lse)``: CPU tensors take the plain version; CUDA tensors
@@ -249,6 +251,7 @@ def flash_attention_packed_fwd(q, k, v, num_heads, bias=None, causal=False,
     return out, lse
 
 
+@costed("K6")
 def flash_attention_packed_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
                                causal=False, scale=None, dropout_p=0.0,
                                seed=None):

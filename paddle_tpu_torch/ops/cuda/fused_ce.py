@@ -44,6 +44,7 @@ import ctypes
 import torch
 
 from ._build import check, dtype_code, library, needs_grad, stream_of
+from .cost import costed
 
 __all__ = ["flash_linear_cross_entropy", "ce_forward", "ce_forward_plain",
            "ce_backward_dx", "ce_backward_dx_plain", "ce_backward_dw",
@@ -271,6 +272,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@costed("K9")
 def ce_forward(x, w, b, y):
     """K9: ``(loss, lse)`` of ``cross_entropy(x · wᵀ + b, y)`` per token,
     fp32. CPU tensors take the plain version."""
@@ -319,6 +321,7 @@ def _bwd(what, mode, x, w, b, y, g, lse, round_to):
     return out, db
 
 
+@costed("K10")
 def ce_backward_dx(x, w, b, y, g, lse):
     """K10: ``dx`` in ``x.dtype``. ``g`` is the per-token upstream gradient
     (already 0 at ignored labels). CPU tensors take the plain version."""
@@ -330,6 +333,7 @@ def ce_backward_dx(x, w, b, y, g, lse):
     return dx.to(x.dtype)
 
 
+@costed("K11")
 def ce_backward_dw(x, w, b, y, g, lse):
     """K11: ``(dw, db)``; dw in ``w.dtype``, db fp32 (None without a
     bias). CPU tensors take the plain version."""

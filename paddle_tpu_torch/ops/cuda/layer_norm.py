@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from ._build import check, dtype_code, library, needs_grad, stream_of
+from .cost import costed
 
 __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_bwd",
            "layer_norm_bwd_plain", "supports", "kernel_plan", "LANES"]
@@ -83,6 +84,7 @@ def _check_cuda(x, gamma, what, *others):
     return feat, x.numel() // feat
 
 
+@costed("K7", "layer_norm")
 def _forward(x, gamma, beta, eps):
     """K7 on a CUDA tensor, the plain version on a CPU one."""
     if x.device.type == "cpu":
@@ -104,6 +106,7 @@ def _forward(x, gamma, beta, eps):
     return y
 
 
+@costed("K8")
 def layer_norm_bwd(x, gamma, dy, eps=1e-5):
     """``(dx, dgamma, dbeta)`` of the LayerNorm at ``x`` (``(..., features)``)
     for the output gradient ``dy``. CPU tensors take the plain version;

@@ -20,7 +20,10 @@ Four steps, each one eager forward of the model under
 On the card every attention call of these steps runs the cached kernel K4
 and every LayerNorm kernel K7. There is no counterpart of the JAX engine's
 ``CompiledStep`` programs, donation or weight freezing: PyTorch runs
-eagerly and the cache is updated in place.
+eagerly and the cache is updated in place. Where the JAX engine's telemetry
+counts one compile a program and bucket, the port records the distinct
+shapes each program was dispatched with (:attr:`GenerationEngine.
+dispatch_shapes`), as ``EncoderScorer.padded_shapes`` does.
 
 Sampling (temperature / top-k / top-p) is per slot. Each slot draws from
 its own ``torch.Generator``, seeded by :meth:`set_slot_sampling`: the same
@@ -171,6 +174,17 @@ class GenerationEngine:
         self._temps = np.zeros((self.max_batch,), np.float32)
         self._top_ks = np.zeros((self.max_batch,), np.int32)
         self._top_ps = np.ones((self.max_batch,), np.float32)
+        #: program -> the distinct token shapes it was dispatched with, in
+        #: first-use order (stands where JAX counts compiles)
+        self.dispatch_shapes = {"serve_prefill": [], "serve_prefill_chunk": [],
+                                "serve_decode": [], "serve_verify": []}
+        self._footprints = None
+
+    def _note_shape(self, program, toks):
+        shapes = self.dispatch_shapes[program]
+        shape = tuple(int(n) for n in toks.shape)
+        if shape not in shapes:
+            shapes.append(shape)
 
     # -- step bodies -----------------------------------------------------------
     def _tokens(self, arr):
@@ -210,18 +224,22 @@ class GenerationEngine:
         self.cache.lengths[slot] = min(off + chunk_len, self.max_len)
         return next_tok
 
-    @torch.inference_mode()
-    def _decode(self, feed):
-        ln = self.cache.lengths
+    def _decode_logits(self, cache, feed):
+        ln = cache.lengths
         pos = torch.clamp_max(ln, self.max_len - 1)  # [b]
         # each slot's single query row sits at its own position
         lmask = LengthMask(pos[:, None])
-        views = [DecodeView(k, v, pos)
-                 for k, v in zip(self.cache.ks, self.cache.vs)]
+        views = [DecodeView(k, v, pos) for k, v in zip(cache.ks, cache.vs)]
         logits, _ = self.model(self._tokens(feed),
                                position_ids=pos[:, None],
                                attn_mask=lmask, cache=views)
-        next_tok = _sample_next(logits[:, -1], self._generators, self._temps,
+        return logits[:, -1]
+
+    @torch.inference_mode()
+    def _decode(self, feed):
+        ln = self.cache.lengths
+        next_tok = _sample_next(self._decode_logits(self.cache, feed),
+                                self._generators, self._temps,
                                 self._top_ks, self._top_ps)
         self.cache.lengths = ln + 1
         return next_tok
@@ -296,6 +314,7 @@ class GenerationEngine:
         # fault-injection point before any cache write, so the scheduler's
         # retry runs against an intact cache
         _inject.check("serve.prefill")
+        self._note_shape("serve_prefill", toks)
         with _tracing.span("serve_prefill",
                            attrs={"slot": int(slot), "bucket": bucket,
                                   "prompt_tokens": int(prompt.size)}):
@@ -345,6 +364,7 @@ class GenerationEngine:
         toks = np.zeros((1, c), np.int32)
         toks[0, :piece.size] = piece
         _inject.check("serve.prefill")  # before any cache write: retry-safe
+        self._note_shape("serve_prefill_chunk", toks)
         with _tracing.span("serve_prefill_chunk",
                            attrs={"slot": int(slot), "off": off,
                                   "chunk_tokens": int(piece.size),
@@ -359,6 +379,7 @@ class GenerationEngine:
         recent token. Returns the next token per slot (np int32 [b])."""
         feed = np.asarray(last_tokens, np.int32).reshape(self.max_batch, 1)
         _inject.check("serve.decode")  # before any cache write
+        self._note_shape("serve_decode", feed)
         with _tracing.span("serve_decode"):
             tok = self._decode(feed)
         return tok.cpu().numpy().astype(np.int32)
@@ -379,6 +400,7 @@ class GenerationEngine:
         feed = np.asarray(window_tokens, np.int32).reshape(
             self.max_batch, w)
         _inject.check("serve.verify")  # before any cache write
+        self._note_shape("serve_verify", feed)
         with _tracing.span("serve_verify", attrs={"window": w}):
             greedy, tok0 = self._verify(feed)
         return (greedy.cpu().numpy().astype(np.int32),
@@ -411,6 +433,75 @@ class GenerationEngine:
     def lengths(self):
         """Per-slot cached-token counts (host numpy)."""
         return self.cache.lengths.cpu().numpy()
+
+    def predicted_footprints(self, refresh=False):
+        """Device-memory footprints of this engine's serving programs.
+        Cached after the first call; ``refresh=True`` re-derives. The keys
+        are the JAX engine's:
+
+        * ``decode_peak_bytes`` — the live-set peak of one batched decode
+          tick (cache + weights + activations). On the card it is measured:
+          a greedy decode tick on a scratch cache of the engine's shape
+          (no slot's rows, lengths or generator are touched, so a call
+          mid-stream changes no stream), its transient the tick's
+          ``max_memory_allocated`` above ``memory_allocated`` after
+          ``reset_peak_memory_stats``, plus the weights and the cache. On
+          the CPU it is arithmetic: ``cache_bytes`` + the parameters'
+          bytes + one decode tick's logits (``max_batch × vocab`` in the
+          weights' dtype). The JAX engine's arithmetic fallback is ``2 ×
+          cache_bytes`` (its donated swap holds the old and new cache);
+          the port writes the cache in place;
+        * ``cache_bytes`` — the static KV cache allocation;
+        * ``base_bytes`` — everything but the cache (weights, decode
+          temps): resident whether or not any request is active;
+        * ``per_token_bytes`` — KV bytes one cached token pins across all
+          layers;
+        * ``prefill_bucket_bytes`` — per-bucket KV bytes a request padded
+          to that bucket pins at admit;
+        * ``timeline`` — None: the JAX engine lints a jaxpr for it, and
+          the port has none."""
+        if self._footprints is not None and not refresh:
+            return dict(self._footprints)
+        cache_bytes = int(self.cache.nbytes())
+        per_token = max(1, cache_bytes // (self.max_batch * self.max_len))
+        params = sum(p.numel() * p.element_size()
+                     for p in self.model.parameters())
+        if self.device.type == "cuda":
+            decode_peak = float(params + cache_bytes
+                                + self._measure_decode_transient())
+        else:
+            w = self.model.gpt.embeddings.word_embeddings.weight
+            logits = self.max_batch * w.shape[0] * w.element_size()
+            decode_peak = float(cache_bytes + params + logits)
+        self._footprints = {
+            "decode_peak_bytes": decode_peak,
+            "cache_bytes": float(cache_bytes),
+            "base_bytes": max(0.0, decode_peak - cache_bytes),
+            "per_token_bytes": float(per_token),
+            "prefill_bucket_bytes": {
+                int(b): float(per_token * min(self.max_len, int(b)))
+                for b in self.prefill_buckets},
+            "timeline": None,
+        }
+        return dict(self._footprints)
+
+    @torch.inference_mode()
+    def _measure_decode_transient(self):
+        """Bytes one greedy decode tick allocates above what is resident,
+        measured on a scratch cache (the engine's own cache, lengths and
+        generators stay as they are)."""
+        scratch = KVCache.alloc(
+            self.num_layers, self.max_batch, self.max_len, self.num_heads,
+            self.head_dim, self.cache_dtype, device=self.device)
+        feed = np.zeros((self.max_batch, 1), np.int32)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        before = torch.cuda.memory_allocated(self.device)
+        torch.argmax(self._decode_logits(scratch, feed), dim=-1)
+        torch.cuda.synchronize(self.device)
+        transient = torch.cuda.max_memory_allocated(self.device) - before
+        del scratch
+        return int(transient)
 
 
 class EncoderScorer:

@@ -3,9 +3,11 @@
 Port of ``paddle_tpu/serving/scheduler.py``: the same pure-Python
 scheduler over :class:`paddle_tpu_torch.serving.GenerationEngine`.
 Differences from the JAX package: a device OOM is also recognised as
-``torch.cuda.OutOfMemoryError``; ``CostAwareAdmission`` is not ported yet
-(it needs the engine's ``predicted_footprints``), so the ``admission=`` hook
-takes any callable the caller provides. ``default_slo_monitor`` gives the
+``torch.cuda.OutOfMemoryError`` (``profiler.devprof.is_oom_error``);
+``CostAwareAdmission(policy="bytes")`` prices requests with the engine's
+measured ``predicted_footprints`` and takes its default capacity from
+``torch.cuda.mem_get_info`` on the card (the JAX package asks
+``analysis.mem_lint``). ``default_slo_monitor`` gives the
 shipped serving SLOs (``profiler.slo.SERVING_SLOS``). The engine's
 fault-injection points fire before any cache write, so a retry runs
 against an intact cache.
@@ -65,8 +67,10 @@ drained   terminated by ``drain()``/``shutdown()`` instead of being
 ========  ===================================================================
 
 Overload handling: ``Scheduler(max_queue=N)`` bounds the submit queue
-(reject-on-full → ``shed``); an ``admission=`` policy callable sheds
-when it returns False. Device faults: ``RESOURCE_EXHAUSTED`` raised by
+(reject-on-full → ``shed``); ``admission=CostAwareAdmission(...)`` sheds
+when the estimated backlog cost (prefill bucket + decode budget per
+request) exceeds its cap, and any other policy callable sheds when it
+returns False. Device faults: ``RESOURCE_EXHAUSTED`` raised by
 the decode/prefill step is caught, the largest-footprint victim request is
 evicted (``serve.oom_evictions``), and the tick retries at the reduced
 active batch through :func:`paddle_tpu_torch.fault.retry` jittered backoff
@@ -143,7 +147,10 @@ from ..fault.retry import TransientError
 from ..fault.retry import retry as _retry
 from ..profiler import telemetry as _telemetry
 from ..profiler import tracing as _tracing
-__all__ = ["Request", "Scheduler", "FINISH_REASONS"]
+from .kv_cache import pick_bucket
+
+__all__ = ["Request", "Scheduler", "CostAwareAdmission", "FINISH_REASONS",
+           "default_slo_monitor"]
 
 #: the closed set of terminal finish reasons — every submitted request ends
 #: with exactly one of these, on every path (chaos-harness invariant)
@@ -158,11 +165,10 @@ _CHUNK_FAILED = object()
 
 
 def _is_oom(err):
-    """Device OOM? A CUDA out-of-memory error, or an exception carrying
-    XLA's ``RESOURCE_EXHAUSTED`` marker, which the injected ``oom`` fault
-    raises (``paddle_tpu/profiler/devprof.py::is_oom_error``)."""
-    return (isinstance(err, torch.cuda.OutOfMemoryError)
-            or "RESOURCE_EXHAUSTED" in str(err))
+    """Device OOM? (lazy devprof import keeps scheduler import light)."""
+    from ..profiler import devprof
+
+    return devprof.is_oom_error(err)
 
 
 @dataclass
@@ -239,6 +245,95 @@ class Request:
         return (self.done_ns - self.submit_ns) / 1e9
 
 
+def _device_capacity_bytes(engine):
+    """The card's total memory (``torch.cuda.mem_get_info``), or None on
+    the CPU (the JAX package's ``mem_lint.device_capacity_bytes``, which
+    the port does not have, gives None there too)."""
+    dev = engine.device
+    if dev.type != "cuda":
+        return None
+    return float(torch.cuda.mem_get_info(dev)[1])
+
+
+class CostAwareAdmission:
+    """Optional admission policy: shed when the estimated outstanding work
+    would exceed a budget.
+
+    ``policy="tokens"`` (default): a request's cost is its padded prefill
+    bucket plus its decode budget (``pick_bucket(len(prompt)) +
+    max_new_tokens`` — the slot-steps it will consume). The backlog is the
+    summed estimate over the queue plus the REMAINING budget of every
+    active request. Admission requires ``backlog + cost(request) <=
+    max_backlog_tokens``; the default cap is ``headroom × max_batch ×
+    max_len`` — roughly ``headroom`` batches' worth of full-capacity work.
+
+    ``policy="bytes"``: the same backlog arithmetic, measured in device
+    bytes from the engine's ``predicted_footprints()`` (on the card a
+    measured decode tick): a request pins ``per_token_bytes × min(max_len,
+    bucket + max_new_tokens)`` of KV cache, on top of the engine's resident
+    ``base_bytes`` (weights + decode activations). Admission requires
+    ``base_bytes + backlog_bytes + cost_bytes(request) <=
+    capacity_bytes``; the default capacity is the card's total memory
+    (``torch.cuda.mem_get_info``), and on the CPU ``base_bytes + headroom ×
+    cache_bytes``. Shedding at submit on a byte budget makes the OOM-safe
+    degraded decode path (evict victims mid-tick, retry at reduced batch)
+    the LAST resort instead of the first line of defense.
+
+    Both policies are deterministic by construction (pure arithmetic over
+    the scheduler's state)."""
+
+    def __init__(self, max_backlog_tokens=None, headroom=2.0,
+                 policy="tokens", capacity_bytes=None):
+        if policy not in ("tokens", "bytes"):
+            raise ValueError(f"policy must be 'tokens' or 'bytes', "
+                             f"got {policy!r}")
+        self.max_backlog_tokens = max_backlog_tokens
+        self.headroom = float(headroom)
+        self.policy = policy
+        self.capacity_bytes = capacity_bytes
+
+    def estimate(self, request, engine):
+        bucket = pick_bucket(len(request.prompt), engine.prefill_buckets)
+        return bucket + int(request.max_new_tokens)
+
+    def estimate_bytes(self, request, engine):
+        """Predicted KV bytes this request pins until it finishes: its
+        padded bucket plus decode budget, clamped to the cache capacity,
+        priced at the engine's per-token KV footprint."""
+        fp = engine.predicted_footprints()
+        tokens = min(int(engine.max_len), self.estimate(request, engine))
+        return fp["per_token_bytes"] * tokens
+
+    def _admit_bytes(self, request, scheduler):
+        eng = scheduler.engine
+        fp = eng.predicted_footprints()
+        cap = self.capacity_bytes
+        if cap is None:
+            cap = _device_capacity_bytes(eng)
+        if cap is None:
+            cap = fp["base_bytes"] + self.headroom * fp["cache_bytes"]
+        per_tok = fp["per_token_bytes"]
+        backlog = sum(self.estimate_bytes(q, eng) for q in scheduler.queue)
+        backlog += sum(
+            per_tok * min(int(eng.max_len),
+                          len(r.prompt) + int(r.max_new_tokens))
+            for r in scheduler.holding())
+        need = fp["base_bytes"] + backlog + self.estimate_bytes(request, eng)
+        return need <= float(cap)
+
+    def __call__(self, request, scheduler):
+        if self.policy == "bytes":
+            return self._admit_bytes(request, scheduler)
+        eng = scheduler.engine
+        cap = self.max_backlog_tokens
+        if cap is None:
+            cap = self.headroom * eng.max_batch * eng.max_len
+        backlog = sum(self.estimate(q, eng) for q in scheduler.queue)
+        backlog += sum(max(0, r.max_new_tokens - len(r.tokens))
+                       for r in scheduler.holding())
+        return backlog + self.estimate(request, eng) <= cap
+
+
 def default_slo_monitor(**kwargs):
     """An :class:`~paddle_tpu_torch.profiler.slo.SLOMonitor` over the
     shipped serving overload specs (``SERVING_SLOS``) — pass straight to
@@ -259,7 +354,8 @@ class Scheduler:
             (terminal ``finish_reason='shed'``, returned to the caller)
             instead of queueing work the tier can never finish.
         admission: callable ``policy(request, scheduler) -> bool``; False
-            sheds the request.
+            sheds the request. :class:`CostAwareAdmission` ships in the
+            box.
         retry_tries / retry_base_delay / retry_sleep: the
             :func:`paddle_tpu_torch.fault.retry` budget used for transient
             prefill faults and OOM-degraded decode retries (``retry_sleep``

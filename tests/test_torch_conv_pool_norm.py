@@ -87,6 +87,9 @@ CONV_CASES = {
     "2n_asymmetric": dict(padding=[0, 1, 2, 0]),
     "nested_with_batch_channel": dict(padding=[[0, 0], [0, 0], [1, 0],
                                                [2, 1]]),
+    "nested_with_batch_channel_nhwc": dict(padding=[[0, 0], [1, 0], [2, 1],
+                                                    [0, 0]],
+                                           data_format="NHWC"),
     "nested": dict(padding=[[1, 0], [0, 2]]),
     "same_stride2": dict(padding="SAME", stride=2),
     "same_lower_stride2_dilation2": dict(padding="same", stride=2,
@@ -99,7 +102,8 @@ CONV_CASES = {
 
 #: JAX reads four [l, r] pairs of a 2-D conv as ``2n`` ints and raises; its
 #: result for the same pads without the batch and channel pairs stands in
-JAX_PADDING = {"nested_with_batch_channel": [[1, 0], [2, 1]]}
+JAX_PADDING = {"nested_with_batch_channel": [[1, 0], [2, 1]],
+               "nested_with_batch_channel_nhwc": [[1, 0], [2, 1]]}
 
 
 @pytest.mark.parametrize("layout", [False, True], indirect=True,
@@ -245,6 +249,26 @@ POOL_CASES = {
     "max3d": ("max_pool3d", (2, 2, [0, 1, 1]), {}),
     "avg3d_exclusive": ("avg_pool3d", (3, 2, 1), {}),
 }
+
+
+@pytest.mark.parametrize("name", ["max_pool2d", "avg_pool2d"])
+@pytest.mark.parametrize("data_format", ["NCHW", "NHWC"])
+def test_pooling_takes_four_nested_pairs_where_jax_raises(name, data_format):
+    """A declared widening (ROADMAP.md C, beside conv2d's): four nested
+    ``[l, r]`` pairs, the batch and channel pairs zeros, give the two-pair
+    call's values in the port; the JAX package raises ``TypeError``."""
+    hw = [[1, 0], [0, 1]]
+    four = ([[0, 0], [0, 0], *hw] if data_format == "NCHW"
+            else [[0, 0], *hw, [0, 0]])
+    x = _x(2, 3, 7, 6)
+    if data_format == "NHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    fn = getattr(PF, name)
+    got = fn(torch.from_numpy(x), 3, 2, four, data_format=data_format)
+    want = fn(torch.from_numpy(x), 3, 2, hw, data_format=data_format)
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError):
+        getattr(JF, name)(Tensor(x), 3, 2, four, data_format=data_format)
 
 
 @pytest.mark.parametrize("case", list(POOL_CASES))

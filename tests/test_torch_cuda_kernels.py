@@ -1185,3 +1185,69 @@ def test_channels_last_matches_nchw_on_the_card(dev, op):
     _assert_close(got.contiguous(), ref)
     for a, r in zip(got_grads, ref_grads):
         _assert_close(a.contiguous(), r.contiguous(), fp32_rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's measured footprints and the profiler's device trace
+# ---------------------------------------------------------------------------
+def _small_gpt(dev):
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_position_embeddings=256,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    return model.eval()
+
+
+def test_predicted_footprints_are_measured_on_the_card(dev):
+    from paddle_tpu_torch.serving import GenerationEngine, Request, Scheduler
+
+    model = _small_gpt(dev)
+    eng = GenerationEngine(model, max_batch=4, max_len=256, spec_k=2)
+    sched = Scheduler(eng)
+    reqs = [sched.submit(Request(prompt=list(range(1, 20 + i)),
+                                 max_new_tokens=12)) for i in range(3)]
+    for _ in range(3):
+        sched.step()
+    lengths = eng.lengths().tolist()
+    rows = [k.clone() for k in eng.cache.ks]
+    fp = eng.predicted_footprints()
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    assert fp["timeline"] is None
+    assert fp["cache_bytes"] == eng.cache.nbytes()
+    # measured: the tick's transient above the weights and the cache
+    assert fp["decode_peak_bytes"] > params + fp["cache_bytes"]
+    assert fp["base_bytes"] == fp["decode_peak_bytes"] - fp["cache_bytes"]
+    # the measurement ran on a scratch cache: no slot moved
+    assert eng.lengths().tolist() == lengths
+    assert all(torch.equal(a, b) for a, b in zip(rows, eng.cache.ks))
+    sched.run()
+    assert all(r.finish_reason == "length" for r in reqs)
+
+
+def test_device_trace_names_the_ports_kernels(dev):
+    import json
+    import os
+    import shutil
+
+    from paddle_tpu_torch.profiler import (Profiler, ProfilerTarget,
+                                           RecordEvent)
+    from paddle_tpu_torch.profiler.profiler import DEVICE_TRACE
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    eng = GenerationEngine(_small_gpt(dev), max_batch=2, max_len=256)
+    eng.prefill(0, list(range(1, 40)))
+    with Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU],
+                  on_trace_ready=lambda p: None) as prof:
+        with RecordEvent("decode"):
+            eng.decode_once([5, 0])
+        torch.cuda.synchronize()
+    path = os.path.join(prof.profiler_result.xplane_dir, DEVICE_TRACE)
+    events = json.load(open(path))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert any("cached_" in e["name"] and e["dur"] > 0 for e in kernels)
+    assert any("ln_fwd" in e["name"] and e["dur"] > 0 for e in kernels)
+    assert "decode" in {e.get("name") for e in events}
+    shutil.rmtree(prof.profiler_result.xplane_dir)

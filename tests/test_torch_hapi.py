@@ -246,10 +246,14 @@ def test_unported_packages_raise_by_name(port_cpu):
             model.prepare(opt, loss, **kw)
     model.prepare(opt, loss, graph_lint=False, zero=None, remat=None)
     model.prepare(opt, loss, graph_lint=None)
-    with pytest.raises(NotImplementedError, match="A6"):
-        model.device_report()
-    with pytest.raises(NotImplementedError, match="A6"):
-        pt.hapi.callbacks.DeviceStatsLogger()
+    assert model.device_report() is None  # no train step harvested yet
+    cb = pt.hapi.callbacks.DeviceStatsLogger(print_report=False)
+    rng = np.random.RandomState(0)
+    model.fit([(rng.rand(4, 8).astype(np.float32),
+                rng.randint(0, 2, (4, 1)).astype(np.int64))],
+              epochs=1, verbose=0, callbacks=[cb])
+    assert model.device_report() is cb.report
+    assert cb.report.memory.peak_bytes > 0 and cb.report.flops > 0
     with pytest.raises(NotImplementedError, match="A10"):
         model.prepare(opt, loss, remat=1 << 30)
 

@@ -8,6 +8,7 @@ the continuous-batching scheduler with chunked prefill and speculative
 decoding. Sampling is held to seeded replay within the port (a
 ``torch.Generator`` cannot reproduce JAX's threefry keys).
 """
+import os
 import subprocess
 import sys
 
@@ -177,7 +178,9 @@ def test_engine_without_cpu_request_raises_when_there_is_no_card():
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
-    # every module of the port, walked with pkgutil
+    # every module of the port, walked with pkgutil, and the port's tools
+    tools = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "torch_tools")
     code = ("import importlib, pkgutil, sys, paddle_tpu_torch as pt; "
             "mods = [importlib.import_module(m.name) for m in "
             "pkgutil.walk_packages(pt.__path__, 'paddle_tpu_torch.')]; "
@@ -195,9 +198,16 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "'paddle_tpu_torch.nn.layer.conv', "
             "'paddle_tpu_torch.nn.layer.pooling', "
             "'paddle_tpu_torch.incubate.autotune', "
-            "'paddle_tpu_torch.framework.layout_autotune'}; "
+            "'paddle_tpu_torch.framework.layout_autotune', "
+            "'paddle_tpu_torch.profiler.profiler', "
+            "'paddle_tpu_torch.profiler.devprof', "
+            "'paddle_tpu_torch.ops.cuda.cost'}; "
             "assert new <= names, new - names; "
             "from paddle_tpu_torch.serving import EncoderScorer; "
+            "import paddle_tpu_torch.profiler; "
+            f"sys.path.insert(0, {tools!r}); "
+            "import torch_chaos_serve, torch_bench_serve; "
+            "torch_chaos_serve.smoke_model(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad); "
