@@ -203,7 +203,25 @@
     channels-last against a copy run NCHW within ``LAYOUT_STEPS`` steps.
     ``resnet50_eval``: images/s of the eval forward at batch 128.
     ``lenet``: LeNet, 5 Adam(1e-3) steps on one seeded batch of 64 x 1 x
-    28 x 28: the loss falls. None of them launches K1-K11.
+    28 x 28: the loss falls. ``mobilenet_v3_large_train``:
+    ``mobilenet_v3_large(scale=1.0, num_classes=1000)`` on ResNet-50's
+    recipe (bf16 with fp32 batch norms, channels-last through layout
+    autotune, the same Momentum), the classifier's ``Dropout(0.2)`` live,
+    batch 128 x 224 x 224, 3 warm-up and 10 timed steps: images/s, the step
+    split, peak memory, then 2 profiled steps: device ms by kernel kind
+    (cuDNN's channels-last depthwise kernels apart);
+    it fails unless the depthwise and squeeze-excite convs run
+    channels-last with no layout-transpose kernel, a batch norm's output is
+    bf16 with fp32 statistics that moved and the dropout drops ~20 %.
+    ``mobilenet_vs_plain``: as ``resnet50_vs_plain`` on MobileNetV3-Large
+    (batch 32, 3 steps, the same dropout masks from one seed), then
+    MobileNetV1, V2 and V3-Small eval forwards at 32 x 224 x 224, bf16
+    channels-last against fp32 NCHW: images/s of each. None of them
+    launches K1-K11. ``nn_random_layers``: dropout's keep share within 5
+    binomial sigmas at p 0.1 and 0.5 on 2^24 elements, ``axis=`` and
+    ``dropout2d``/``dropout3d`` masks constant along the other axes,
+    ``downscale_in_infer``, seeded replay, ``alpha_dropout`` keeping mean 0
+    and variance 1, ``rrelu``'s slopes within ``[lower, upper]``.
 14. The Paddle-API surface (the main path of the API slice), after the
     vision phases. ``paddle_api``: GPT-2 124M's train step written against
     the API (``import paddle_tpu_torch as paddle``, ``set_device("gpu")``,
@@ -222,8 +240,8 @@
     logits bit for bit, for that GPT-2 124M (bf16 saved as fp32) and for
     ResNet-50 at batch 32 after a train-mode forward moved its batch-norm
     buffers. ``paddle_api op sweep``: every entry of
-    ``ops/op_table.py`` (every op of the registry) on CUDA against the
-    port on the CPU, fp32 and, where the op takes floats and is not an
+    ``ops/op_table.py`` (every op of the registry; ``F_OPS``, the
+    ``nn.functional`` entries, too) on CUDA against the port on the CPU, fp32 and, where the op takes floats and is not an
     fp32-only decomposition, bf16, forward and the gradient of
     ``sum(out * c)``; limits ``SWEEP_*_TOL``; an op CUDA refuses fails the
     phase. It prints ``paddle_api ops held N/N`` and the sweep's time.
@@ -2848,6 +2866,333 @@ def lenet_phase(torch, np):
             "launches": counts}
 
 
+#: the MobileNet phases: V3-Large's training batch, image size, classes
+MOBILENET_BATCH, MOBILENET_SIZE, MOBILENET_CLASSES = 128, 224, 1000
+#: the eval forwards of ``mobilenet_vs_plain``: each model at this batch
+MOBILENET_EVAL_BATCH = 32
+#: the nn_random_layers phase: elements a draw, dropout rates
+RANDOM_ELEMENTS, RANDOM_PS = 1 << 24, (0.1, 0.5)
+#: alpha_dropout on N(0, 1) input: |mean| and |variance - 1| of the output
+#: at 2^24 elements (the sampling spreads are ~3e-4 and ~5e-4)
+ALPHA_MEAN_TOL, ALPHA_VAR_TOL = 5e-3, 1e-2
+
+
+def _mobilenet(torch, factory, seed, bf16=True, classes=MOBILENET_CLASSES):
+    """A MobileNet (``factory``, width 1.0) from ``torch.manual_seed(seed)``
+    on the card, in bf16 with the batch norms kept fp32 (ResNet-50's
+    recipe), or fp32. Built under the caller's layout setting."""
+    from paddle_tpu_torch.vision import models
+
+    torch.manual_seed(seed)
+    model = getattr(models, factory)(scale=1.0, num_classes=classes,
+                                     device="cuda")
+    if bf16:
+        model.to(torch.bfloat16)
+        for m in model.modules():
+            if type(m).__name__.startswith("BatchNorm"):
+                m.float()
+    return model
+
+
+def _first_call(seen, key):
+    """A forward hook that keeps the first call's input and output under
+    ``key`` (and leaves the output as it is)."""
+    def hook(module, inputs, output):
+        seen.setdefault(key, (inputs[0], output))
+    return hook
+
+
+def mobilenet_v3_large_train_phase(torch, np):
+    """MobileNetV3-Large training on the card: ``mobilenet_v3_large(scale=1.0,
+    num_classes=1000)`` in bf16 with fp32 batch norms, layout autotune on
+    (channels-last convolutions, the depthwise ones too), cuDNN's
+    algorithm search, ResNet-50's ``Momentum(0.1, 0.9, weight decay 1e-4,
+    multi_precision)``, cross entropy on fp32 logits, the classifier's
+    ``Dropout(0.2)`` live, batch 128 x 3 x 224 x 224: 3 warm-up and 10 timed
+    steps, launch counts zeroed just before and read just after; then 2
+    more steps under ``torch.profiler`` (``torch_encoder_profile._profile``):
+    device ms by kernel kind (``torch_tools/torch_resnet_profile.py``'s
+    kinds), the idle share, the slowest kernels. Fails unless a depthwise conv's weight and
+    output and a squeeze-excite conv's output are channels-last, the
+    profile shows cuDNN's channels-last depthwise kernels and no layout
+    transpose, a batch
+    norm's output bf16 with fp32 statistics that moved, the dropout dropped
+    about a fifth of its input, the losses finite, and K1-K11 never
+    launched."""
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    _require(torch.backends.cudnn.is_available(), "cuDNN is available")
+    kinds = _torch_tool("torch_resnet_profile").KINDS
+    prof = _torch_tool("torch_encoder_profile")
+    warm, timed, profiled = 3, 10, 2
+    with _vision_setup(torch):
+        model = _mobilenet(torch, "mobilenet_v3_large", 70)
+        opt = _momentum(model)
+        batches = _image_batches(torch, 71, warm + timed + profiled,
+                                 MOBILENET_BATCH, MOBILENET_SIZE,
+                                 MOBILENET_CLASSES)
+        seen = {}
+        block = model.features[4].block          # 5 x 5 depthwise + SE
+        dw, se, drop = block[1][0], block[2].fc1, model.classifier[2]
+        hooks = [m.register_forward_hook(_first_call(seen, k))
+                 for k, m in (("dw", dw), ("se", se), ("bn", block[1][1]),
+                              ("drop", drop))]
+        mean0 = block[1][1]._mean.clone()
+        model.train()
+        events, losses = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for images, labels in batches[:warm + timed]:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            _, loss = _vision_step(model, opt, images, labels, ev)
+            events.append(ev)
+            losses.append(loss)
+            for h in hooks:
+                h.remove()
+            hooks = []
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+
+        def profiled_steps():
+            for images, labels in batches[warm + timed:]:
+                _vision_step(model, opt, images, labels)
+
+        wall_ms, ms_by_kernel = prof._profile(torch, profiled_steps)
+    losses = [float(x) for x in losses]
+    _require(all(np.isfinite(losses)), f"MobileNetV3-Large losses finite: "
+             f"{losses}")
+    cl = torch.channels_last
+    _require(dw._groups == dw._in_channels
+             and dw.weight.is_contiguous(memory_format=cl)
+             and seen["dw"][1].is_contiguous(memory_format=cl)
+             and seen["se"][1].is_contiguous(memory_format=cl),
+             "the depthwise conv's weight and output and the squeeze-excite "
+             "conv's output are channels-last")
+    bn = block[1][1]
+    _require(seen["bn"][1].dtype == torch.bfloat16
+             and bn._mean.dtype == bn._variance.dtype == torch.float32
+             and not torch.equal(bn._mean, mean0),
+             "batch norm: bf16 output, fp32 running statistics that moved")
+    d_in, d_out = seen["drop"]
+    dropped = float(((d_out == 0) & (d_in != 0)).sum()
+                    / (d_in != 0).sum())
+    _require(drop.training and abs(dropped - 0.2) < 0.02,
+             f"the classifier's Dropout(0.2) drops ~20 % ({dropped:.4f})")
+    _no_kernel_launched(counts, "mobilenet_v3_large_train")
+    profile = prof._report(f"mobilenet_v3_large train {MOBILENET_BATCH} x "
+                           f"{MOBILENET_SIZE}^2", wall_ms, ms_by_kernel,
+                           f"{profiled} steps", kinds)
+    by_kind = profile["by_kind_ms"]
+    _require("layout transposes" not in by_kind and "depthwise conv" in by_kind,
+             f"the depthwise convs run channels-last with no layout "
+             f"transpose ({sorted(by_kind)})")
+    split = _step_split(events, warm, timed, MOBILENET_BATCH, 1)
+    images_per_s = split.pop("tokens_per_s")
+    del model, opt, batches, seen
+    torch.cuda.empty_cache()
+    return {"batch": MOBILENET_BATCH, "image_size": MOBILENET_SIZE,
+            "classes": MOBILENET_CLASSES, "warmup_steps": warm,
+            "timed_steps": timed, "losses": losses,
+            "images_per_s": images_per_s, **split,
+            "wall_s_all_steps": wall, "peak_memory_gib": peak / 2 ** 30,
+            "dropout_dropped_share": dropped, "profiled_steps": profiled,
+            "profile": profile, "launches": counts}
+
+
+def mobilenet_vs_plain(torch, np):
+    """MobileNetV3-Large: the same weights (``torch.manual_seed(1)``),
+    batches (batch 32) and dropout masks (``framework.random.seed``) through
+    3 train steps twice, bf16 channels-last and fp32 NCHW (layout autotune
+    off): the first step's logits within ``VS_FP32_STEPS`` bf16 steps of the
+    largest fp32 logit and the first loss within ``VS_FP32_LOSS_TOL``, as
+    ResNet-50's; then the bf16 model's eval logits channels-last against a
+    copy run NCHW within ``LAYOUT_STEPS`` steps (the layout route alone).
+    Then MobileNetV1, V2 and V3-Small eval forwards at
+    ``MOBILENET_EVAL_BATCH`` x 224 x 224, bf16 channels-last against fp32
+    NCHW from the same weights (logits within ``VS_FP32_STEPS`` bf16 steps
+    of the largest): images/s of each."""
+    import copy
+
+    from paddle_tpu_torch.framework import random as rnd
+
+    batch, steps = 32, 3
+    batches = _image_batches(torch, 72, steps, batch, MOBILENET_SIZE,
+                             MOBILENET_CLASSES, dtype=torch.float32)
+    runs = {}
+    for name, layout, bf16 in (("bf16_channels_last", True, True),
+                               ("fp32_nchw", False, False)):
+        with _vision_setup(torch, layout=layout):
+            model = _mobilenet(torch, "mobilenet_v3_large", 1, bf16=bf16)
+            opt = _momentum(model)
+            model.train()
+            rnd.seed(73)
+            dt = torch.bfloat16 if bf16 else torch.float32
+            logits, losses = None, []
+            for images, labels in batches:
+                out, loss = _vision_step(model, opt, images.to(dt), labels)
+                logits = out.float() if logits is None else logits
+                losses.append(float(loss))
+            runs[name] = (model, logits, losses)
+    model, logits, losses = runs["bf16_channels_last"]
+    _, ref, ref_losses = runs.pop("fp32_nchw")
+    _require(all(np.isfinite(losses + ref_losses)),
+             f"losses finite: {losses} {ref_losses}")
+    scale = max(1.0, float(ref.abs().max()))
+    logit_err = float((logits - ref).abs().max())
+    _require(logit_err <= VS_FP32_STEPS * BF16_STEP * scale,
+             f"step-1 logits within {VS_FP32_STEPS} bf16 steps of the fp32 "
+             f"NCHW run ({logit_err:.3g}, largest {scale:.3g})")
+    loss_err = abs(losses[0] - ref_losses[0])
+    _require(loss_err <= VS_FP32_LOSS_TOL, f"first loss within "
+             f"{VS_FP32_LOSS_TOL} of the fp32 NCHW run ({losses[0]} vs "
+             f"{ref_losses[0]})")
+    model.eval()
+    nchw = copy.deepcopy(model).to(memory_format=torch.contiguous_format)
+    images = batches[0][0].to(torch.bfloat16)
+    with torch.no_grad():
+        with _vision_setup(torch, layout=True):
+            cl_logits = model(images).float()
+        with _vision_setup(torch, layout=False):
+            nchw_logits = nchw(images).float()
+    scale_eval = max(1.0, float(nchw_logits.abs().max()))
+    layout_err = float((cl_logits - nchw_logits).abs().max())
+    _require(layout_err <= LAYOUT_STEPS * BF16_STEP * scale_eval,
+             f"eval logits channels-last within {LAYOUT_STEPS} bf16 steps "
+             f"of NCHW ({layout_err:.3g}, largest {scale_eval:.3g})")
+    del runs, model, nchw
+    torch.cuda.empty_cache()
+    evals = {}
+    (images, _), = _image_batches(torch, 74, 1, MOBILENET_EVAL_BATCH,
+                                  MOBILENET_SIZE, MOBILENET_CLASSES,
+                                  dtype=torch.float32)
+    for factory in ("mobilenet_v1", "mobilenet_v2", "mobilenet_v3_small"):
+        out = {}
+        for name, layout, bf16 in (("bf16_channels_last", True, True),
+                                   ("fp32_nchw", False, False)):
+            with _vision_setup(torch, layout=layout):
+                m = _mobilenet(torch, factory, 2, bf16=bf16)
+                m.eval()
+                x = images.to(torch.bfloat16 if bf16 else torch.float32)
+                with torch.no_grad():
+                    for _ in range(3):
+                        y = m(x)
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    for _ in range(10):
+                        y = m(x)
+                    e.record()
+                    torch.cuda.synchronize()
+            out[name] = (y.float(), MOBILENET_EVAL_BATCH * 10
+                         / s.elapsed_time(e) * 1e3)
+            del m
+        (got, ips), (want, ref_ips) = out["bf16_channels_last"], out[
+            "fp32_nchw"]
+        largest = float(want.abs().max())
+        err = float((got - want).abs().max())
+        _require(bool(got.isfinite().all()) and largest > 0
+                 and err <= VS_FP32_STEPS * BF16_STEP * largest,
+                 f"{factory} eval logits within {VS_FP32_STEPS} bf16 steps "
+                 f"of the fp32 NCHW forward ({err:.3g}, largest "
+                 f"{largest:.3g})")
+        evals[factory] = {
+            "images_per_s_bf16_channels_last": ips,
+            "images_per_s_fp32_nchw": ref_ips,
+            "logits_max_abs_diff": err, "logits_largest": largest,
+            "logits_rel_l2": float((got - want).norm() / want.norm())}
+    torch.cuda.empty_cache()
+    return {"batch": batch, "steps": steps,
+            "losses_bf16_channels_last": losses,
+            "losses_fp32_nchw": ref_losses,
+            "step1_logits_max_abs_diff": logit_err,
+            "step1_logits_largest": scale,
+            "first_loss_abs_diff": loss_err,
+            "eval_logits_layout_max_abs_diff": layout_err,
+            "eval_logits_largest": scale_eval,
+            "eval_batch": MOBILENET_EVAL_BATCH, "eval": evals}
+
+
+def nn_random_layers_phase(torch, np):
+    """The random layers on the card (``nn.functional`` dropout,
+    ``alpha_dropout``, ``rrelu``), their draws from the port's CUDA
+    generator: the keep share of ``dropout`` within 5 binomial sigmas of
+    ``1 - p`` at each ``RANDOM_PS`` on ``RANDOM_ELEMENTS`` elements, kept
+    values scaled by ``1 / (1 - p)``; ``axis=`` and ``dropout2d`` /
+    ``dropout3d`` masks constant along the other axes; ``downscale_in_infer``
+    unscaled in training and ``x * (1 - p)`` at inference (the JAX
+    package's rule); the same bits after the same ``seed``;
+    ``alpha_dropout`` on N(0, 1) input keeping mean 0 and variance 1 within
+    ``ALPHA_MEAN_TOL`` / ``ALPHA_VAR_TOL``; ``rrelu``'s training slopes in
+    ``[lower, upper]``."""
+    import paddle_tpu_torch.nn.functional as PF
+    from paddle_tpu_torch.framework import random as rnd
+
+    class F:
+        """The functionals, their results as plain tensors."""
+
+        def __getattr__(self, name):
+            fn = getattr(PF, name)
+            return lambda *a, **k: fn(*a, **k).as_subclass(torch.Tensor)
+
+    F = F()
+    n, out = RANDOM_ELEMENTS, {}
+    ones = torch.ones(n, device="cuda")
+    for p in RANDOM_PS:
+        rnd.seed(80)
+        y = F.dropout(ones, p)
+        kept = int((y != 0).sum())
+        sigma = (n * p * (1 - p)) ** 0.5
+        _require(abs(kept - n * (1 - p)) <= 5 * sigma,
+                 f"dropout p={p}: {kept} of {n} kept, within 5 sigma")
+        _require(bool((y[y != 0] == 1 / (1 - p)).all()),
+                 f"dropout p={p}: kept values scaled by 1/(1-p)")
+        rnd.seed(80)
+        _require(torch.equal(F.dropout(ones, p), y),
+                 f"dropout p={p}: the same bits after the same seed")
+        out[f"keep_share_p{p}"] = kept / n
+        out[f"keep_sigmas_p{p}"] = (kept - n * (1 - p)) / sigma
+    x = torch.ones(64, 32, 16, 16, device="cuda")
+    for name, y, axes in (
+            ("axis=[0, 1]", F.dropout(x, 0.5, axis=[0, 1]), (2, 3)),
+            ("axis=3", F.dropout(x, 0.5, axis=3), (0, 1, 2)),
+            ("dropout2d", F.dropout2d(x, 0.5), (2, 3)),
+            ("dropout2d NHWC", F.dropout2d(x, 0.5, data_format="NHWC"),
+             (1, 2)),
+            ("dropout3d", F.dropout3d(x[..., None], 0.5), (2, 3, 4))):
+        _require(torch.equal(y.amin(axes), y.amax(axes))
+                 and 0.3 < float((y != 0).float().mean()) < 0.7,
+                 f"{name}: one mask, constant along axes {axes}")
+    v = torch.randn(n, device="cuda") + 3.0
+    y = F.dropout(v, 0.3, mode="downscale_in_infer")
+    _require(bool((y[y != 0] == v[y != 0]).all()),
+             "downscale_in_infer: kept values unscaled in training")
+    _require(torch.equal(F.dropout(v, 0.3, training=False,
+                                   mode="downscale_in_infer"), v * 0.7),
+             "downscale_in_infer: x * (1 - p) at inference")
+    g = torch.Generator(device="cuda").manual_seed(81)
+    z = torch.randn(n, device="cuda", generator=g)
+    rnd.seed(82)
+    a = F.alpha_dropout(z, 0.2).double()
+    mean, var = float(a.mean()), float(a.var())
+    _require(abs(mean) <= ALPHA_MEAN_TOL and abs(var - 1) <= ALPHA_VAR_TOL,
+             f"alpha_dropout keeps mean 0 ({mean:.3g}) and variance 1 "
+             f"({var:.4g})")
+    neg = -torch.rand(n, device="cuda", generator=g) - 0.1
+    r = F.rrelu(neg, 0.1, 0.3, training=True) / neg
+    lo, hi = float(r.min()), float(r.max())
+    _require(0.1 - 1e-6 <= lo and hi <= 0.3 + 1e-6 and hi - lo > 0.19,
+             f"rrelu's slopes in [0.1, 0.3] ({lo:.4f}, {hi:.4f})")
+    out.update({"elements": n, "alpha_dropout_mean": mean,
+                "alpha_dropout_var": var, "rrelu_slopes": [lo, hi]})
+    del ones, x, v, y, z, a, neg, r
+    torch.cuda.empty_cache()
+    return out
+
+
 #: the paddle_api phase: warm-up and timed steps of each run
 API_STEPS = (3, 5)
 #: the card's op sweep: inputs grow ``k`` times per axis from the table's
@@ -3086,8 +3431,8 @@ def _sweep_close(got, want, tol):
 
 def paddle_api_op_sweep(torch, np):
     """Every op of the port's registry on CUDA against the port on the CPU
-    (``paddle_tpu_torch/ops/op_table.py``'s differentiable and
-    non-differentiable tables, scaled up): fp32, and bf16 where the op takes
+    (``paddle_tpu_torch/ops/op_table.py``'s differentiable,
+    ``nn.functional`` and non-differentiable tables, scaled up): fp32, and bf16 where the op takes
     floats and is not one of the JAX table's fp32-only decompositions;
     forward and the gradient of ``sum(out * c)``. A case that raises on
     CUDA (a refused dtype) fails the phase as one that disagrees does."""
@@ -3099,7 +3444,7 @@ def paddle_api_op_sweep(torch, np):
     t0 = time.perf_counter()
     on_card, held, failed, times = set(), 0, [], []
     cases = 0
-    for entry in T.OPS + T.NONDIFF:
+    for entry in T.OPS + T.F_OPS + T.NONDIFF:
         has_float = any(d not in ("bool", "sign") and not d.startswith("int:")
                         for _, d in entry["inputs"]) or not entry["inputs"]
         dtypes = [None] + (["bfloat16"] if has_float and entry["inputs"]
@@ -3108,10 +3453,16 @@ def paddle_api_op_sweep(torch, np):
             cases += 1
             unique = any(d == "funique" for _, d in entry["inputs"])
             # bf16 has 4096 distinct values to spare: order ops (whose
-            # indices and gradients follow ties) run at 16 x there
+            # indices and gradients follow ties) run at 16 x there, less
+            # where an input would outgrow them (the 4-d pooling entries)
             k = (SWEEP_K if dt is None else 16 if unique
                  else SWEEP_K_BF16)
             e = T.scaled(entry, k)
+            while dt and unique and max(
+                    math.prod(s) for s, d in e["inputs"]
+                    if d == "funique") > 4096:
+                k //= 2
+                e = T.scaled(entry, k)
             rng = np.random.RandomState(zlib.crc32(entry["api"].encode())
                                         % 2 ** 31)
             arrays = [T.draw(s, "funique_bf16" if dt and d == "funique"
@@ -3163,6 +3514,8 @@ def paddle_api_op_sweep(torch, np):
     missed = sorted(registry - on_card)
     seconds = time.perf_counter() - t0
     result = {"cases": cases, "held": held, "failed": failed,
+              "functional_entries": len(T.F_OPS),
+              "functional_entries_of_the_jax_table": T.N_JAX_F,
               "registry_ops": len(registry),
               "registry_ops_on_card": len(registry & on_card),
               "registry_ops_not_run": missed, "seconds": seconds,
@@ -3171,7 +3524,9 @@ def paddle_api_op_sweep(torch, np):
               "slowest_s": [[round(t, 3), w] for t, w in sorted(
                   times, reverse=True)[:8]]}
     print(f"paddle_api ops held {held}/{cases} ({len(registry & on_card)}"
-          f"/{len(registry)} registry ops on the card) in {seconds:.1f} s")
+          f"/{len(registry)} registry ops on the card; {len(T.F_OPS)} "
+          f"nn.functional entries, {T.N_JAX_F} of them the JAX table's) in "
+          f"{seconds:.1f} s")
     for f in failed:
         print(f"paddle_api op failed: {f}")
     _require(not failed, f"{len(failed)} op sweep cases failed")
@@ -4452,6 +4807,27 @@ def main():
           f"{RESNET_BATCH}) on {card}")
     lenet = lenet_phase(torch, np)
     print(f"lenet: {json.dumps(lenet)}")
+    mobile = mobilenet_v3_large_train_phase(torch, np)
+    print(f"mobilenet_v3_large_train: {json.dumps(mobile)}")
+    print(f"mobilenet_v3_large_train: {mobile['images_per_s']:.1f} images/s, "
+          f"step {mobile['step_ms']:.1f} ms (forward "
+          f"{mobile['forward_ms']:.1f}, backward {mobile['backward_ms']:.1f}, "
+          f"optimizer {mobile['optimizer_ms']:.1f}), peak "
+          f"{mobile['peak_memory_gib']:.2f} GiB, device idle "
+          f"{100 * mobile['profile']['device_idle_share']:.1f} % on {card}")
+    print("mobilenet_v3_large_train device ms a step by kind: " + json.dumps(
+        {k: round(ms / mobile["profiled_steps"], 3) for k, ms in
+         mobile["profile"]["by_kind_ms"].items()}) + f" on {card}")
+    mobile_plain = mobilenet_vs_plain(torch, np)
+    print(f"mobilenet_vs_plain: {json.dumps(mobile_plain)}")
+    for name, r in mobile_plain["eval"].items():
+        print(f"mobilenet_vs_plain {name} eval x {MOBILENET_EVAL_BATCH}: "
+              f"{r['images_per_s_bf16_channels_last']:.1f} images/s bf16 "
+              f"channels-last, {r['images_per_s_fp32_nchw']:.1f} fp32 NCHW, "
+              f"logits {r['logits_max_abs_diff']:.3g} apart (largest "
+              f"{r['logits_largest']:.3g}) on {card}")
+    rand_layers = nn_random_layers_phase(torch, np)
+    print(f"nn_random_layers: {json.dumps(rand_layers)} on {card}")
     api_model, api_batches, api = paddle_api_train_phase(torch, np)
     print(f"paddle_api: {json.dumps(api)}")
     print(f"paddle_api: GPT-2 124M step {api['step_ms']['api']:.1f} ms "
@@ -4553,6 +4929,7 @@ def main():
                 "resnet50_train": vision["launches"][name],
                 "resnet50_eval": vision_eval["launches"][name],
                 "lenet": lenet["launches"][name],
+                "mobilenet_v3_large_train": mobile["launches"][name],
                 "paddle_api": api["launches"][name],
                 "hapi_gpt2": hapi["launches"][name],
                 "hapi_resume": resume["launches"][name],
@@ -4561,7 +4938,8 @@ def main():
                 "profiler_serving": prof_serve["launches"][name],
                 "devprof_hapi": dev["launches"][name]}
 
-    vision_paths = ("resnet50_train", "resnet50_eval", "lenet", "hapi_lenet")
+    vision_paths = ("resnet50_train", "resnet50_eval", "lenet", "hapi_lenet",
+                    "mobilenet_v3_large_train")
 
     def only(name, *keys):
         # the vision paths launch none of K1-K11: every entry says so

@@ -3,7 +3,10 @@
 ``load_jax_state(model, state)`` fills a port model from the JAX model's
 ``state_dict()`` given as ``{name: numpy array}`` (the names match: the port
 mirrors the JAX module tree): its parameters and its persistable buffers
-(the batch norms' ``_mean`` and ``_variance``). It is ``Layer.set_state_dict``
+(the batch norms' ``_mean`` and ``_variance``), for any port model or
+layer whose tree mirrors the JAX one (GPT, the encoders, ResNet, the
+MobileNets, ``PReLU``'s slopes, ``Bilinear``, ``Embedding``). It is
+``Layer.set_state_dict``
 (:func:`~paddle_tpu_torch.nn.layer.layers.copy_state`) held strict: a
 missing or unexpected name raises. Both packages keep Paddle's layouts
 (``Linear.weight`` ``[in, out]``, convolution weights ``[out, in/groups,

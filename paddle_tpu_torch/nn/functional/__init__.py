@@ -1,5 +1,7 @@
 """Functionals of the port (``paddle_tpu/nn/functional``: the serving,
-training, encoder and vision subset).
+training, encoder and vision subset, the activations, dropouts, common
+functionals and losses; what still waits is listed in
+``tests/test_torch_api_coverage.py::F_WAITING``).
 
 The functions here take Paddle Tensors as well as plain torch tensors
 (``framework.tensor.api``): given a Tensor, they hand torch plain views and
@@ -18,12 +20,12 @@ from .attention import LengthMask  # noqa: F401
 from ...ops import fused as _fused
 
 _NAMES = {
-    _activation: ("gelu", "relu", "softmax"),
+    _activation: tuple(_activation.__all__),
     _attention: ("flash_attention", "scaled_dot_product_attention"),
-    _common: ("embedding", "linear", "matmul"),
+    _common: tuple(_common.__all__),
     _conv: ("conv1d", "conv2d", "conv3d"),
-    _loss: ("cross_entropy", "l1_loss", "mse_loss"),
-    _norm: ("batch_norm", "layer_norm"),
+    _loss: tuple(_loss.__all__),
+    _norm: ("batch_norm", "layer_norm", "normalize"),
     _pooling: ("adaptive_avg_pool1d", "adaptive_avg_pool2d",
                "adaptive_avg_pool3d", "adaptive_max_pool2d", "avg_pool1d",
                "avg_pool2d", "avg_pool3d", "max_pool1d", "max_pool2d",
@@ -32,7 +34,9 @@ _NAMES = {
 }
 for _mod, _names in _NAMES.items():
     for _name in _names:
-        globals()[_name] = _api(getattr(_mod, _name))
+        # the in-place forms take and give back the caller's Tensor itself
+        _fn = getattr(_mod, _name)
+        globals()[_name] = _fn if _name.endswith("_") else _api(_fn)
 
 __all__ = ["LengthMask"] + [n for names in _NAMES.values() for n in names]
-del _mod, _names, _name
+del _mod, _names, _name, _fn

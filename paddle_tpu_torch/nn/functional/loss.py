@@ -1,6 +1,8 @@
 """Loss functionals — port of ``paddle_tpu/nn/functional/loss.py``
-(``cross_entropy`` and the routes it takes, ``mse_loss`` and ``l1_loss``),
-in plain PyTorch.
+(``cross_entropy`` and the routes it takes, ``mse_loss``, ``l1_loss``, the
+binary, negative log-likelihood, divergence, regression, margin, embedding
+and focal losses; ``ctc_loss``, ``hsigmoid_loss`` and
+``margin_cross_entropy`` wait for ``ROADMAP.md`` A7), in plain PyTorch.
 
 ``cross_entropy`` has the JAX package's three routes, each behind the
 ``amp`` hook of its JAX op names (all on the black list, so they run in
@@ -18,14 +20,36 @@ fp32 under ``auto_cast``):
 A hard label with as many dims as the input is squeezed along ``axis``
 first (paddle's ``[N, 1]`` labels). The result of ``reduction="none"`` has
 the squeezed label's shape.
+
+The other losses are ops of the port's registry under the JAX op names
+(``bce_op``, ``bce_logits_op``, ``nll_loss_op``, ``kl_div_op``,
+``smooth_l1_op``, ``sigmoid_focal_op``, ...), with the JAX package's
+formulas where PyTorch's function of the same name differs:
+``smooth_l1_loss(delta)`` is the Huber loss (``0.5 d^2`` below ``delta``,
+else ``delta (|d| - delta / 2)``; torch's divides by its ``beta``),
+``kl_div``'s ``"batchmean"`` divides by the batch and ``"mean"`` averages
+every element, ``sigmoid_focal_loss`` sums by default and divides by
+``normalizer``. ``binary_cross_entropy`` with a ``weight`` multiplies the
+loss by it (the JAX package raises a ``TypeError`` there, ``ROADMAP.md``
+C).
 """
 from __future__ import annotations
 
 import torch
 
 from ...amp.auto_cast import cast_inputs as _amp_cast
+from ...ops import math as _math
+from ...ops.dispatch import apply_op, op, scalar_like
+from . import common as _common
 
-__all__ = ["cross_entropy", "mse_loss", "l1_loss"]
+__all__ = ["cross_entropy", "mse_loss", "l1_loss", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "nll_loss", "kl_div",
+           "smooth_l1_loss", "huber_loss", "margin_ranking_loss",
+           "hinge_embedding_loss", "cosine_embedding_loss",
+           "triplet_margin_loss", "triplet_margin_with_distance_loss",
+           "square_error_cost", "sigmoid_focal_loss", "log_loss",
+           "multi_label_soft_margin_loss", "softmax_with_cross_entropy",
+           "npair_loss", "dice_loss"]
 
 
 def _reduce(out, reduction):
@@ -137,3 +161,316 @@ def l1_loss(input, label, reduction="mean", name=None):
     (``amp`` hook ``l1_loss_op``)."""
     input, label = _amp_cast("l1_loss_op", input, label)
     return _reduce(torch.abs(input - label), reduction)
+
+
+_softmax_ce_op = op("softmax_ce")(_softmax_ce)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """The per-sample loss with ``axis`` kept (size 1); with
+    ``return_softmax`` also the softmax."""
+    axis = int(axis)
+    loss = _softmax_ce_op(logits, label, soft_label, axis, ignore_index,
+                          "none", 0.0).unsqueeze(axis)
+    if return_softmax:
+        from .activation import softmax
+
+        return loss, softmax(logits, axis)
+    return loss
+
+
+_nll_op = op("nll_loss_op")(_nll)
+
+
+@op("nll_loss_weighted")
+def _nll_weighted_raw(logp, label, weight, ignore_index=-100,
+                      reduction="mean"):
+    safe = _safe(label, ignore_index)
+    picked = -_pick(logp, safe, 1)
+    w = weight[safe.long()] * (label != ignore_index).to(logp.dtype)
+    loss = picked * w
+    if reduction == "mean":
+        return loss.sum() / torch.clamp_min(w.sum(), 1e-12)
+    return _reduce(loss, reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
+             name=None):
+    """Negative log-likelihood of log-probabilities ``input`` (classes on
+    axis 1); ``"mean"`` divides by the kept labels' count, or by their
+    summed ``weight``."""
+    if weight is not None:
+        return _nll_weighted_raw(input, label, weight,
+                                 ignore_index=ignore_index,
+                                 reduction=reduction)
+    return _nll_op(input, label, ignore_index=ignore_index,
+                   reduction=reduction)
+
+
+@op("bce_op")
+def _bce_raw(input, label, weight=None, reduction="mean", eps=1e-12):
+    loss = -(label * torch.log(torch.clamp_min(input, eps))
+             + (1 - label) * torch.log(torch.clamp_min(1 - input, eps)))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean",
+                         name=None):
+    if weight is not None:
+        return _bce_raw(input, label, weight, reduction=reduction)
+    return _bce_raw(input, label, reduction=reduction)
+
+
+def _bce_logits(logit, label, pos_weight=None):
+    max_val = torch.clamp_min(-logit, 0)
+    soft = torch.log1p(torch.exp(-torch.abs(logit))) + max_val
+    if pos_weight is not None:
+        soft = ((pos_weight - 1.0) * label + 1.0) * soft
+    return (1 - label) * logit + soft
+
+
+@op("bce_logits_op")
+def _bce_logits_raw(logit, label, reduction="mean"):
+    return _reduce(_bce_logits(logit, label), reduction)
+
+
+@op("bce_logits_w")
+def _bce_logits_w(logit, label, weight, reduction="mean"):
+    return _reduce(_bce_logits(logit, label) * weight, reduction)
+
+
+@op("bce_logits_p")
+def _bce_logits_p(logit, label, pos_weight, reduction="mean"):
+    return _reduce(_bce_logits(logit, label, pos_weight), reduction)
+
+
+@op("bce_logits_full")
+def _bce_logits_full(logit, label, weight, pos_weight, reduction="mean"):
+    return _reduce(_bce_logits(logit, label, pos_weight) * weight, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    """``pos_weight`` scales the positive term, ``weight`` the whole loss
+    (the JAX package's four ops, one for each combination)."""
+    if weight is not None and pos_weight is not None:
+        return _bce_logits_full(logit, label, weight, pos_weight,
+                                reduction=reduction)
+    if weight is not None:
+        return _bce_logits_w(logit, label, weight, reduction=reduction)
+    if pos_weight is not None:
+        return _bce_logits_p(logit, label, pos_weight, reduction=reduction)
+    return _bce_logits_raw(logit, label, reduction=reduction)
+
+
+@op("kl_div_op")
+def _kl_raw(input, label, reduction="mean"):
+    loss = label * (torch.log(torch.clamp_min(label, 1e-12)) - input)
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean", name=None):
+    """``label * (log(label) - input)``, ``input`` log-probabilities."""
+    return _kl_raw(input, label, reduction=reduction)
+
+
+@op("smooth_l1_op")
+def _smooth_l1_raw(input, label, reduction="mean", delta=1.0):
+    d = input - label
+    ad = torch.abs(d)
+    loss = torch.where(ad < delta, 0.5 * d * d, delta * (ad - 0.5 * delta))
+    return _reduce(loss, reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0, name=None):
+    """The Huber loss of ``input - label`` (module docstring)."""
+    return _smooth_l1_raw(input, label, reduction=reduction, delta=delta)
+
+
+def huber_loss(input, label, delta=1.0, reduction="mean"):
+    return _smooth_l1_raw(input, label, reduction=reduction, delta=delta)
+
+
+@op("margin_ranking_op")
+def _margin_ranking_raw(input, other, label, margin=0.0, reduction="mean"):
+    return _reduce(torch.clamp_min(
+        -label * (input - other) + scalar_like(margin, input), 0), reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean",
+                        name=None):
+    return _margin_ranking_raw(input, other, label, margin=margin,
+                               reduction=reduction)
+
+
+@op("hinge_embedding_op")
+def _hinge_embedding_raw(input, label, margin=1.0, reduction="mean"):
+    loss = torch.where(label == 1.0, input,
+                       torch.clamp_min(margin - input, 0))
+    return _reduce(loss, reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",
+                         name=None):
+    return _hinge_embedding_raw(input, label, margin=margin,
+                                reduction=reduction)
+
+
+@op("cosine_embedding_op")
+def _cosine_embedding_raw(input1, input2, label, margin=0.0,
+                          reduction="mean"):
+    norms = (torch.linalg.vector_norm(input1, dim=-1)
+             * torch.linalg.vector_norm(input2, dim=-1))
+    cos = torch.sum(input1 * input2, -1) / (norms + 1e-12)
+    loss = torch.where(label == 1, 1 - cos,
+                       torch.clamp_min(cos - scalar_like(margin, cos), 0))
+    return _reduce(loss, reduction)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean", name=None):
+    return _cosine_embedding_raw(input1, input2, label, margin=margin,
+                                 reduction=reduction)
+
+
+@op("triplet_margin_op")
+def _triplet_raw(anchor, positive, negative, margin=1.0, p=2.0, eps=1e-6,
+                 swap=False, reduction="mean"):
+    def dist(a, b):
+        return torch.sum(torch.abs(a - b + eps) ** p, dim=-1) ** (1.0 / p)
+
+    d_pos = dist(anchor, positive)
+    d_neg = dist(anchor, negative)
+    if swap:
+        d_neg = torch.minimum(d_neg, dist(positive, negative))
+    return _reduce(torch.clamp_min(d_pos - d_neg + margin, 0), reduction)
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction="mean",
+                        name=None):
+    return _triplet_raw(input, positive, negative, margin=margin, p=p,
+                        eps=epsilon, swap=swap, reduction=reduction)
+
+
+def triplet_margin_with_distance_loss(input, positive, negative,
+                                      distance_function=None, margin=1.0,
+                                      swap=False, reduction="mean",
+                                      name=None):
+    """The triplet loss under ``distance_function`` (default: the L2
+    distance, ``sqrt(sum((u - v)^2) + 1e-12)``)."""
+    if distance_function is not None:
+        dp = distance_function(input, positive)
+        dn = distance_function(input, negative)
+        if swap:
+            dn = _math.minimum(dn, distance_function(positive, negative))
+        loss = _math.clip(dp - dn + margin, min=0.0)
+        if reduction == "none":
+            return loss
+        return _math.sum(loss) if reduction == "sum" else _math.mean(loss)
+
+    def fwd(a, p, n):
+        def dist(u, v):
+            return torch.sqrt(torch.sum((u - v) ** 2, dim=-1) + 1e-12)
+
+        dp, dn = dist(a, p), dist(a, n)
+        if swap:
+            dn = torch.minimum(dn, dist(p, n))
+        return _reduce(torch.clamp_min(dp - dn + margin, 0.0), reduction)
+
+    return apply_op("triplet_margin_with_distance_loss", fwd,
+                    (input, positive, negative), {})
+
+
+@op("square_error_cost_op")
+def square_error_cost(input, label):
+    return torch.square(input - label)
+
+
+def _focal(logit, label, gamma, alpha):
+    p = torch.sigmoid(logit)
+    ce = (torch.clamp_min(logit, 0) - logit * label
+          + torch.log1p(torch.exp(-torch.abs(logit))))
+    p_t = p * label + (1 - p) * (1 - label)
+    a_t = alpha * label + (1 - alpha) * (1 - label)
+    return a_t * ((1 - p_t) ** gamma) * ce
+
+
+@op("sigmoid_focal_op")
+def _sigmoid_focal_raw(logit, label, gamma=2.0, alpha=0.25, reduction="sum"):
+    return _reduce(_focal(logit, label, gamma, alpha), reduction)
+
+
+@op("sigmoid_focal_n")
+def _sigmoid_focal_n(logit, label, normalizer, gamma=2.0, alpha=0.25,
+                     reduction="sum"):
+    return _reduce(_focal(logit, label, gamma, alpha) / normalizer,
+                   reduction)
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum", name=None):
+    """The focal loss, summed by default, each term over ``normalizer``."""
+    if normalizer is not None:
+        return _sigmoid_focal_n(logit, label, normalizer, gamma=gamma,
+                                alpha=alpha, reduction=reduction)
+    return _sigmoid_focal_raw(logit, label, gamma=gamma, alpha=alpha,
+                              reduction=reduction)
+
+
+@op("log_loss_op")
+def _log_loss_raw(input, label, epsilon=1e-4):
+    return (-label * torch.log(input + epsilon)
+            - (1 - label) * torch.log(1 - input + epsilon))
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return _log_loss_raw(input, label, epsilon=epsilon)
+
+
+def multi_label_soft_margin_loss(input, label, weight=None,
+                                 reduction="mean", name=None):
+    """Per-class soft-margin binary cross entropy, averaged over the
+    classes."""
+    def fwd(x, y, w=None):
+        ls = torch.nn.functional.logsigmoid
+        per = -(y * ls(x) + (1.0 - y) * ls(-x))
+        if w is not None:
+            per = per * w
+        return _reduce(per.mean(-1), reduction)
+
+    args = (input, label) if weight is None else (input, label, weight)
+    return apply_op("multi_label_soft_margin_loss", fwd, args, {})
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    """Soft-label cross entropy of the anchor-positive similarities (the
+    targets: equal labels, each row normalised) plus ``l2_reg / 4`` times
+    the mean squared norms of both embeddings."""
+    sim = _common.matmul(anchor, positive, transpose_y=True)
+    lab = labels.reshape(-1, 1)
+    tgt = (lab == lab.t()).to(sim.dtype)
+    tgt = tgt / tgt.sum(1, keepdim=True)
+    ce = cross_entropy(sim, tgt, soft_label=True)
+    a, p = _amp_cast("square", anchor, positive)
+    l2 = (torch.square(a).sum(1).mean() + torch.square(p).sum(1).mean())
+    return ce + l2 * (l2_reg * 0.25)
+
+
+def dice_loss(input, label, epsilon=1e-5, name=None):
+    """``1 - 2 |X n Y| / (|X| + |Y| + epsilon)`` over each sample, averaged;
+    ``label`` holds class ids ``[..., 1]``."""
+    lab = _common.one_hot(label.squeeze(-1), input.shape[-1])
+    axes = tuple(range(1, input.ndim))
+    inter = torch.sum(input * lab, dim=axes)
+    (x,) = _amp_cast("sum", input)
+    union = torch.sum(x, dim=axes) + torch.sum(lab, dim=axes)
+    dice = inter * 2.0 / (union + epsilon)
+    return torch.mean(1.0 - dice)

@@ -1,5 +1,5 @@
 """Normalization functionals — port of ``paddle_tpu/nn/functional/norm.py``
-(``layer_norm`` and ``batch_norm``).
+(``layer_norm``, ``batch_norm`` and ``normalize``).
 
 Routing as in the JAX package: a last-axis affine LayerNorm whose feature
 count is a multiple of 128 goes to the kernel wrapper (K7 forward and K8
@@ -28,9 +28,10 @@ import torch
 
 from ...amp.auto_cast import cast_inputs as _amp_cast
 from ...ops.cuda import layer_norm as _ln
+from ...ops.dispatch import op
 from .conv import CHANNELS_LAST
 
-__all__ = ["layer_norm", "batch_norm"]
+__all__ = ["layer_norm", "batch_norm", "normalize"]
 
 
 def _layer_norm_raw(x, normalized_shape, weight=None, bias=None,
@@ -141,3 +142,14 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
                 if new is not buf:
                     buf.copy_(new)
     return out.movedim(1, axis) if axis != 1 else out
+
+
+@op("normalize_op")
+def _normalize_raw(x, p=2.0, axis=1, epsilon=1e-12):
+    norm = torch.sum(torch.abs(x) ** p, dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp_min(norm, epsilon)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """``x`` over its ``p``-norm along ``axis`` (at least ``epsilon``)."""
+    return _normalize_raw(x, p=float(p), axis=axis, epsilon=epsilon)

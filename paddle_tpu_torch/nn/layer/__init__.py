@@ -1,14 +1,27 @@
 """Layers of the port, on :class:`~.layers.Layer` (a ``torch.nn.Module``
 with Paddle's surface). ``Linear`` (``common.py``) and the conv layers
 (``conv.py``) keep the JAX package's initializers and run through the
-port's functionals; ``Sequential``, ``LayerList``, ``ParameterList`` and
+port's functionals (the activation, dropout, common and loss layers
+too); ``Sequential``, ``LayerList``, ``ParameterList`` and
 ``LayerDict`` are Paddle's containers (``container.py``)."""
-from .activation import ReLU  # noqa: F401
-from .common import Linear  # noqa: F401
+from .activation import *  # noqa: F401,F403
+from .common import (  # noqa: F401
+    AlphaDropout,
+    Bilinear,
+    CosineSimilarity,
+    Dropout,
+    Dropout2D,
+    Dropout3D,
+    Embedding,
+    Flatten,
+    Identity,
+    Linear,
+    PairwiseDistance,
+)
 from .container import LayerDict, LayerList, ParameterList, Sequential  # noqa: F401
 from .conv import Conv1D, Conv2D, Conv3D  # noqa: F401
 from .layers import Layer, ParamAttr  # noqa: F401
-from .loss import CrossEntropyLoss, L1Loss, MSELoss  # noqa: F401
+from .loss import *  # noqa: F401,F403
 from .norm import (  # noqa: F401
     BatchNorm,
     BatchNorm1D,

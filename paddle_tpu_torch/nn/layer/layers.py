@@ -14,7 +14,9 @@ one object.
 
 A call with Paddle Tensors among its arguments hands ``forward`` plain
 views and gives back Tensors; a call with plain tensors (every Layer inside
-a model) runs ``forward`` as it is, so the layers inside pay nothing.
+a model) runs ``forward`` as it is, so the layers inside pay nothing, and
+gives back a plain tensor (a Tensor that a registry op made is re-viewed
+plain).
 
 A Layer built outside any other Layer's constructor lands on its
 ``device`` keyword, or without one on the current place (``set_device``):
@@ -35,8 +37,8 @@ from torch import nn
 
 from ...framework import dtype as dtypes
 from ...framework.place import resolve_device
-from ...framework.tensor import (Parameter, as_parameter, has_tensor,
-                                 unwrap_args, wrap)
+from ...framework.tensor import (Parameter, Tensor, as_parameter,
+                                 has_tensor, unwrap, unwrap_args, wrap)
 from ..initializer import apply_initializer
 
 __all__ = ["Layer", "ParamAttr", "make_parameter", "copy_state",
@@ -145,7 +147,9 @@ class Layer(nn.Module, metaclass=_LayerMeta):
 
     def __call__(self, *args, **kwargs):
         if not has_tensor(args, kwargs):
-            return nn.Module.__call__(self, *args, **kwargs)
+            out = nn.Module.__call__(self, *args, **kwargs)
+            # plain in, plain out, though forward ran a registry op
+            return unwrap(out) if type(out) is Tensor else out
         args, kwargs = unwrap_args(args, kwargs)
         return wrap(nn.Module.__call__(self, *args, **kwargs))
 

@@ -4,6 +4,11 @@ domains, attributes), in the same order, and the cases that complete it:
 
 * :data:`OPS` — the differentiable ops: the JAX table's ``ops.*`` entries,
   then the port's own (ops of the registry the JAX table does not reach);
+* :data:`F_OPS` — the ``nn.functional`` entries: the JAX table's ``F.*``
+  entries whose functional the port has, in its order, then the port's own
+  (the registry ops they miss, and the options where PyTorch's function of
+  the same name means something else); a list apart, so that the ``ops.*``
+  sweep keeps its two halves;
 * :data:`NONDIFF` — ops with integer or boolean outputs, or none to
   differentiate: creation, search, logic and index ops;
 * :data:`LOWP` — the JAX table's ops with no low-precision run (its fp32-only
@@ -26,10 +31,11 @@ import numpy as np
 
 from . import dispatch
 
-__all__ = ["OPS", "NONDIFF", "LOWP", "draw", "scaled", "resolve",
+__all__ = ["OPS", "F_OPS", "NONDIFF", "LOWP", "draw", "scaled", "resolve",
            "differentiable_inputs", "LINALG", "registry_ops_called"]
 
 OPS = []
+F_OPS = []
 NONDIFF = []
 
 
@@ -220,6 +226,138 @@ _op("ops.histogram", ((V, "f"),), kwargs=dict(bins=4, min=-1, max=1),
 _op("ops.gcd", ((S, "int:12"), (S, "int:12")), only=())
 _op("ops.lcm", ((S, "int:12"), (S, "int:12")), only=())
 
+# ------------------------------------ the JAX table's ``F.*`` entries --
+def _f(api, inputs, kwargs=None, only=None):
+    _op(api, inputs, kwargs, only, table=F_OPS)
+
+
+for name in ["relu", "relu6", "elu", "selu", "celu", "gelu", "silu",
+             "sigmoid", "softplus", "softsign", "mish", "tanhshrink",
+             "log_sigmoid", "hardswish", "hardsigmoid", "leaky_relu",
+             "hardtanh"]:
+    _f(f"F.{name}", ((S, "fnz"),))
+_f("F.softmax", ((S, "f"),))
+_f("F.log_softmax", ((S, "f"),))
+_f("F.softshrink", ((S, "fnz"),), kwargs=dict(threshold=0.1))
+_f("F.hardshrink", ((S, "fnz"),), kwargs=dict(threshold=0.1))
+_f("F.thresholded_relu", ((S, "fnz"),), kwargs=dict(threshold=0.3))
+_f("F.prelu", ((S, "fnz"), ((1,), "unit")))
+_f("F.glu", (((3, 4), "f"),))
+_f("F.maxout", (((1, 4, 2, 2), "funique"),), kwargs=dict(groups=2))
+_f("F.normalize", ((S, "fp"),))
+_f("F.mse_loss", ((S, "f"), (S, "f")))
+_f("F.l1_loss", ((S, "f"), (S, "gt1")))
+_f("F.smooth_l1_loss", ((S, "f"), (S, "f2")), kwargs=dict(delta=0.5))
+_f("F.huber_loss", ((S, "f"), (S, "f2")), kwargs=dict(delta=0.5))
+_f("F.kl_div", ((S, "logunit"), (S, "unit")), only=(0,))
+_f("F.binary_cross_entropy", ((S, "unit"), (S, "unit")), only=(0,))
+_f("F.binary_cross_entropy_with_logits", ((S, "f"), (S, "unit")), only=(0,))
+_f("F.cross_entropy_labels", (((4, 5), "f"), ((4, 1), "int:5")), only=(0,))
+_f("F.nll_loss", (((4, 5), "logunit"), ((4,), "int:5")), only=(0,))
+_f("F.square_error_cost", ((S, "f"), (S, "f2")))
+_f("F.log_loss", ((S, "unit"), (S, "unit")), only=(0,))
+_f("F.margin_ranking_loss", ((V, "f"), (V, "f2"), (V, "sign")), only=(0, 1))
+_f("F.cosine_embedding_loss", (((2, 4), "f"), ((2, 4), "f2"),
+                               ((2,), "sign")), only=(0, 1))
+_f("F.triplet_margin_loss", ((S, "f"), (S, "f2"), (S, "f3")))
+_f("F.hinge_embedding_loss", ((S, "fnz"), (S, "sign")), only=(0,))
+_f("F.sigmoid_focal_loss", ((S, "f"), (S, "unit")), only=(0,))
+_f("F.softmax_with_cross_entropy", (((4, 5), "f"), ((4, 1), "int:5")),
+   only=(0,))
+_f("F.fused_linear_cross_entropy", (((6, 4), "f"), ((5, 4), "f"),
+                                    ((6,), "int:5")), only=(0, 1))
+_f("F.linear", (((3, 4), "f"), ((4, 5), "f"), ((5,), "f")))
+_f("F.conv2d", (((1, 2, 5, 5), "f"), ((3, 2, 3, 3), "f")))
+_f("F.conv1d", (((1, 2, 8), "f"), ((3, 2, 3), "f")))
+_f("F.avg_pool2d", (((1, 2, 4, 4), "f"),), kwargs=dict(kernel_size=2))
+_f("F.max_pool2d", (((1, 2, 4, 4), "funique"),), kwargs=dict(kernel_size=2))
+_f("F.adaptive_avg_pool2d", (((1, 2, 4, 4), "f"),),
+   kwargs=dict(output_size=2))
+_f("F.layer_norm_w", (((3, 4), "f"), ((4,), "fp"), ((4,), "f")))
+_f("F.embedding", (((3,), "int:5"), ((5, 4), "f")), only=(1,))
+_f("F.dropout_eval", ((S, "f"),))
+_f("F.scaled_dot_product_attention",
+   (((1, 4, 2, 4), "f"), ((1, 4, 2, 4), "f2"), ((1, 4, 2, 4), "f3")),
+   kwargs=dict(training=False))
+_f("F.batch_norm", (((2, 3, 4, 4), "f"), ((3,), "f2"), ((3,), "fp"),
+                    ((3,), "fp"), ((3,), "f3")),
+   kwargs=dict(training=False), only=(0, 3, 4))
+_f("F.cosine_similarity", (((3, 4), "fnz"), ((3, 4), "f2")))
+
+#: the number of the JAX table's ``F.*`` entries above
+N_JAX_F = len(F_OPS)
+
+# -------------------------------------------- the port's own ``F.*`` entries --
+# the registry ops the JAX table's entries miss
+_f("F.tanh", ((S, "f"),))
+_f("F.swish", ((S, "fnz"),))
+_f("F.label_smooth", ((S, "unit"),), kwargs=dict(epsilon=0.2))
+_f("F.label_smooth", ((S, "unit"), ((1, 4), "unit")),
+   kwargs=dict(epsilon=0.2))
+_f("F.bilinear", (((3, 4), "f"), ((3, 5), "f2"), ((2, 4, 5), "f3"),
+                  ((2,), "f")))
+_f("F.diag_embed", (((2, 3), "f"),), kwargs=dict(offset=1, dim1=0, dim2=2))
+_f("F.nll_loss", (((4, 5), "logunit"), ((4,), "int:5"), ((5,), "unit")),
+   kwargs=dict(ignore_index=1), only=(0,))
+_f("F.binary_cross_entropy_with_logits", ((S, "f"), (S, "unit"),
+                                          (S, "unit")), only=(0,))
+_f("F.bce_logits_pos", ((S, "f"), (S, "unit"), ((4,), "fp")), only=(0,))
+_f("F.bce_logits_weight_pos", ((S, "f"), (S, "unit"), (S, "unit"),
+                               ((4,), "fp")), only=(0,))
+_f("F.sigmoid_focal_loss", ((S, "f"), (S, "unit"), ((1,), "fp")),
+   kwargs=dict(alpha=0.4, gamma=1.5), only=(0,))
+_f("F.gumbel_softmax_noise", ((S, "f"), (S, "f2")), only=(0,))
+_f("F.rrelu_slopes", ((S, "fnz"), (S, "unit")))
+_f("F.dropout_masked", ((S, "f"), (S, "keep")))
+_f("F.alpha_dropout_masked", ((S, "f"), (S, "keep")))
+_f("F.triplet_margin_with_distance_loss", ((S, "f"), (S, "f2"), (S, "f3")))
+_f("F.multi_label_soft_margin_loss", ((S, "f"), (S, "unit")), only=(0,))
+_f("F.multi_label_soft_margin_loss", ((S, "f"), (S, "unit"), ((4,), "unit")),
+   kwargs=dict(reduction="sum"), only=(0,))
+_f("F.npair_loss", ((S, "f"), (S, "f2"), ((3,), "int:2")), only=(0, 1))
+_f("F.dice_loss", ((S, "unit"), ((3, 1), "int:4")), only=(0,))
+# options where PyTorch's function of the same name means something else,
+# and the others' non-default options
+_f("F.hardsigmoid", ((S, "wide"),), kwargs=dict(slope=0.2, offset=0.3))
+_f("F.hardswish", ((S, "wide"),))
+_f("F.relu6", ((S, "wide"),))
+_f("F.hardtanh", ((S, "wide"),), kwargs=dict(min=-2.0, max=3.0))
+_f("F.softplus", ((S, "f"),), kwargs=dict(beta=2.0, threshold=0.5))
+_f("F.smooth_l1_loss", ((S, "f"), (S, "f2")),
+   kwargs=dict(delta=0.25, reduction="sum"))
+_f("F.smooth_l1_loss", ((S, "wide"), (S, "f2")))
+_f("F.kl_div", ((S, "logunit"), (S, "unit")),
+   kwargs=dict(reduction="batchmean"), only=(0,))
+_f("F.kl_div", ((S, "logunit"), (S, "unit")), kwargs=dict(reduction="none"),
+   only=(0,))
+_f("F.dropout_infer", ((S, "f"),))
+_f("F.rrelu", ((S, "fnz"),), kwargs=dict(lower=0.1, upper=0.3))
+_f("F.thresholded_relu", ((S, "fnz"),), kwargs=dict(threshold=0.2,
+                                                    value=-0.5))
+_f("F.leaky_relu", ((S, "fnz"),), kwargs=dict(negative_slope=0.2))
+_f("F.elu", ((S, "fnz"),), kwargs=dict(alpha=0.5))
+_f("F.celu", ((S, "fnz"),), kwargs=dict(alpha=0.7))
+_f("F.selu", ((S, "fnz"),), kwargs=dict(scale=1.2, alpha=1.5))
+_f("F.gelu", ((S, "fnz"),), kwargs=dict(approximate=True))
+_f("F.prelu", (((2, 3, 2, 2), "fnz"), ((3,), "unit")))
+_f("F.prelu", (((2, 2, 2, 3), "fnz"), ((3,), "unit")),
+   kwargs=dict(data_format="NHWC"))
+_f("F.maxout", (((1, 2, 2, 4), "funique"),), kwargs=dict(groups=2, axis=3))
+_f("F.glu", (((4, 3), "f"),), kwargs=dict(axis=0))
+_f("F.log_softmax", ((S, "f"),), kwargs=dict(axis=0))
+_f("F.normalize", ((S, "f"),), kwargs=dict(p=1, axis=-1))
+_f("F.cosine_similarity", (((3, 4), "fnz"), ((3, 4), "f2")),
+   kwargs=dict(axis=0))
+_f("F.triplet_margin_loss", ((S, "f"), (S, "f2"), (S, "f3")),
+   kwargs=dict(p=1.0, swap=True))
+_f("F.margin_ranking_loss", ((V, "f"), (V, "f2"), (V, "sign")),
+   kwargs=dict(margin=0.2, reduction="sum"), only=(0, 1))
+_f("F.hinge_embedding_loss", ((S, "fnz"), (S, "sign")),
+   kwargs=dict(margin=0.5), only=(0,))
+_f("F.cosine_embedding_loss", (((2, 4), "f"), ((2, 4), "f2"),
+                               ((2,), "sign")), kwargs=dict(margin=0.2),
+   only=(0, 1))
+
 # ------------------------------------------------------- non-differentiable --
 
 
@@ -267,6 +405,7 @@ _nd("ops.triu_indices", (), dict(row=4, col=4, offset=1))
 _nd("ops.ones_like", ((S, "f"),))
 _nd("ops.full_like", ((S, "f"),), dict(fill_value=2.0))
 _nd("ops.meshgrid2", (((3,), "f"), ((4,), "f")))
+_nd("F.one_hot", ((V, "int:4"),), dict(num_classes=4))
 
 #: the JAX table's ops that get no low-precision run (fp32-only routines)
 LOWP = {"ops.inverse", "ops.det", "ops.slogdet", "ops.cholesky",
@@ -287,6 +426,12 @@ def draw(shape, domain, rng):
         return rng.uniform(-0.9, 0.9, shape).astype(np.float32)
     if domain == "fp":
         return rng.uniform(0.2, 1.2, shape).astype(np.float32)
+    if domain == "wide":
+        # past the corners of relu6, hardswish and hardsigmoid
+        return rng.uniform(-8.0, 8.0, shape).astype(np.float32)
+    if domain == "keep":
+        # a dropout keep-mask: 1.0 kept, 0.0 dropped
+        return (rng.uniform(0, 1, shape) < 0.6).astype(np.float32)
     if domain == "fnz":
         return (rng.uniform(0.15, 0.9, shape)
                 * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
@@ -343,7 +488,8 @@ def draw(shape, domain, rng):
 def differentiable_inputs(entry):
     """Indices of an entry's inputs that get a gradient."""
     idx = [i for i, (_, d) in enumerate(entry["inputs"])
-           if not (d in ("bool", "sign", "sorted") or d.startswith("int:"))]
+           if not (d in ("bool", "sign", "sorted", "keep")
+                   or d.startswith("int:"))]
     if entry["only"] is not None:
         idx = [i for i in idx if i in entry["only"]]
     return idx
@@ -353,7 +499,9 @@ def differentiable_inputs(entry):
 SIZE_CAP = 1 << 22
 #: ``k`` of the ops whose work grows faster than their inputs' size
 K_OF = {"ops.kron": 16, "ops.bmm": 64, "ops.det": 16, "ops.flatten": 128,
-        "ops.moveaxis": 128, "ops.cummax": 256, "ops.cummin": 256}
+        "ops.moveaxis": 128, "ops.cummax": 256, "ops.cummin": 256,
+        "F.diag_embed": 16, "F.scaled_dot_product_attention": 16,
+        "F.bilinear": 16}
 #: ``k`` of the linalg entries (256-square matrices from 3-square ones)
 K_LINALG = 85
 _SHAPE_KW = {"shape", "repeat_times"}
@@ -406,7 +554,10 @@ def scaled(entry, k):
 
 def resolve(api, paddle):
     """The callable of ``api`` in ``paddle`` (the port's top-level package;
-    the adapters are the JAX sweep's pseudo-APIs)."""
+    ``F.*`` in its ``nn.functional``). The adapters are the JAX sweep's
+    pseudo-APIs, and the port's: a random functional's op given its mask or
+    noise, an option the entry's keywords cannot reach."""
+    F = paddle.nn.functional
     adapters = {
         "ops.concat2": lambda a, b, axis=0: paddle.concat([a, b], axis=axis),
         "ops.stack2": lambda a, b, axis=0: paddle.stack([a, b], axis=axis),
@@ -435,10 +586,29 @@ def resolve(api, paddle):
         "ops.index_add": lambda x, i, v, axis=0: paddle.index_add(
             x, i, axis, v),
         "ops.svdvals": lambda x: paddle.svd(x)[1],
+        "F.cross_entropy_labels": lambda x, y: F.cross_entropy(x, y),
+        "F.layer_norm_w": lambda x, w, b: F.layer_norm(
+            x, [int(x.shape[-1])], w, b),
+        "F.dropout_eval": lambda x: F.dropout(x, 0.5, training=False),
+        "F.dropout_infer": lambda x: F.dropout(
+            x, 0.3, training=False, mode="downscale_in_infer"),
+        "F.bce_logits_pos": lambda x, y, pw:
+            F.binary_cross_entropy_with_logits(x, y, pos_weight=pw),
+        "F.bce_logits_weight_pos": lambda x, y, w, pw:
+            F.binary_cross_entropy_with_logits(x, y, w, pos_weight=pw),
+        "F.gumbel_softmax_noise": lambda x, g:
+            F.activation._gumbel_softmax_raw(x, g, temperature=0.5),
+        "F.rrelu_slopes": lambda x, a: F.activation._prelu_like(x, a),
+        "F.dropout_masked": lambda x, m: F.common._dropout_masked(
+            x, m, scale=2.5),
+        "F.alpha_dropout_masked": lambda x, m:
+            F.common._alpha_dropout_masked(x, m, alpha_p=-1.7581, a=0.8,
+                                           b=0.3),
     }
     if api in adapters:
         return adapters[api]
-    return getattr(paddle, api.split(".", 1)[1])
+    ns, name = api.split(".", 1)
+    return getattr(F if ns == "F" else paddle, name)
 
 
 @contextlib.contextmanager

@@ -1,5 +1,16 @@
-"""Vision models of the port: LeNet and the ResNet family."""
+"""Vision models of the port: LeNet, the MobileNets and the ResNet
+family."""
 from .lenet import LeNet  # noqa: F401
+from .mobilenet import (  # noqa: F401
+    MobileNetV1,
+    MobileNetV2,
+    MobileNetV3Large,
+    MobileNetV3Small,
+    mobilenet_v1,
+    mobilenet_v2,
+    mobilenet_v3_large,
+    mobilenet_v3_small,
+)
 from .resnet import (  # noqa: F401
     BasicBlock,
     BottleneckBlock,

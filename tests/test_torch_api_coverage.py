@@ -1,7 +1,8 @@
 """The port's Paddle-API surface against the JAX package's: every public
-callable and class at the top level of ``paddle_tpu`` exists in
-``paddle_tpu_torch`` or stands below beside the queue item
-(``ROADMAP.md`` A) it waits for; the same for the Tensor's methods. The
+callable and class at the top level of ``paddle_tpu``, in its ``nn`` and in
+its ``nn.functional`` exists in ``paddle_tpu_torch`` or stands below beside
+the queue item (``ROADMAP.md`` A) it waits for; the same for the Tensor's
+methods. The
 positional parameters of every callable the two share (top level, ``nn``,
 ``nn.functional``) are the JAX package's, bar the differences named below:
 the port takes no parameter that the JAX package lacks and then ignores."""
@@ -22,6 +23,45 @@ WAITING = {
     "TPUPlace": "none: the port has no TPU (ROADMAP.md C)",
     "NPUPlace": "none: the port has no NPU (ROADMAP.md C)",
     "XPUPlace": "none: the port has no XPU (ROADMAP.md C)",
+}
+
+_A7A2 = "A7(a2) (padding, resampling, transposed convs, the remaining " \
+    "pools, norms and losses)"
+_A7B = "A7(b) (the RNN layers and decoding)"
+
+#: ``paddle_tpu.nn`` names still to port, by queue item
+NN_WAITING = {
+    **{n: _A7A2 for n in (
+        "AdaptiveMaxPool1D", "AdaptiveMaxPool3D", "CTCLoss", "ChannelShuffle",
+        "Conv1DTranspose", "Conv2DTranspose", "Conv3DTranspose", "Fold",
+        "GroupNorm", "HSigmoidLoss", "InstanceNorm1D", "InstanceNorm2D",
+        "InstanceNorm3D", "LocalResponseNorm", "MaxUnPool1D", "MaxUnPool2D",
+        "MaxUnPool3D", "Pad1D", "Pad2D", "Pad3D", "PixelShuffle",
+        "PixelUnshuffle", "RMSNorm", "SpectralNorm", "Unfold", "Upsample",
+        "UpsamplingBilinear2D", "UpsamplingNearest2D", "ZeroPad2D")},
+    **{n: _A7B for n in (
+        "BeamSearchDecoder", "BiRNN", "Decoder", "GRU", "GRUCell", "LSTM",
+        "LSTMCell", "RNN", "RNNCellBase", "SimpleRNN", "SimpleRNNCell",
+        "dynamic_decode")},
+    "SyncBatchNorm": "A8 (distributed)",
+}
+
+#: ``paddle_tpu.nn.functional`` names still to port, by queue item
+F_WAITING = {
+    **{n: _A7A2 for n in (
+        "adaptive_max_pool1d", "adaptive_max_pool3d", "affine_grid",
+        "channel_shuffle", "class_center_sample", "conv1d_transpose",
+        "conv2d_transpose", "conv3d_transpose", "ctc_loss", "fold",
+        "grid_sample", "group_norm", "hsigmoid_loss", "instance_norm",
+        "interpolate", "local_response_norm", "lp_pool1d", "lp_pool2d",
+        "margin_cross_entropy", "max_unpool1d", "max_unpool2d",
+        "max_unpool3d", "pad", "pixel_shuffle", "pixel_unshuffle",
+        "sequence_mask", "sparse_attention", "spectral_norm",
+        "temporal_shift", "unfold", "upsample", "zeropad2d")},
+    "gather_tree": _A7B,
+    "Tensor": "none: the JAX package's module leaks its Tensor class into "
+              "the namespace; paddle.Tensor exists",
+    "op": "none: the same leak of the op decorator; paddle.op exists",
 }
 
 #: Tensor attributes of the JAX package that the port does not carry
@@ -99,6 +139,26 @@ def test_every_top_level_callable_exists_or_waits():
         # the dtype names are numpy types in JAX, torch dtypes here
         v = getattr(pt, n)
         assert callable(v) or isinstance(v, torch.dtype), n
+
+
+def test_every_nn_callable_exists_or_waits():
+    import paddle_tpu.nn as jnn
+
+    import paddle_tpu_torch.nn as pnn
+
+    missing = [n for n in _public_callables(jnn) if not hasattr(pnn, n)]
+    assert sorted(missing) == sorted(NN_WAITING)
+    assert len(_public_callables(jnn)) - len(missing) >= 89
+
+
+def test_every_functional_exists_or_waits():
+    import paddle_tpu.nn.functional as JF
+
+    import paddle_tpu_torch.nn.functional as PF
+
+    missing = [n for n in _public_callables(JF) if not hasattr(PF, n)]
+    assert sorted(missing) == sorted(F_WAITING)
+    assert len(_public_callables(JF)) - len(missing) >= 85
 
 
 def test_every_tensor_method_exists_or_waits():

@@ -31,7 +31,7 @@ def test_the_port_table_copies_the_jax_tables_ops_entries():
 
 def test_every_registry_op_is_reached_by_the_table():
     with op_table.registry_ops_called() as called:
-        for e in op_table.OPS + op_table.NONDIFF:
+        for e in op_table.OPS + op_table.F_OPS + op_table.NONDIFF:
             op_table.run(e, sweep_arrays(e), paddle, "cpu")
     missing = sorted(set(dispatch.OP_REGISTRY) - called)
     assert missing == []

@@ -33,7 +33,7 @@ from paddle_tpu.vision import models as JM
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.nn.functional as PF
 from paddle_tpu_torch.vision import models as PM
-from tests.torch_port_util import FP32_TOL, model_pair
+from tests.torch_port_util import FP32_TOL, model_pair, spread_check
 
 ATOL = FP32_TOL
 FACTORIES = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
@@ -95,20 +95,8 @@ def test_models_default_to_the_card():
             PM.LeNet()
 
 
-#: how far the JAX run may stand from the port's fp32 run, in multiples of
-#: the port's own fp32 rounding spread (its distance from the same steps in
-#: fp64); the largest ratio measured on the CPU was 4.5 (step 3's fc.bias
-#: gradient), most are near 1
-SPREAD = 10.0
-
-
-def _spread_check(got, jax_val, f64, name):
-    """||port32 - JAX|| <= SPREAD · ||port32 - port64|| + 1e-6 ||port64||."""
-    got, f64 = np.asarray(got, np.float64), np.asarray(f64, np.float64)
-    gap = np.linalg.norm(got - np.asarray(jax_val, np.float64))
-    spread = np.linalg.norm(got - f64)
-    assert gap <= SPREAD * spread + 1e-6 * np.linalg.norm(f64), (
-        f"{name}: {gap:.3g} from JAX, fp32 spread {spread:.3g}")
+# SPREAD (tests/torch_port_util.py): the largest ratio measured on the CPU
+# was 4.5 (step 3's fc.bias gradient), most are near 1
 
 
 def test_resnet50_momentum_steps_match_jax():
@@ -138,24 +126,24 @@ def test_resnet50_momentum_steps_match_jax():
                   for m, dt in ((tm, torch.float32), (t64, torch.float64))]
         for loss in (jloss, *losses):
             loss.backward()
-        _spread_check(float(losses[0].detach()), float(jloss),
-                      float(losses[1].detach()),
-                      f"loss {step}")
+        spread_check(float(losses[0].detach()), float(jloss),
+                     float(losses[1].detach()),
+                     f"loss {step}")
         for name, p in tm.named_parameters():     # every gradient
             want = np.asarray(jparams[name].grad.numpy())
-            _spread_check(p.grad.numpy(), want, p64[name].grad.numpy(),
-                          f"step {step} grad {name}")
+            spread_check(p.grad.numpy(), want, p64[name].grad.numpy(),
+                         f"step {step} grad {name}")
         for opt in (jopt, *opts):
             opt.step()
             opt.clear_grad()
     for name, p in tm.named_parameters():
         want = np.asarray(jparams[name].numpy())
-        _spread_check(p.detach().numpy(), want, p64[name].detach().numpy(),
-                      name)
+        spread_check(p.detach().numpy(), want, p64[name].detach().numpy(),
+                     name)
     jbufs, b64 = dict(jm.named_buffers()), dict(t64.named_buffers())
     for name, b in tm.named_buffers():            # the running statistics
-        _spread_check(b.numpy(), np.asarray(jbufs[name].numpy()),
-                      b64[name].numpy(), name)
+        spread_check(b.numpy(), np.asarray(jbufs[name].numpy()),
+                     b64[name].numpy(), name)
     assert float(tm.bn1._mean.abs().sum()) > 0
 
 

@@ -287,3 +287,60 @@ def sweep_ids(entries):
         counts[n] = counts.get(n, 0) + 1
         out.append(n if counts[n] == 1 else f"{n}#{counts[n]}")
     return out
+
+
+def twin_check(jax_fn, port_fn, arrays, diff=(0,), tol=FP32_TOL, seed=0):
+    """``jax_fn`` and ``port_fn`` (each taking its package's Tensors) on the
+    same numpy ``arrays``: every output within ``tol`` of the largest
+    magnitude of the JAX one, and the gradients of ``sum(out * c)`` (``c``
+    from ``RandomState(seed)``, ``out`` the first output) with respect to
+    the inputs ``diff`` within ``10 * tol``."""
+    import paddle_tpu as jp
+    from paddle_tpu.framework.tensor import Tensor as JT
+
+    import paddle_tpu_torch as pt
+
+    jin, tin = [], []
+    for i, a in enumerate(arrays):
+        j, t = JT(a), pt.to_tensor(a, place="cpu")
+        j.stop_gradient = t.stop_gradient = i not in diff
+        jin.append(j)
+        tin.append(t)
+    jout, tout = jax_fn(*jin), port_fn(*tin)
+    jouts = list(jout) if isinstance(jout, (tuple, list)) else [jout]
+    touts = list(tout) if isinstance(tout, (tuple, list)) else [tout]
+    assert len(jouts) == len(touts)
+    for i, (j, t) in enumerate(zip(jouts, touts)):
+        sweep_close(t.numpy(), _f32(j.numpy()), tol, f"output {i}")
+    if not diff:
+        return touts
+    c = np.random.RandomState(seed).uniform(
+        -1, 1, tuple(touts[0].shape)).astype(np.float32)
+    jg = jp.grad(jp.sum(jouts[0] * JT(c)), [jin[i] for i in diff],
+                 allow_unused=True)
+    tg = pt.grad(pt.sum(touts[0] * pt.to_tensor(c, place="cpu")),
+                 [tin[i] for i in diff], allow_unused=True)
+    for i, (j, t) in zip(diff, zip(jg, tg)):
+        assert (j is None) == (t is None), f"grad {i}"
+        if t is not None:
+            sweep_close(t.numpy(), _f32(j.numpy()), 10 * tol, f"grad {i}")
+    return touts
+
+
+#: how far a JAX training run may stand from the port's fp32 run, in
+#: multiples of the port's own fp32 rounding spread (its distance from the
+#: same steps in fp64)
+SPREAD = 10.0
+
+
+def spread_check(got, jax_val, f64, name, scale=None):
+    """||port32 - JAX|| <= SPREAD · ||port32 - port64|| + 1e-6 · scale,
+    ``scale`` by default ||port64||. A quantity that is zero in exact
+    arithmetic is rounding noise in both packages; its caller passes the
+    scale the noise comes from."""
+    got, f64 = np.asarray(got, np.float64), np.asarray(f64, np.float64)
+    gap = np.linalg.norm(got - np.asarray(jax_val, np.float64))
+    spread = np.linalg.norm(got - f64)
+    scale = np.linalg.norm(f64) if scale is None else scale
+    assert gap <= SPREAD * spread + 1e-6 * scale, (
+        f"{name}: {gap:.3g} from JAX, fp32 spread {spread:.3g}")

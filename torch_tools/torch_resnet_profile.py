@@ -1,15 +1,18 @@
-"""Where the time goes in a ResNet-50 train step of the port, on one NVIDIA
-card.
+"""Where the time goes in a vision train step of the port (ResNet-50 or
+MobileNetV3-Large), on one NVIDIA card.
 
-    python3 torch_tools/torch_resnet_profile.py [--steps N]
+    python3 torch_tools/torch_resnet_profile.py [--model M] [--steps N]
 
-Runs ``chip_smoke.py``'s ``resnet50_train`` step (``tools/bench_resnet.py``'s
-recipe: ``resnet50(num_classes=1000)`` in bf16 with fp32 batch norms,
-layout autotune on, cuDNN's algorithm search, ``Momentum(0.1, 0.9, weight
-decay 1e-4, multi_precision)``, cross entropy on fp32 logits, batch 128 x 3
-x 224 x 224, random weights and seeded images): 3 warm-up steps, then
-``--steps`` steps (default 2) under ``torch.profiler``, then the optimizer's
-step alone, as often, under a second profile.
+Runs ``chip_smoke.py``'s ``resnet50_train`` step (``--model resnet50``, the
+default; ``tools/bench_resnet.py``'s recipe: ``resnet50(num_classes=1000)``
+in bf16 with fp32 batch norms, layout autotune on, cuDNN's algorithm
+search, ``Momentum(0.1, 0.9, weight decay 1e-4, multi_precision)``, cross
+entropy on fp32 logits, batch 128 x 3 x 224 x 224, random weights and
+seeded images) or its ``mobilenet_v3_large_train`` step (``--model
+mobilenet_v3_large``: the same recipe on ``mobilenet_v3_large(scale=1.0,
+num_classes=1000)``, the classifier's dropout live): 3 warm-up steps, then
+``--steps`` steps (default 2) under ``torch.profiler``, then the
+optimizer's step alone, as often, under a second profile.
 
 Prints the card's name and power limit, then one JSON line a window: the
 wall time of the window (host clock around work ending in a synchronize),
@@ -32,6 +35,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: kernel kinds by name (first match wins)
 KINDS = (
+    # cuDNN's channels-last depthwise kernels (one input channel a group):
+    # conv2d_c1_k1_nhwc*, dgrad2d_c1_k1_nhwc*, wgrad2d_c1_k1_nhwc*
+    ("depthwise conv", r"_c1_k1_nhwc|[Dd]epthwise"),
     ("conv wgrad", r"wgrad"),
     ("conv dgrad", r"dgrad"),
     ("conv fwd", r"fprop|implicit_convolve|conv2d_fwd|conv_fwd|convolve"),
@@ -50,6 +56,8 @@ KINDS = (
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="resnet50",
+                    choices=("resnet50", "mobilenet_v3_large"))
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
@@ -68,12 +76,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     warm = 3
+    if args.model == "resnet50":
+        shape = (cs.RESNET_BATCH, cs.RESNET_SIZE, cs.RESNET_CLASSES)
+    else:
+        shape = (cs.MOBILENET_BATCH, cs.MOBILENET_SIZE,
+                 cs.MOBILENET_CLASSES)
     with cs._vision_setup(torch):
-        model = cs._resnet50(torch, 0)
+        model = (cs._resnet50(torch, 0) if args.model == "resnet50"
+                 else cs._mobilenet(torch, args.model, 70))
         opt = cs._momentum(model)
-        batches = cs._image_batches(torch, 60, warm + args.steps,
-                                    cs.RESNET_BATCH, cs.RESNET_SIZE,
-                                    cs.RESNET_CLASSES)
+        batches = cs._image_batches(torch, 60, warm + args.steps, *shape)
         model.train()
 
         def steps(part):
@@ -83,7 +95,7 @@ def main():
         steps(batches[:warm])
         wall, kernels = _profile(torch, lambda: steps(batches[warm:]))
         print(json.dumps(_report(
-            f"resnet50_train {cs.RESNET_BATCH} x {cs.RESNET_SIZE}^2", wall,
+            f"{args.model} train {shape[0]} x {shape[1]}^2", wall,
             kernels, f"{args.steps} steps", KINDS)))
         images, labels = batches[-1]
         model(images).float().sum().backward()      # gradients to apply
@@ -94,9 +106,9 @@ def main():
 
         optimizer_steps()
         wall, kernels = _profile(torch, optimizer_steps)
-        print(json.dumps(_report("optimizer.step alone (161 parameters, "
-                                 "fp32 masters)", wall, kernels,
-                                 f"{args.steps} steps", KINDS)))
+        print(json.dumps(_report(
+            f"optimizer.step alone ({len(model.parameters())} parameters, "
+            f"fp32 masters)", wall, kernels, f"{args.steps} steps", KINDS)))
     return 0
 
 

@@ -5,9 +5,11 @@
 Runs ``chip_smoke.py``'s vision phases, nothing else: ``resnet50_train``
 (``tools/bench_resnet.py``'s train step at batch 128 x 224 x 224, bf16 with
 fp32 batch norms, channels-last), ``resnet50_vs_plain`` (bf16 channels-last
-against fp32 NCHW, and the layout route alone), ``resnet50_eval`` and
-``lenet``. The vision path launches none of the port's kernels, so nothing
-is built. Prints the card's name and power limit, then one line a phase
+against fp32 NCHW, and the layout route alone), ``resnet50_eval``,
+``lenet``, ``mobilenet_v3_large_train`` (batch 128 x 224 x 224, bf16
+channels-last, the classifier's dropout live), ``mobilenet_vs_plain`` and
+``nn_random_layers``. The vision path launches none of the port's kernels,
+so nothing is built. Prints the card's name and power limit, then one line a phase
 (JSON). The quick check after a change to the vision path. Needs a CUDA
 card; any failed check raises.
 """
@@ -36,7 +38,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for fn in (cs.resnet50_train_phase, cs.resnet50_vs_plain,
-               cs.resnet50_eval_phase, cs.lenet_phase):
+               cs.resnet50_eval_phase, cs.lenet_phase,
+               cs.mobilenet_v3_large_train_phase, cs.mobilenet_vs_plain,
+               cs.nn_random_layers_phase):
         t = time.perf_counter()
         out = fn(torch, np)
         print(fn.__name__, f"{time.perf_counter() - t:.1f} s",
