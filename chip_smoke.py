@@ -222,6 +222,27 @@
     ``dropout2d``/``dropout3d`` masks constant along the other axes,
     ``downscale_in_infer``, seeded replay, ``alpha_dropout`` keeping mean 0
     and variance 1, ``rrelu``'s slopes within ``[lower, upper]``.
+    ``shufflenet_v2_train``: ``shufflenet_v2_x1_0(num_classes=1000)`` on
+    the same recipe at batch 128 x 224 x 224, 3 + 10 steps: images/s, the
+    step split, peak memory, 2 profiled steps (device ms by kind, idle
+    share); it fails unless a block's shuffled output and the depthwise
+    weights are channels-last with no layout-transpose kernel, the losses
+    are finite and K1-K11 never launch. ``shufflenet_vs_plain``: 3 steps at
+    batch 32, bf16 channels-last against fp32 NCHW from one seed: each
+    stage alone within ``SHUFFLE_STAGE_STEPS`` bf16 steps (an fp8 control
+    beyond), its gradients within ``SHUFFLE_STAGE_GRAD_STEPS``, step-1
+    logits within ``SHUFFLE_LOGIT_STEPS`` steps of the largest, first
+    losses within ``SHUFFLE_LOSS_TOL``, the 1 x 1 product route within one
+    step of cuDNN; then x0_5's and the swish variant's eval images/s at
+    batch 32. ``nn_second_half``: every layer and functional of
+    the second half of ``nn`` (transposed convs, resampling, the group,
+    instance, local-response and RMS norms, pixel and channel shuffles,
+    sampling grids, CTC, hierarchical sigmoid, ArcFace's margin CE,
+    sparse attention, the pools, unfold/fold, pads, the weight- and
+    spectral-norm hooks) forward and backward at a size its users run,
+    against the CPU port in fp32 (relative L2 within 1e-4) and in bf16
+    against the card's fp32 (one bf16 step), with its device ms; and
+    ``class_center_sample``'s rules.
 14. The Paddle-API surface (the main path of the API slice), after the
     vision phases. ``paddle_api``: GPT-2 124M's train step written against
     the API (``import paddle_tpu_torch as paddle``, ``set_device("gpu")``,
@@ -3193,6 +3214,619 @@ def nn_random_layers_phase(torch, np):
     return out
 
 
+#: the ShuffleNetV2 phases: x1.0 (Ma et al. 2018: stage widths 116/232/464,
+#: 1024 final channels) at ResNet-50's batch and image size, and the eval
+#: batch of the x0_5 and swish forwards
+SHUFFLE_BATCH, SHUFFLE_SIZE, SHUFFLE_CLASSES = 128, 224, 1000
+SHUFFLE_EVAL_BATCH = 32
+
+
+def _shufflenet(torch, factory, seed, bf16=True, classes=SHUFFLE_CLASSES):
+    """A ShuffleNetV2 (``factory``) from ``torch.manual_seed(seed)`` on the
+    card, in bf16 with the batch norms kept fp32 (ResNet-50's recipe), or
+    fp32. Built under the caller's layout setting."""
+    from paddle_tpu_torch.vision import models
+
+    torch.manual_seed(seed)
+    model = getattr(models, factory)(num_classes=classes, device="cuda")
+    if bf16:
+        model.to(torch.bfloat16)
+        for m in model.modules():
+            if type(m).__name__.startswith("BatchNorm"):
+                m.float()
+    return model
+
+
+def shufflenet_v2_train_phase(torch, np):
+    """ShuffleNetV2 x1.0 training on the card: ``shufflenet_v2_x1_0(
+    num_classes=1000)`` in bf16 with fp32 batch norms, layout autotune on
+    (channels-last convolutions, the depthwise ones too), cuDNN's algorithm
+    search, ResNet-50's ``Momentum(0.1, 0.9, weight decay 1e-4,
+    multi_precision)``, cross entropy on fp32 logits, batch 128 x 3 x 224 x
+    224: 3 warm-up and 10 timed steps, launch counts zeroed just before and
+    read just after; then 2 more steps under ``torch.profiler``: device ms
+    by kernel kind, the idle share, the slowest kernels. Fails unless a
+    block's output (after its ``channel_shuffle``) and its depthwise conv's
+    weight are channels-last, a batch norm's output is bf16 with fp32
+    statistics that moved, the profile shows no layout transpose, the
+    losses are finite and K1-K11 never launched."""
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    _require(torch.backends.cudnn.is_available(), "cuDNN is available")
+    kinds = _torch_tool("torch_resnet_profile").KINDS
+    prof = _torch_tool("torch_encoder_profile")
+    warm, timed, profiled = 3, 10, 2
+    with _vision_setup(torch):
+        model = _shufflenet(torch, "shufflenet_v2_x1_0", 90)
+        opt = _momentum(model)
+        batches = _image_batches(torch, 91, warm + timed + profiled,
+                                 SHUFFLE_BATCH, SHUFFLE_SIZE,
+                                 SHUFFLE_CLASSES)
+        seen = {}
+        block = model.blocks[5]
+        dw, bn = block.b2[3], block.b2[4]
+        hooks = [m.register_forward_hook(_first_call(seen, k))
+                 for k, m in (("block", block), ("bn", bn))]
+        mean0 = bn._mean.clone()
+        model.train()
+        events, losses = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for images, labels in batches[:warm + timed]:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            _, loss = _vision_step(model, opt, images, labels, ev)
+            events.append(ev)
+            losses.append(loss)
+            for h in hooks:
+                h.remove()
+            hooks = []
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+
+        def profiled_steps():
+            for images, labels in batches[warm + timed:]:
+                _vision_step(model, opt, images, labels)
+
+        wall_ms, ms_by_kernel = prof._profile(torch, profiled_steps)
+    losses = [float(x) for x in losses]
+    _require(all(np.isfinite(losses)), f"ShuffleNetV2 losses finite: "
+             f"{losses}")
+    cl = torch.channels_last
+    _require(dw._groups == dw._in_channels
+             and dw.weight.is_contiguous(memory_format=cl)
+             and seen["block"][1].is_contiguous(memory_format=cl),
+             "the depthwise conv's weight and a block's shuffled output are "
+             "channels-last")
+    _require(seen["bn"][1].dtype == torch.bfloat16
+             and bn._mean.dtype == bn._variance.dtype == torch.float32
+             and not torch.equal(bn._mean, mean0),
+             "batch norm: bf16 output, fp32 running statistics that moved")
+    _no_kernel_launched(counts, "shufflenet_v2_train")
+    profile = prof._report(f"shufflenet_v2_x1_0 train {SHUFFLE_BATCH} x "
+                           f"{SHUFFLE_SIZE}^2", wall_ms, ms_by_kernel,
+                           f"{profiled} steps", kinds)
+    by_kind = profile["by_kind_ms"]
+    transposes = {k[:160]: ms for k, ms in ms_by_kernel.items()
+                  if prof._kind(k, kinds) == "layout transposes"}
+    _require("layout transposes" not in by_kind and "depthwise conv" in
+             by_kind, f"the convs run channels-last with no layout "
+             f"transpose ({sorted(by_kind)}; {transposes})")
+    split = _step_split(events, warm, timed, SHUFFLE_BATCH, 1)
+    images_per_s = split.pop("tokens_per_s")
+    del model, opt, batches, seen
+    torch.cuda.empty_cache()
+    return {"batch": SHUFFLE_BATCH, "image_size": SHUFFLE_SIZE,
+            "classes": SHUFFLE_CLASSES, "warmup_steps": warm,
+            "timed_steps": timed, "losses": losses,
+            "images_per_s": images_per_s, **split,
+            "wall_s_all_steps": wall, "peak_memory_gib": peak / 2 ** 30,
+            "profiled_steps": profiled, "profile": profile,
+            "launches": counts}
+
+
+#: shufflenet_vs_plain's limits. ShuffleNetV2 x1.0 at random init in train
+#: mode amplifies any perturbation about 1.2x a block in fp32 and bf16 alike:
+#: rounding the input once, with fp32 after it, moves the logits by a third
+#: of the whole bf16 gap, and the JAX package's bf16 run stands as far from
+#: its fp32 run as the port's, stage by stage
+#: (``tests/test_torch_shufflenet_bf16.py``). So the whole model is held
+#: loosely and each stage alone tightly. Each stage (the stem, the 16
+#: blocks, ``conv_last``, the pooled head), fed the fp32 run's input of that
+#: stage, adds a rounding: 0.28-0.81 % relative L2 (0.36-1.04 bf16 steps)
+#: on the CPU port at batch 32, held to ``SHUFFLE_STAGE_STEPS``; one output
+#: tensor round-tripped through fp8 (e4m3), the control, stands 2.7 % off
+#: and must fail that limit. A stage's gradients (a seeded upstream
+#: gradient) stand 4.3-8.5 % off on the CPU port, most of it from ReLU and
+#: max-pool masks that one rounding of the input flips (4-7 % with fp32
+#: arithmetic): held to ``SHUFFLE_STAGE_GRAD_STEPS``. The whole model: the
+#: step-1 logits within ``SHUFFLE_LOGIT_STEPS`` bf16 steps of the largest
+#: (10.7-13.4 steps over 6 seeds on the CPU port, 12.8 for the JAX package
+#: at batch 4; the fp8 control at block 3 gives 19.3), the first loss
+#: within ``SHUFFLE_LOSS_TOL`` (1e-4 to 0.0124 over the 6 seeds); the eval
+#: forwards (running statistics, no amplification) within
+#: ``SHUFFLE_EVAL_STEPS``; the 1 x 1 route against cuDNN within one step.
+SHUFFLE_STAGE_STEPS = 2
+SHUFFLE_STAGE_GRAD_STEPS = 16
+SHUFFLE_LOGIT_STEPS = 16
+SHUFFLE_LOSS_TOL = 0.02
+SHUFFLE_EVAL_STEPS = 4
+#: the 1 x 1 convs of ShuffleNetV2 x1.0, which take the product route
+#: (C_in, C_out, H = W at 224 x 224)
+SHUFFLE_POINTWISE = ((24, 58, 56), (58, 58, 28), (116, 116, 28),
+                     (116, 116, 14), (232, 232, 7), (464, 1024, 7))
+
+
+def _shufflenet_stage_errors(torch, batch):
+    """ShuffleNetV2 x1.0 (``torch.manual_seed(1)``, train mode) stage by
+    stage (``torch_tools/torch_shufflenet_bf16.py::stage_errors``): each
+    stage of the bf16 channels-last model fed the fp32 NCHW model's input
+    of that stage (rounded to bf16) and a seeded upstream gradient, against
+    the fp32 stage: relative L2 of the output, of dx and of the stage's
+    parameter gradients, and of the control (the bf16 output round-tripped
+    through fp8 e4m3)."""
+    tool = _torch_tool("torch_shufflenet_bf16")
+    (images, _), = _image_batches(torch, 94, 1, batch, SHUFFLE_SIZE,
+                                  SHUFFLE_CLASSES, dtype=torch.float32)
+    with _vision_setup(torch, layout=False):
+        m32 = _shufflenet(torch, "shufflenet_v2_x1_0", 1, bf16=False)
+    with _vision_setup(torch, layout=True):
+        m16 = _shufflenet(torch, "shufflenet_v2_x1_0", 1)
+    m32.train()
+    m16.train()
+    gen = torch.Generator(device="cuda").manual_seed(95)
+    rows = tool.stage_errors(
+        torch, m32, m16, images, gen,
+        ctx32=lambda: _vision_setup(torch, layout=False),
+        ctx16=lambda: _vision_setup(torch, layout=True))
+    del m32, m16, images
+    torch.cuda.empty_cache()
+    return rows
+
+
+def shufflenet_vs_plain(torch, np):
+    """ShuffleNetV2 x1.0, bf16 channels-last against fp32 NCHW (layout
+    autotune off) from the same weights (``torch.manual_seed(1)``), held
+    stage by stage and whole, with the limits above. Stage by stage
+    (``_shufflenet_stage_errors``, batch 32): each stage's output within
+    ``SHUFFLE_STAGE_STEPS`` bf16 steps relative L2, and the fp8 control
+    beyond that; dx and dW within ``SHUFFLE_STAGE_GRAD_STEPS``. Whole: 3
+    train steps at batch 32, the first step's logits within
+    ``SHUFFLE_LOGIT_STEPS`` bf16 steps of the largest fp32 logit and the
+    first loss within ``SHUFFLE_LOSS_TOL``; then the bf16 model's eval
+    logits channels-last against a copy run NCHW within ``LAYOUT_STEPS``
+    steps (the layout route alone). The 1 x 1 product route against cuDNN
+    (output, dx, dW) within one bf16 step relative L2. Then x0_5's and the
+    swish variant's eval forwards at ``SHUFFLE_EVAL_BATCH`` x 224 x 224,
+    bf16 channels-last against fp32 NCHW from the same weights (logits
+    within ``SHUFFLE_EVAL_STEPS`` bf16 steps of the largest): images/s of
+    each."""
+    import copy
+
+    batch, steps = 32, 3
+    stages = _shufflenet_stage_errors(torch, batch)
+    limit = SHUFFLE_STAGE_STEPS * BF16_STEP
+    grad_limit = SHUFFLE_STAGE_GRAD_STEPS * BF16_STEP
+    for i, row in enumerate(stages):
+        _require(row["out"] <= limit < row["control"],
+                 f"stage {i}'s bf16 output within {limit:.3g} of fp32 in "
+                 f"relative L2, its fp8 control beyond ({row})")
+        _require(row["dx"] <= grad_limit and row["dw"] <= grad_limit,
+                 f"stage {i}'s bf16 gradients within {grad_limit:.3g} of "
+                 f"fp32 in relative L2 ({row})")
+    route = _torch_tool("torch_pointwise_route").route_errors(
+        torch, SHUFFLE_POINTWISE, batch)
+    _require(max(route.values()) <= BF16_STEP, f"the 1 x 1 product route "
+             f"within one bf16 step of cuDNN in relative L2 ({route})")
+    batches = _image_batches(torch, 92, steps, batch, SHUFFLE_SIZE,
+                             SHUFFLE_CLASSES, dtype=torch.float32)
+    runs = {}
+    for name, layout, bf16 in (("bf16_channels_last", True, True),
+                               ("fp32_nchw", False, False)):
+        with _vision_setup(torch, layout=layout):
+            model = _shufflenet(torch, "shufflenet_v2_x1_0", 1, bf16=bf16)
+            opt = _momentum(model)
+            model.train()
+            dt = torch.bfloat16 if bf16 else torch.float32
+            logits, losses = None, []
+            for images, labels in batches:
+                out, loss = _vision_step(model, opt, images.to(dt), labels)
+                logits = out.float() if logits is None else logits
+                losses.append(float(loss))
+            runs[name] = (model, logits, losses)
+            del opt
+    model, logits, losses = runs["bf16_channels_last"]
+    _, ref, ref_losses = runs.pop("fp32_nchw")
+    _require(all(np.isfinite(losses + ref_losses)),
+             f"losses finite: {losses} {ref_losses}")
+    scale = float(ref.abs().max())
+    logit_err = float((logits - ref).abs().max())
+    _require(logit_err <= SHUFFLE_LOGIT_STEPS * BF16_STEP * scale,
+             f"step-1 logits within {SHUFFLE_LOGIT_STEPS} bf16 steps of the "
+             f"fp32 NCHW run ({logit_err:.3g}, largest {scale:.3g})")
+    loss_err = abs(losses[0] - ref_losses[0])
+    _require(loss_err <= SHUFFLE_LOSS_TOL, f"first loss within "
+             f"{SHUFFLE_LOSS_TOL} of the fp32 NCHW run ({losses[0]} vs "
+             f"{ref_losses[0]})")
+    model.eval()
+    nchw = copy.deepcopy(model).to(memory_format=torch.contiguous_format)
+    images = batches[0][0].to(torch.bfloat16)
+    with torch.no_grad():
+        with _vision_setup(torch, layout=True):
+            cl_logits = model(images).float()
+        with _vision_setup(torch, layout=False):
+            nchw_logits = nchw(images).float()
+    largest_eval = float(nchw_logits.abs().max())
+    layout_err = float((cl_logits - nchw_logits).abs().max())
+    _require(layout_err <= LAYOUT_STEPS * BF16_STEP * largest_eval,
+             f"eval logits channels-last within {LAYOUT_STEPS} bf16 steps "
+             f"of NCHW ({layout_err:.3g}, largest {largest_eval:.3g})")
+    del runs, model, nchw
+    torch.cuda.empty_cache()
+    evals = {}
+    (images, _), = _image_batches(torch, 93, 1, SHUFFLE_EVAL_BATCH,
+                                  SHUFFLE_SIZE, SHUFFLE_CLASSES,
+                                  dtype=torch.float32)
+    for factory in ("shufflenet_v2_x0_5", "shufflenet_v2_swish"):
+        out = {}
+        for name, layout, bf16 in (("bf16_channels_last", True, True),
+                                   ("fp32_nchw", False, False)):
+            with _vision_setup(torch, layout=layout):
+                m = _shufflenet(torch, factory, 2, bf16=bf16)
+                m.eval()
+                x = images.to(torch.bfloat16 if bf16 else torch.float32)
+                with torch.no_grad():
+                    for _ in range(3):
+                        y = m(x)
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    for _ in range(10):
+                        y = m(x)
+                    e.record()
+                    torch.cuda.synchronize()
+            out[name] = (y.float(), SHUFFLE_EVAL_BATCH * 10
+                         / s.elapsed_time(e) * 1e3)
+            del m
+        (got, ips), (want, ref_ips) = out["bf16_channels_last"], out[
+            "fp32_nchw"]
+        largest = float(want.abs().max())
+        err = float((got - want).abs().max())
+        _require(bool(got.isfinite().all()) and largest > 0
+                 and err <= SHUFFLE_EVAL_STEPS * BF16_STEP * largest,
+                 f"{factory} eval logits within {SHUFFLE_EVAL_STEPS} bf16 "
+                 f"steps of the fp32 NCHW forward ({err:.3g}, largest "
+                 f"{largest:.3g})")
+        evals[factory] = {
+            "images_per_s_bf16_channels_last": ips,
+            "images_per_s_fp32_nchw": ref_ips,
+            "logits_max_abs_diff": err, "logits_largest": largest}
+    torch.cuda.empty_cache()
+    return {"batch": batch, "steps": steps,
+            "stage_rel_l2": {k: [r[k] for r in stages]
+                             for k in ("out", "dx", "dw", "control")},
+            "pointwise_route_vs_cudnn_rel_l2": route,
+            "losses_bf16_channels_last": losses,
+            "losses_fp32_nchw": ref_losses,
+            "step1_logits_max_abs_diff": logit_err,
+            "step1_logits_largest": scale,
+            "first_loss_abs_diff": loss_err,
+            "eval_logits_layout_max_abs_diff": layout_err,
+            "eval_logits_largest": largest_eval,
+            "eval_batch": SHUFFLE_EVAL_BATCH, "eval": evals}
+
+
+#: nn_second_half's limits: fp32 on the card against the CPU port (TF32
+#: off), and bf16 against the card's fp32, as relative L2 norms
+SECOND_HALF_FP32_TOL, SECOND_HALF_BF16_TOL = 1e-4, BF16_STEP
+
+
+def _rel_l2(got, want):
+    want = want.double()
+    return float((got.double() - want).norm() / max(float(want.norm()),
+                                                     1e-30))
+
+
+def _second_half_run(torch, fn, arrays, diff, device, dtype, seed):
+    """``fn`` on ``arrays`` (numpy) on ``device`` with the float inputs in
+    ``dtype``: its outputs and the gradients of ``sum(out * c)`` (``out``
+    the first output, ``c`` from ``RandomState(seed)``) with respect to the
+    inputs ``diff``, all as fp32 CPU tensors."""
+    import numpy as np
+
+    ts = []
+    for i, a in enumerate(arrays):
+        t = torch.from_numpy(a).to(device)
+        if t.is_floating_point():
+            t = t.to(dtype if a.dtype == np.float32 else torch.float32)
+        ts.append(t.requires_grad_(i in diff))
+    from paddle_tpu_torch.framework.tensor import unwrap
+
+    out = fn(*ts)
+    outs = [unwrap(o) for o in (out if isinstance(out, (tuple, list))
+                                else [out])]
+    grads = []
+    if diff:
+        c = np.random.RandomState(seed).uniform(-1, 1, tuple(outs[0].shape))
+        ct = torch.from_numpy(c.astype(np.float32)).to(device, outs[0].dtype)
+        grads = torch.autograd.grad(outs[0], [ts[i] for i in diff], ct)
+    return ([o.detach().float().cpu() for o in outs if o.is_floating_point()],
+            [g.float().cpu() for g in grads])
+
+
+def _second_half_ms(torch, fn, arrays, diff, dtype, reps=5):
+    """Median device ms of one forward and backward on the card."""
+    import numpy as np
+
+    ts = [torch.from_numpy(a).cuda() for a in arrays]
+    ts = [(t.to(dtype if a.dtype == np.float32 else torch.float32)
+           if t.is_floating_point() else t).requires_grad_(i in diff)
+          for i, (a, t) in enumerate(zip(arrays, ts))]
+    times = []
+    for r in range(reps + 1):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = fn(*ts)
+        first = (out[0] if isinstance(out, (tuple, list)) else out)
+        if diff:
+            first.float().sum().backward()
+        e.record()
+        torch.cuda.synchronize()
+        if r:
+            times.append(s.elapsed_time(e))
+        for t in ts:
+            t.grad = None
+    return float(np.median(times))
+
+
+@contextlib.contextmanager
+def _on_the_host():
+    """The port's current place set to the CPU for the block: layers built
+    in it are drawn and stay on the host."""
+    from paddle_tpu_torch.framework import place
+
+    prev = place._current
+    place.set_device("cpu")
+    try:
+        yield
+    finally:
+        place._current = prev
+
+
+def _second_half_cases(torch, np, pnn, F):
+    """``(name, whose use, fn(device, dtype) -> callable, arrays, diff,
+    bf16 limit)``: every layer and functional of the slice at a size its
+    users run (the layers' weights drawn once on the CPU from a seed). The
+    bf16 limit is ``SECOND_HALF_BF16_TOL`` but for ``sparse_attention``,
+    whose softmax runs in the input's dtype as in the JAX package (a
+    rounded score of a few units moves ``exp`` by about 2^-7), and None
+    (fp32 only) for the order ops (a rounding to bf16 makes ties that move
+    the argmax), the losses that scale or sum over thousands of terms and
+    the power average."""
+    import copy
+
+    rng = np.random.RandomState(95)
+
+    def arr(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def layer(build):
+        torch.manual_seed(96)
+        with _on_the_host():
+            base = build()
+
+        def make(device, dtype):
+            m = copy.deepcopy(base).to(device)
+            if dtype != torch.float32 and not type(m).__name__.endswith(
+                    "Norm"):
+                m = m.to(dtype)
+            return m
+        return make
+
+    def fn(f):
+        return lambda device, dtype: f
+
+    B = SECOND_HALF_BF16_TOL
+    img = arr(32, 256, 56, 56)
+    cases = [
+        ("Conv2DTranspose(256, 128, 4, stride=2, padding=1)",
+         "a DCGAN or U-Net decoder", layer(lambda: pnn.Conv2DTranspose(
+             256, 128, 4, stride=2, padding=1)),
+         [arr(32, 256, 28, 28)], (0,), B),
+        ("GroupNorm(32, 256)", "a U-Net or diffusion block",
+         layer(lambda: pnn.GroupNorm(32, 256)), [img], (0,),
+         B),
+        ("PixelShuffle(2)", "ESPCN-style super-resolution",
+         layer(lambda: pnn.PixelShuffle(2)), [img], (0,),
+         B),
+    ]
+    for mode in ("nearest", "bilinear", "bicubic", "area"):
+        for f in (2, 0.5):
+            cases.append((f"interpolate({mode}, x{f})",
+                          "FPN and U-Net upsampling",
+                          fn(lambda x, m=mode, f=f: F.interpolate(
+                              x, scale_factor=f, mode=m)), [img], (0,),
+                          B))
+    cases.append(("Upsample(bilinear, x2), batch 8",
+                  "FPN and U-Net upsampling",
+                  layer(lambda: pnn.Upsample(scale_factor=2,
+                                             mode="bilinear")), [img[:8]],
+                  (0,), B))
+    # the affine maps stay fp32 in the bf16 run (float64 arrays are fp32
+    # inputs in both): bf16 coordinates would move a sample by 2^-8 of the
+    # image, not by a rounding of its values
+    theta = np.eye(2, 3)[None] + 0.2 * rng.uniform(-1, 1, (32, 2, 3))
+    cases.append(("grid_sample on affine_grid", "a spatial transformer",
+                  fn(lambda x, t: F.grid_sample(
+                      x, F.affine_grid(t.float(), [32, 64, 64, 64]))),
+                  [arr(32, 64, 64, 64), theta.astype(np.float64)], (0, 1),
+                  B))
+    t_len, b, s = 200, 32, 60
+    labels = rng.randint(1, 29, (b, s)).astype(np.int64)
+    ilen = rng.randint(150, t_len + 1, b).astype(np.int64)
+    llen = rng.randint(20, s + 1, b).astype(np.int64)
+    cases.append(("ctc_loss", "DeepSpeech2's character set",
+                  fn(lambda x, y, i, n: F.ctc_loss(x, y, i, n)),
+                  [arr(t_len, b, 29), labels, ilen, llen], (0,), B))
+    n_words, width = 10000, 256
+    cases.append(("hsigmoid_loss", "word2vec",
+                  fn(lambda x, y, w, bias: F.hsigmoid_loss(
+                      x, y, n_words, w, bias).mean()),
+                  [arr(4096, width), rng.randint(0, n_words, 4096).astype(
+                      np.int64), arr(n_words - 1, width, scale=0.05),
+                   arr(n_words - 1, scale=0.05)], (0, 2, 3), None))
+    cases.append(("margin_cross_entropy", "ArcFace",
+                  fn(lambda x, w, y: F.margin_cross_entropy(
+                      F.linear(F.normalize(x), F.normalize(w, axis=0)), y,
+                      1.0, 0.5, 0.0, 64.0)),
+                  [arr(128, 512), arr(512, n_words),
+                   rng.randint(0, n_words, 128).astype(np.int64)], (0, 1),
+                  None))
+    seq, band = 1024, 128
+    cols = [list(range(max(0, i - band + 1), i + 1)) for i in range(seq)]
+    offset = np.zeros((2, 8, seq + 1), np.int32)
+    offset[..., 1:] = np.cumsum([len(c) for c in cols])
+    flat = np.tile(np.array([j for c in cols for j in c], np.int32),
+                   (2, 8, 1))
+    cases.append(("sparse_attention", "local attention (a 128-wide band)",
+                  fn(lambda q, k, v, o, c: F.sparse_attention(q, k, v, o,
+                                                              c)),
+                  [arr(2, 8, seq, 64), arr(2, 8, seq, 64),
+                   arr(2, 8, seq, 64), offset, flat], (0, 1, 2), 2 * B))
+    small = arr(16, 64, 28, 28)
+    cases += [
+        ("InstanceNorm2D(64)", "style transfer",
+         layer(lambda: pnn.InstanceNorm2D(64)), [small], (0,),
+         B),
+        ("LocalResponseNorm(5)", "AlexNet",
+         layer(lambda: pnn.LocalResponseNorm(5)), [small],
+         (0,), B),
+        ("RMSNorm(4096)", "an LLM block",
+         layer(lambda: pnn.RMSNorm(4096)), [arr(8, 128, 4096)],
+         (0,), B),
+        ("ChannelShuffle(4)", "ShuffleNet",
+         layer(lambda: pnn.ChannelShuffle(4)), [small], (0,),
+         B),
+        ("unfold(3, padding 1) + fold", "im2col",
+         fn(lambda x: F.fold(F.unfold(x, 3, paddings=1), [28, 28], 3,
+                             paddings=1)), [small], (0,), B),
+        ("max_pool2d(mask) + max_unpool2d", "SegNet",
+         fn(lambda x: F.max_unpool2d(*F.max_pool2d(x, 2, 2,
+                                                   return_mask=True), 2, 2)),
+         [small], (0,), None),
+        ("adaptive_max_pool3d(4)", "video classifiers",
+         fn(lambda x: F.adaptive_max_pool3d(x, 4)), [arr(4, 32, 8, 28, 28)],
+         (0,), None),
+        ("lp_pool2d(2, 3, 2)", "LP pooling",
+         fn(lambda x: F.lp_pool2d(x, 2.0, 3, 2)), [small], (0,), None),
+        ("Conv1DTranspose(64, 32, 4, stride=2, padding=1)", "WaveNet-style "
+         "upsampling", layer(lambda: pnn.Conv1DTranspose(
+             64, 32, 4, stride=2, padding=1)),
+         [arr(16, 64, 1024)], (0,), B),
+        ("Conv3DTranspose(32, 16, 2, stride=2)", "a 3-D U-Net decoder",
+         layer(lambda: pnn.Conv3DTranspose(32, 16, 2, stride=2)),
+         [arr(2, 32, 16, 16, 16)], (0,), B),
+        ("temporal_shift(8)", "TSM video models",
+         fn(lambda x: F.temporal_shift(x, 8)), [arr(64, 64, 14, 14)], (0,),
+         B),
+        ("pad(reflect) + zeropad2d", "image-to-image models",
+         fn(lambda x: F.zeropad2d(F.pad(x, [3, 3, 3, 3], mode="reflect"),
+                                  [1, 0, 1, 0])), [small], (0,), B),
+    ]
+    return cases
+
+
+def nn_second_half_phase(torch, np):
+    """Every layer and functional of the slice on the card, forward and
+    backward, at a size its users run (``_second_half_cases``): fp32 on the
+    card against the CPU port in fp32 on the same weights and inputs
+    (relative L2 norm within ``SECOND_HALF_FP32_TOL``, TF32 off), and bf16
+    on the card against the card's fp32 (within each case's limit, one bf16
+    step but where ``_second_half_cases`` says otherwise); the device ms
+    of a forward and backward in each dtype. Then ``class_center_sample``'s rules on the card and
+    ``weight_norm`` / ``spectral_norm`` hooks on a conv against the CPU."""
+    import paddle_tpu_torch.nn as pnn
+    import paddle_tpu_torch.nn.functional as F
+    import copy
+
+    from paddle_tpu_torch.framework import random as rnd
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    kernels.reset_launch_counts()
+    out, failed = {}, []
+    for i, (name, use, make, arrays, diff, bf16_tol) in enumerate(
+            _second_half_cases(torch, np, pnn, F)):
+        cpu = _second_half_run(torch, make("cpu", torch.float32), arrays,
+                               diff, "cpu", torch.float32, i)
+        card_fn = make("cuda", torch.float32)
+        card = _second_half_run(torch, card_fn, arrays, diff, "cuda",
+                                torch.float32, i)
+        errs = [_rel_l2(g, w) for g, w in zip(card[0] + card[1],
+                                              cpu[0] + cpu[1])]
+        r = {"use": use, "fp32_rel_l2": max(errs),
+             "fp32_ms": _second_half_ms(torch, card_fn, arrays, diff,
+                                        torch.float32)}
+        if max(errs) > SECOND_HALF_FP32_TOL:
+            failed.append(f"{name} fp32: {max(errs):.3g}")
+        if bf16_tol is not None:
+            low_fn = make("cuda", torch.bfloat16)
+            low = _second_half_run(torch, low_fn, arrays, diff, "cuda",
+                                   torch.bfloat16, i)
+            lerr = [_rel_l2(g, w) for g, w in zip(low[0] + low[1],
+                                                  card[0] + card[1])]
+            r.update(bf16_rel_l2=max(lerr), bf16_ms=_second_half_ms(
+                torch, low_fn, arrays, diff, torch.bfloat16))
+            if max(lerr) > bf16_tol:
+                failed.append(f"{name} bf16: {max(lerr):.3g} > {bf16_tol}")
+        out[name] = r
+        torch.cuda.empty_cache()
+    # class_center_sample: every positive kept, the labels remapped onto
+    # them, the count asked for, the same draw after the same seed
+    label = torch.randint(0, 10000, (128,), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(97))
+    rnd.seed(98)
+    remap, sampled = (t.as_subclass(torch.Tensor) for t in
+                      F.class_center_sample(label, 10000, 1000))
+    rnd.seed(98)
+    again = F.class_center_sample(label, 10000, 1000)[1].as_subclass(
+        torch.Tensor)
+    _require(sampled.numel() == 1000 and bool((sampled[remap] == label).all())
+             and torch.unique(sampled).numel() == 1000
+             and bool(torch.isin(label, sampled).all())
+             and torch.equal(again, sampled),
+             "class_center_sample keeps every positive, remaps the labels "
+             "onto the sample, draws 1000 classes and replays its draw")
+    # the hooks: the same conv (its JAX-named tensors) on the card and CPU
+    torch.manual_seed(99)
+    x = torch.randn(16, 64, 28, 28)
+    for name, hook in (("weight_norm", pnn.utils.weight_norm),
+                       ("spectral_norm", pnn.utils.spectral_norm)):
+        with _on_the_host():
+            conv = pnn.Conv2D(64, 64, 3, padding=1)
+        got = []
+        for dev in ("cpu", "cuda"):
+            # a hooked layer holds its recomputed weight, which deepcopy
+            # refuses (a non-leaf): hook a copy on each device
+            c = hook(copy.deepcopy(conv).to(dev))
+            y = c(x.to(dev))
+            y.square().sum().backward()
+            got.append([y.detach().cpu()] + [p.grad.cpu() for p in
+                                             c.parameters()])
+        err = max(_rel_l2(g, w) for g, w in zip(got[1], got[0]))
+        out[f"{name} hook on Conv2D(64, 64, 3)"] = {"fp32_rel_l2": err}
+        if err > SECOND_HALF_FP32_TOL:
+            failed.append(f"{name} hook: {err:.3g}")
+    counts = kernels.launch_counts()
+    for f in failed:
+        print(f"nn_second_half failed: {f}")
+    _require(not failed, f"{len(failed)} nn_second_half cases disagree")
+    _no_kernel_launched(counts, "nn_second_half")
+    return {"cases": out, "launches": counts}
+
+
 #: the paddle_api phase: warm-up and timed steps of each run
 API_STEPS = (3, 5)
 #: the card's op sweep: inputs grow ``k`` times per axis from the table's
@@ -4629,19 +5263,31 @@ def main():
           f"paths (<type, accesses a lane, 16-byte vectors>): "
           f"{json.dumps(ptxas_ln)}")
     timer = _Timer(torch)
+    phase_s = {}
+
+    def _t(fn):
+        """``fn``, its wall seconds recorded under its name."""
+        def run(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                phase_s[fn.__name__] = round(time.perf_counter() - t, 1)
+        return run
+
     # bring the clocks up before the first timing: half a second of work
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < 0.5:
         timer.flush.add_(1)
     torch.cuda.synchronize()
-    ln_cases, fa_cases = kernel_phase(torch, timer)
-    k5_cases, k6_cases, ln_train, k8_cases = training_kernel_phase(torch,
+    ln_cases, fa_cases = _t(kernel_phase)(torch, timer)
+    k5_cases, k6_cases, ln_train, k8_cases = _t(training_kernel_phase)(torch,
                                                                    timer)
     ln_cases += ln_train
-    k9_cases, k10_cases, k11_cases, chunked = fused_ce_kernel_phase(torch,
+    k9_cases, k10_cases, k11_cases, chunked = _t(fused_ce_kernel_phase)(torch,
                                                                     timer)
-    k1_cases, k2_cases, k3_cases = flash_kernel_phase(torch, timer)
-    dropout_cases, philox_check = dropout_kernel_phase(torch, timer)
+    k1_cases, k2_cases, k3_cases = _t(flash_kernel_phase)(torch, timer)
+    dropout_cases, philox_check = _t(dropout_kernel_phase)(torch, timer)
     for c in (ln_cases + fa_cases + k5_cases + k6_cases + k8_cases
               + k9_cases + k10_cases + k11_cases + k1_cases + k2_cases
               + k3_cases):
@@ -4681,12 +5327,12 @@ def main():
                   f"{c['cublas_product_ms']:.4f} ms; the chunked loop's "
                   f"forward: {c['chunked_loop_fwd_ms']:.4f} ms")
     print(f"build seconds a source: {json.dumps(build_info().get('per_source', {}))}")
-    serve = serving_phase(torch, np)
+    serve = _t(serving_phase)(torch, np)
     print(f"serving: {json.dumps(serve)}")
     print(f"serving: {serve['tokens_per_s']:.1f} tokens/s on {card}")
-    small = small_reference(torch, np)
+    small = _t(small_reference)(torch, np)
     print(f"small reference: {json.dumps(small)}")
-    train = training_phase(torch, np)
+    train = _t(training_phase)(torch, np)
     per_step = train["launches_per_step"]
     share = {}
     for name, cases, case in (
@@ -4703,11 +5349,11 @@ def main():
           f"backward {train['backward_ms']:.1f}, optimizer "
           f"{train['optimizer_ms']:.1f}), peak "
           f"{train['peak_memory_gib']:.2f} GiB on {card}")
-    vs_plain = training_vs_plain(torch, np)
+    vs_plain = _t(training_vs_plain)(torch, np)
     print(f"training vs plain: {json.dumps(vs_plain)}")
-    small_train = small_training_reference(torch, np)
+    small_train = _t(small_training_reference)(torch, np)
     print(f"small training reference: {json.dumps(small_train)}")
-    recipe = recipe_phase(torch, np)
+    recipe = _t(recipe_phase)(torch, np)
     recipe["chunked_loop_at_train_shape"] = chunked
     print(f"recipe: {json.dumps(recipe)}")
     print(f"recipe: {recipe['tokens_per_s']:.1f} tokens/s, step "
@@ -4716,11 +5362,11 @@ def main():
           f"{recipe['scaler_clip_ms']:.1f}, optimizer "
           f"{recipe['optimizer_ms']:.1f}), peak "
           f"{recipe['peak_memory_gib']:.2f} GiB on {card}")
-    recipe_plain = recipe_vs_plain(torch, np)
+    recipe_plain = _t(recipe_vs_plain)(torch, np)
     print(f"recipe vs plain: {json.dumps(recipe_plain)}")
-    small_recipe = small_recipe_reference(torch, np)
+    small_recipe = _t(small_recipe_reference)(torch, np)
     print(f"small recipe reference: {json.dumps(small_recipe)}")
-    drop = gpt2_dropout_phase(torch, np)
+    drop = _t(gpt2_dropout_phase)(torch, np)
     print(f"gpt2_dropout: {json.dumps(drop)}")
     print(f"gpt2_dropout: {drop['tokens_per_s']:.1f} tokens/s (recipe at "
           f"dropout 0: {recipe['tokens_per_s']:.1f}), step "
@@ -4729,9 +5375,9 @@ def main():
           f"{drop['scaler_clip_ms']:.1f}, optimizer "
           f"{drop['optimizer_ms']:.1f}), peak "
           f"{drop['peak_memory_gib']:.2f} GiB on {card}")
-    drop_plain = gpt2_dropout_vs_plain(torch, np)
+    drop_plain = _t(gpt2_dropout_vs_plain)(torch, np)
     print(f"gpt2_dropout vs plain: {json.dumps(drop_plain)}")
-    large, model = gpt3_large_phase(torch, np)
+    large, model = _t(gpt3_large_phase)(torch, np)
     per_step = large["launches_per_step"]
     large["kernel_share_of_step"] = {
         name: per_step[name] * next(c["ms"] for c in cases
@@ -4748,22 +5394,22 @@ def main():
           f"{large['scaler_clip_ms']:.1f}, optimizer "
           f"{large['optimizer_ms']:.1f}), peak "
           f"{large['peak_memory_gib']:.2f} GiB on {card}")
-    large_gen = gpt3_large_generate(torch, np, model)
+    large_gen = _t(gpt3_large_generate)(torch, np, model)
     print(f"gpt3_large generate: {json.dumps(large_gen)}")
     del model
     torch.cuda.empty_cache()
-    large_plain = gpt3_large_vs_plain(torch, np)
+    large_plain = _t(gpt3_large_vs_plain)(torch, np)
     print(f"gpt3_large vs plain: {json.dumps(large_plain)}")
-    small_d96 = small_d96_reference(torch, np)
+    small_d96 = _t(small_d96_reference)(torch, np)
     print(f"small d96 reference: {json.dumps(small_d96)}")
-    score = bert_score_phase(torch, np)
+    score = _t(bert_score_phase)(torch, np)
     print(f"bert_score: {json.dumps(score)}")
     print(f"bert_score: {score['sequences_per_s']:.1f} sequences/s, "
           f"{score['tokens_per_s']:.1f} tokens/s, a scorer call of 96 "
           f"{1e3 * score['wall_s']:.1f} ms "
           f"({score['ms_per_batch_of_32']:.1f} ms a padded batch of 32) "
           f"on {card}")
-    mlm = bert_mlm_phase(torch, np)
+    mlm = _t(bert_mlm_phase)(torch, np)
     for seq, _ in BERT_MLM_SHAPES:
         r = mlm[f"s{seq}"]
         per_step = r["launches_per_step"]
@@ -4780,16 +5426,16 @@ def main():
               f"ms (forward {r['forward_ms']:.1f}, backward "
               f"{r['backward_ms']:.1f}, optimizer {r['optimizer_ms']:.1f}), "
               f"peak {r['peak_memory_gib']:.2f} GiB on {card}")
-    mlm_plain = bert_mlm_vs_plain(torch, np)
+    mlm_plain = _t(bert_mlm_vs_plain)(torch, np)
     print(f"bert_large_mlm vs plain: {json.dumps(mlm_plain)}")
-    ernie = ernie_large_phase(torch, np)
+    ernie = _t(ernie_large_phase)(torch, np)
     print(f"ernie_large: {json.dumps(ernie)}")
     print(f"ernie_large: {ernie['tokens_per_s']:.1f} tokens/s, step "
           f"{ernie['step_ms']:.1f} ms (forward {ernie['forward_ms']:.1f}, "
           f"backward {ernie['backward_ms']:.1f}, optimizer "
           f"{ernie['optimizer_ms']:.1f}), peak "
           f"{ernie['peak_memory_gib']:.2f} GiB on {card}")
-    vision = resnet50_train_phase(torch, np)
+    vision = _t(resnet50_train_phase)(torch, np)
     print(f"resnet50_train: {json.dumps(vision)}")
     print(f"resnet50_train: {vision['images_per_s']:.1f} images/s, step "
           f"{vision['step_ms']:.1f} ms (forward {vision['forward_ms']:.1f}, "
@@ -4798,16 +5444,16 @@ def main():
           f"{vision['peak_memory_gib']:.2f} GiB, model FLOP share "
           f"{100 * vision['model_flop_share']:.1f} % of the dense bf16 peak "
           f"on {card}")
-    vision_plain = resnet50_vs_plain(torch, np)
+    vision_plain = _t(resnet50_vs_plain)(torch, np)
     print(f"resnet50_vs_plain: {json.dumps(vision_plain)}")
-    vision_eval = resnet50_eval_phase(torch, np)
+    vision_eval = _t(resnet50_eval_phase)(torch, np)
     print(f"resnet50_eval: {json.dumps(vision_eval)}")
     print(f"resnet50_eval: {vision_eval['images_per_s']:.1f} images/s "
           f"({vision_eval['ms_per_forward']:.2f} ms a forward of "
           f"{RESNET_BATCH}) on {card}")
-    lenet = lenet_phase(torch, np)
+    lenet = _t(lenet_phase)(torch, np)
     print(f"lenet: {json.dumps(lenet)}")
-    mobile = mobilenet_v3_large_train_phase(torch, np)
+    mobile = _t(mobilenet_v3_large_train_phase)(torch, np)
     print(f"mobilenet_v3_large_train: {json.dumps(mobile)}")
     print(f"mobilenet_v3_large_train: {mobile['images_per_s']:.1f} images/s, "
           f"step {mobile['step_ms']:.1f} ms (forward "
@@ -4818,7 +5464,7 @@ def main():
     print("mobilenet_v3_large_train device ms a step by kind: " + json.dumps(
         {k: round(ms / mobile["profiled_steps"], 3) for k, ms in
          mobile["profile"]["by_kind_ms"].items()}) + f" on {card}")
-    mobile_plain = mobilenet_vs_plain(torch, np)
+    mobile_plain = _t(mobilenet_vs_plain)(torch, np)
     print(f"mobilenet_vs_plain: {json.dumps(mobile_plain)}")
     for name, r in mobile_plain["eval"].items():
         print(f"mobilenet_vs_plain {name} eval x {MOBILENET_EVAL_BATCH}: "
@@ -4826,21 +5472,45 @@ def main():
               f"channels-last, {r['images_per_s_fp32_nchw']:.1f} fp32 NCHW, "
               f"logits {r['logits_max_abs_diff']:.3g} apart (largest "
               f"{r['logits_largest']:.3g}) on {card}")
-    rand_layers = nn_random_layers_phase(torch, np)
+    rand_layers = _t(nn_random_layers_phase)(torch, np)
     print(f"nn_random_layers: {json.dumps(rand_layers)} on {card}")
-    api_model, api_batches, api = paddle_api_train_phase(torch, np)
+    shuffle = _t(shufflenet_v2_train_phase)(torch, np)
+    print(f"shufflenet_v2_train: {json.dumps(shuffle)}")
+    print(f"shufflenet_v2_train: {shuffle['images_per_s']:.1f} images/s, "
+          f"step {shuffle['step_ms']:.1f} ms (forward "
+          f"{shuffle['forward_ms']:.1f}, backward "
+          f"{shuffle['backward_ms']:.1f}, optimizer "
+          f"{shuffle['optimizer_ms']:.1f}), peak "
+          f"{shuffle['peak_memory_gib']:.2f} GiB, device idle "
+          f"{100 * shuffle['profile']['device_idle_share']:.1f} % on {card}")
+    print("shufflenet_v2_train device ms a step by kind: " + json.dumps(
+        {k: round(ms / shuffle["profiled_steps"], 3) for k, ms in
+         shuffle["profile"]["by_kind_ms"].items()}) + f" on {card}")
+    shuffle_plain = _t(shufflenet_vs_plain)(torch, np)
+    print(f"shufflenet_vs_plain: {json.dumps(shuffle_plain)} on {card}")
+    second = _t(nn_second_half_phase)(torch, np)
+    print(f"nn_second_half: {json.dumps(second)}")
+    for name, r in second["cases"].items():
+        print(f"nn_second_half {name}: fp32 {r['fp32_rel_l2']:.3g} from the "
+              f"CPU port" + (f", {r['fp32_ms']:.3f} ms" if "fp32_ms" in r
+                             else "")
+              + (f"; bf16 {r['bf16_rel_l2']:.3g} from fp32, "
+                 f"{r['bf16_ms']:.3f} ms" if "bf16_ms" in r else "")
+              + f" on {card}")
+    api_model, api_batches, api = _t(paddle_api_train_phase)(torch, np)
     print(f"paddle_api: {json.dumps(api)}")
     print(f"paddle_api: GPT-2 124M step {api['step_ms']['api']:.1f} ms "
           f"through the API, the plain tensors' {api['step_ms']['plain_before']:.1f} "
           f"ms before it and {api['step_ms']['plain_after']:.1f} ms after "
           f"it, the first loss and a forward the same bits, on {card}")
-    ckpt = paddle_api_checkpoint_phase(torch, np, api_model, api_batches)
+    ckpt = _t(paddle_api_checkpoint_phase)(torch, np, api_model,
+                                           api_batches)
     del api_model
     torch.cuda.empty_cache()
     print(f"paddle_api checkpoint: {json.dumps(ckpt)}")
-    sweep = paddle_api_op_sweep(torch, np)
+    sweep = _t(paddle_api_op_sweep)(torch, np)
     print(f"paddle_api op sweep: {json.dumps(sweep)}")
-    hapi = hapi_gpt2_phase(torch, np)
+    hapi = _t(hapi_gpt2_phase)(torch, np)
     print(f"hapi_gpt2: {json.dumps(hapi)}")
     ms, tps = hapi["step_ms"], hapi["tokens_per_s"]
     gate = hapi["step_gate"]
@@ -4852,19 +5522,19 @@ def main():
           f"{100 * gate['tolerance']:.0f} %: {gate['within']}; syncs a timed "
           f"step {json.dumps(hapi['syncs_per_step'])}; peak "
           f"{hapi['peak_memory_gib']:.2f} GiB on {card}")
-    resume = hapi_resume_phase(torch, np)
+    resume = _t(hapi_resume_phase)(torch, np)
     print(f"hapi_resume: {json.dumps(resume)}")
     print(f"hapi_resume: checkpoint {resume['checkpoint_bytes_total'] / 2 ** 30:.2f}"
           f" GiB, save {resume['save_s']['mean_s']:.2f} s, restore "
           f"{resume['restore_s']:.2f} s, every state restored bit for bit "
           f"on {card}")
-    lenet_fit = hapi_lenet_phase(torch, np)
+    lenet_fit = _t(hapi_lenet_phase)(torch, np)
     print(f"hapi_lenet: {json.dumps(lenet_fit)}")
     print(f"hapi_lenet: {lenet_fit['train_images_per_s']:.1f} images/s "
           f"training, {lenet_fit['eval_images_per_s']:.1f} evaluating, eval "
           f"top-1 {lenet_fit['eval_logs']['acc_top1']:.4f} (at least "
           f"{LENET_MIN_ACC}) on {card}")
-    chaos, serve_model = serving_chaos_phase(torch, np)
+    chaos, serve_model = _t(serving_chaos_phase)(torch, np)
     print(f"serving_chaos: {json.dumps(chaos)}")
     print(f"serving_chaos: {chaos['submitted']} requests, reasons "
           f"{json.dumps(chaos['finish_reasons'])}, {chaos['survivors']} "
@@ -4878,7 +5548,7 @@ def main():
           f"{chaos['footprints']['decode_peak_bytes'] / 2 ** 30:.3f} GiB of "
           f"the card's {chaos['device_total_bytes'] / 2 ** 30:.2f} GiB on "
           f"{card}")
-    prof_serve = profiler_serving_phase(torch, np, serve_model)
+    prof_serve = _t(profiler_serving_phase)(torch, np, serve_model)
     del serve_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4891,7 +5561,7 @@ def main():
           f"{tick['handwritten']:.3f}, cuBLAS products {tick['cublas']:.3f}, "
           f"the rest {tick['rest']:.3f}; idle "
           f"{100 * prof_serve['decode_tick_idle_share']:.1f} % on {card}")
-    dev = devprof_hapi_phase(torch, np)
+    dev = _t(devprof_hapi_phase)(torch, np)
     print(f"devprof_hapi: {json.dumps({k: v for k, v in dev.items() if k != 'table'})}")
     print(dev["table"])
     print(f"devprof_hapi: flops {dev['flops']:.6g} against the hand count "
@@ -4930,6 +5600,8 @@ def main():
                 "resnet50_eval": vision_eval["launches"][name],
                 "lenet": lenet["launches"][name],
                 "mobilenet_v3_large_train": mobile["launches"][name],
+                "shufflenet_v2_train": shuffle["launches"][name],
+                "nn_second_half": second["launches"][name],
                 "paddle_api": api["launches"][name],
                 "hapi_gpt2": hapi["launches"][name],
                 "hapi_resume": resume["launches"][name],
@@ -4939,7 +5611,8 @@ def main():
                 "devprof_hapi": dev["launches"][name]}
 
     vision_paths = ("resnet50_train", "resnet50_eval", "lenet", "hapi_lenet",
-                    "mobilenet_v3_large_train")
+                    "mobilenet_v3_large_train", "shufflenet_v2_train",
+                    "nn_second_half")
 
     def only(name, *keys):
         # the vision paths launch none of K1-K11: every entry says so
@@ -5100,7 +5773,7 @@ def main():
     left = _descendants()
     _require(not left, f"no process left running at the end (pids {left})")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
-          f"{build_s:.1f} s of it")
+          f"{build_s:.1f} s of it; seconds by phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,43 +1,20 @@
 """``paddle_tpu_torch.nn``: functionals, layers (the activation and loss
-layers among them), containers, initializers and gradient clipping."""
-from . import functional, initializer  # noqa: F401
+layers among them), containers, initializers, gradient clipping and
+``utils`` (the weight- and spectral-norm hooks, the parameter-vector
+transforms)."""
+from . import functional, initializer, utils  # noqa: F401
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401
 from .layer.activation import *  # noqa: F401,F403
 from .layer.loss import *  # noqa: F401,F403
+from .layer.common import *  # noqa: F401,F403
+from .layer.conv import *  # noqa: F401,F403
+from .layer.norm import *  # noqa: F401,F403
+from .layer.pooling import *  # noqa: F401,F403
 from .layer import (  # noqa: F401
-    AdaptiveAvgPool1D,
-    AdaptiveAvgPool2D,
-    AdaptiveAvgPool3D,
-    AdaptiveMaxPool2D,
-    AlphaDropout,
-    AvgPool1D,
-    AvgPool2D,
-    AvgPool3D,
-    BatchNorm,
-    BatchNorm1D,
-    BatchNorm2D,
-    BatchNorm3D,
-    Bilinear,
-    Conv1D,
-    Conv2D,
-    Conv3D,
-    CosineSimilarity,
-    Dropout,
-    Dropout2D,
-    Dropout3D,
-    Embedding,
-    Flatten,
-    Identity,
     Layer,
     LayerDict,
     LayerList,
-    LayerNorm,
-    Linear,
-    MaxPool1D,
-    MaxPool2D,
-    MaxPool3D,
     MultiHeadAttention,
-    PairwiseDistance,
     ParamAttr,
     ParameterList,
     Sequential,

@@ -1,6 +1,8 @@
 """Functionals of the port (``paddle_tpu/nn/functional``: the serving,
-training, encoder and vision subset, the activations, dropouts, common
-functionals and losses; what still waits is listed in
+training, encoder and vision subset, the activations, dropouts, padding,
+resampling and rearrangements, the convolutions and their transposes, the
+pools, norms and losses, the sampling grids, ``sequence_mask`` and
+``sparse_attention``; what still waits is listed in
 ``tests/test_torch_api_coverage.py::F_WAITING``).
 
 The functions here take Paddle Tensors as well as plain torch tensors
@@ -16,6 +18,9 @@ from . import conv as _conv
 from . import loss as _loss
 from . import norm as _norm
 from . import pooling as _pooling
+from . import sequence as _sequence
+from . import sparse_attention as _sparse_attention
+from . import vision as _vision
 from .attention import LengthMask  # noqa: F401
 from ...ops import fused as _fused
 
@@ -23,13 +28,13 @@ _NAMES = {
     _activation: tuple(_activation.__all__),
     _attention: ("flash_attention", "scaled_dot_product_attention"),
     _common: tuple(_common.__all__),
-    _conv: ("conv1d", "conv2d", "conv3d"),
+    _conv: tuple(_conv.__all__),
     _loss: tuple(_loss.__all__),
-    _norm: ("batch_norm", "layer_norm", "normalize"),
-    _pooling: ("adaptive_avg_pool1d", "adaptive_avg_pool2d",
-               "adaptive_avg_pool3d", "adaptive_max_pool2d", "avg_pool1d",
-               "avg_pool2d", "avg_pool3d", "max_pool1d", "max_pool2d",
-               "max_pool3d"),
+    _norm: tuple(_norm.__all__),
+    _pooling: tuple(_pooling.__all__),
+    _sequence: ("sequence_mask",),
+    _sparse_attention: ("sparse_attention",),
+    _vision: ("affine_grid", "grid_sample"),
     _fused: ("fused_linear_cross_entropy",),
 }
 for _mod, _names in _NAMES.items():

@@ -1,8 +1,8 @@
 """Loss functionals — port of ``paddle_tpu/nn/functional/loss.py``
 (``cross_entropy`` and the routes it takes, ``mse_loss``, ``l1_loss``, the
 binary, negative log-likelihood, divergence, regression, margin, embedding
-and focal losses; ``ctc_loss``, ``hsigmoid_loss`` and
-``margin_cross_entropy`` wait for ``ROADMAP.md`` A7), in plain PyTorch.
+and focal losses, ``ctc_loss``, ``hsigmoid_loss`` and
+``margin_cross_entropy``), in plain PyTorch.
 
 ``cross_entropy`` has the JAX package's three routes, each behind the
 ``amp`` hook of its JAX op names (all on the black list, so they run in
@@ -32,14 +32,31 @@ every element, ``sigmoid_focal_loss`` sums by default and divides by
 ``normalizer``. ``binary_cross_entropy`` with a ``weight`` multiplies the
 loss by it (the JAX package raises a ``TypeError`` there, ``ROADMAP.md``
 C).
+
+``ctc_loss`` (the JAX op ``ctc_op``, black list) takes raw logits ``[T, B,
+C]``, applies ``log_softmax`` itself, as the JAX package (and Paddle's
+warpctc) do, and runs PyTorch's CTC on the result (``"mean"`` divides each
+loss by its label length first); ``norm_by_times`` divides each sequence's
+gradient by its input length and leaves the loss as it is, as Paddle
+documents it (the JAX package drops the flag; ``ROADMAP.md`` C).
+``hsigmoid_loss`` walks the default complete binary tree (internal nodes
+heap-indexed, Paddle's ``SimpleCode``) or a caller's ``path_table`` /
+``path_code`` and sums a binary cross entropy a node; its weight gradient
+is dense (``is_sparse`` too, as ``F.embedding(sparse=True)``).
+``margin_cross_entropy`` is ArcFace's combined margin on cosine logits, on
+one card (``group`` raises, naming ``ROADMAP.md`` A8).
 """
 from __future__ import annotations
 
+import functools
+import math
+
+import numpy as np
 import torch
 
 from ...amp.auto_cast import cast_inputs as _amp_cast
 from ...ops import math as _math
-from ...ops.dispatch import apply_op, op, scalar_like
+from ...ops.dispatch import apply_op, op, plain, scalar_like
 from . import common as _common
 
 __all__ = ["cross_entropy", "mse_loss", "l1_loss", "binary_cross_entropy",
@@ -49,7 +66,8 @@ __all__ = ["cross_entropy", "mse_loss", "l1_loss", "binary_cross_entropy",
            "triplet_margin_loss", "triplet_margin_with_distance_loss",
            "square_error_cost", "sigmoid_focal_loss", "log_loss",
            "multi_label_soft_margin_loss", "softmax_with_cross_entropy",
-           "npair_loss", "dice_loss"]
+           "npair_loss", "dice_loss", "ctc_loss", "hsigmoid_loss",
+           "margin_cross_entropy"]
 
 
 def _reduce(out, reduction):
@@ -474,3 +492,120 @@ def dice_loss(input, label, epsilon=1e-5, name=None):
     union = torch.sum(x, dim=axes) + torch.sum(lab, dim=axes)
     dice = inter * 2.0 / (union + epsilon)
     return torch.mean(1.0 - dice)
+
+
+class _GradScale(torch.autograd.Function):
+    """``x`` forward; the gradient times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(scale)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (scale,) = ctx.saved_tensors
+        return g * scale, None
+
+
+@op("ctc_op")
+def _ctc_raw(logits, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    logp = torch.log_softmax(logits.float(), -1)
+    ilen, llen = input_lengths.long(), label_lengths.long()
+    loss = torch.nn.functional.ctc_loss(
+        logp, labels.long(), ilen, llen, blank=blank, reduction="none")
+    if norm_by_times:
+        loss = _GradScale.apply(loss, 1.0 / ilen.clamp_min(1).to(loss.dtype))
+    if reduction == "mean":
+        loss = (loss / llen.clamp_min(1).to(loss.dtype)).mean()
+    else:
+        loss = _reduce(loss, reduction)
+    return loss.to(logits.dtype)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """CTC of raw logits ``log_probs`` ``[T, B, C]`` (normalised here)
+    against ``labels`` ``[B, S]`` (padded; ``label_lengths`` long), each
+    sequence ``input_lengths`` steps long."""
+    return _ctc_raw(log_probs, labels, input_lengths, label_lengths,
+                    blank=blank, reduction=reduction,
+                    norm_by_times=bool(norm_by_times))
+
+
+@functools.lru_cache(maxsize=2)
+def _default_tree(num_classes):
+    """The root-to-leaf internal nodes (-1 past a short path) and codes
+    (1: right child) of each class's leaf, heap position ``c +
+    num_classes - 1``: built on the host once a class count, as whole
+    arrays. In 1-based heap numbering ``v`` of a leaf at depth
+    ``L``, its ancestor at depth ``i`` is ``v >> (L - i)`` and the branch
+    taken below it is bit ``L - i - 1`` of ``v``."""
+    depth = max(1, math.ceil(math.log2(max(2, num_classes))))
+    v = np.arange(num_classes, dtype=np.int64) + num_classes
+    leaf_depth = np.frexp(v.astype(np.float64))[1].astype(np.int64) - 1
+    i = np.arange(depth)[:, None]
+    on = i < leaf_depth
+    shift = np.where(on, leaf_depth - i, 1)
+    tab = np.where(on, (v >> shift) - 1, -1).astype(np.int32).T
+    code = np.where(on, (v >> (shift - 1)) & 1, 0).astype(np.float32).T
+    return np.ascontiguousarray(tab), np.ascontiguousarray(code)
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """``[N, 1]``: a sample's sum over its label's path of
+    ``softplus(z) - code * z``, ``z = x . weight[node] + bias[node]``."""
+    if path_table is None:
+        tab, code = _default_tree(int(num_classes))
+        tab, code = torch.from_numpy(tab), torch.from_numpy(code)
+    else:
+        tab, code = (plain(t) if isinstance(t, torch.Tensor)
+                     else torch.as_tensor(np.asarray(t))
+                     for t in (path_table, path_code))
+
+    def fwd(x, y, w, b=None):
+        y = y.reshape(-1).long()
+        nodes = tab.to(x.device)[y].long()
+        codes = code.to(x.device)[y].to(x.dtype)
+        valid = (nodes >= 0).to(x.dtype)
+        safe = nodes.clamp_min(0)
+        # embedding's gather: its backward sums the rows' gradients in one
+        # sorted pass, where indexing's scatters them one by one
+        logits = torch.einsum("nf,ndf->nd", x,
+                              torch.nn.functional.embedding(safe, w))
+        if b is not None:
+            logits = logits + torch.nn.functional.embedding(
+                safe, b.reshape(-1, 1)).squeeze(-1)
+        per = torch.nn.functional.softplus(logits) - codes * logits
+        return (per * valid).sum(-1, keepdim=True)
+
+    args = (input, label, weight) + (() if bias is None else (bias,))
+    return apply_op("hsigmoid_loss", fwd, args, {})
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean"):
+    """ArcFace's combined margin: the label's cosine ``cos(t)`` becomes
+    ``cos(margin1 t + margin2) - margin3``, every logit is scaled by
+    ``scale``, then softmax cross entropy (``"none"``: ``[N, 1]``)."""
+    if group is not None:
+        raise NotImplementedError(
+            "margin_cross_entropy(group=...): the model-parallel class split "
+            "waits for the distributed port (ROADMAP.md A8)")
+
+    def fwd(lg, y):
+        y = y.reshape(-1).long()
+        theta = torch.arccos(torch.clamp(lg, -1.0 + 1e-7, 1.0 - 1e-7))
+        target = torch.cos(margin1 * theta + margin2) - margin3
+        onehot = torch.nn.functional.one_hot(y, lg.shape[1]).to(lg.dtype)
+        adj = (lg * (1.0 - onehot) + target * onehot) * scale
+        loss = torch.logsumexp(adj, -1) - (adj * onehot).sum(-1)
+        out = loss[:, None] if reduction == "none" else _reduce(loss,
+                                                               reduction)
+        return (out, torch.softmax(adj, -1)) if return_softmax else out
+
+    return apply_op("margin_cross_entropy", fwd, (logits, label), {})

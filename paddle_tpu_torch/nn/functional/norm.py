@@ -1,5 +1,6 @@
 """Normalization functionals — port of ``paddle_tpu/nn/functional/norm.py``
-(``layer_norm``, ``batch_norm`` and ``normalize``).
+(``layer_norm``, ``batch_norm``, ``normalize``, ``instance_norm``,
+``group_norm``, ``local_response_norm`` and ``spectral_norm``).
 
 Routing as in the JAX package: a last-axis affine LayerNorm whose feature
 count is a multiple of 128 goes to the kernel wrapper (K7 forward and K8
@@ -21,6 +22,22 @@ another dtype than fp32 are updated in fp32 and rounded back once. On the
 card a bf16/fp16 input whose gamma takes a gradient runs channels-last,
 its gradient too (``_rounds_affine_grads``), and comes back in the layout
 it came in.
+
+``instance_norm`` and ``group_norm`` are the JAX ops ``instance_norm_op``
+and ``group_norm_op`` (the ``amp`` black list): fp32 statistics (the mean,
+then the mean of the squared deviations), the affine in fp32 and the output
+in ``x``'s dtype. ``instance_norm`` takes the statistics of each sample's
+channel and, as the JAX package and Paddle's dygraph op, ignores
+``running_mean``, ``running_var``, ``use_input_stats``, ``momentum`` and
+``data_format``. ``group_norm`` takes a group's statistics as the mean of
+its channels' (every channel has as many elements), so neither reshapes the
+input: elementwise ops keep a channels-last input channels-last.
+``local_response_norm`` divides by ``(k + alpha * sum)^beta`` with the sum
+of squares over a window of ``size`` channels (the JAX package's sum, not
+Paddle's ``alpha / size``; ``ROADMAP.md`` C), and ``spectral_norm`` divides
+the weight by its largest singular value from ``power_iters`` power
+iterations from the given ``u``, ``v``, which it does not write back (as
+Paddle's op); the gradient runs through the iterations, as JAX's does.
 """
 from __future__ import annotations
 
@@ -31,7 +48,8 @@ from ...ops.cuda import layer_norm as _ln
 from ...ops.dispatch import op
 from .conv import CHANNELS_LAST
 
-__all__ = ["layer_norm", "batch_norm", "normalize"]
+__all__ = ["layer_norm", "batch_norm", "normalize", "instance_norm",
+           "group_norm", "local_response_norm", "spectral_norm"]
 
 
 def _layer_norm_raw(x, normalized_shape, weight=None, bias=None,
@@ -153,3 +171,113 @@ def _normalize_raw(x, p=2.0, axis=1, epsilon=1e-12):
 def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
     """``x`` over its ``p``-norm along ``axis`` (at least ``epsilon``)."""
     return _normalize_raw(x, p=float(p), axis=axis, epsilon=epsilon)
+
+
+def _affine(out, weight, bias, axis):
+    shape = [1] * out.ndim
+    shape[axis] = -1
+    return out * weight.float().reshape(shape) + bias.float().reshape(shape)
+
+
+@op("instance_norm_op")
+def _instance_norm_raw(x, weight=None, bias=None, epsilon=1e-5,
+                       has_affine=False):
+    xf = x.float()
+    axes = tuple(range(2, x.ndim))
+    mean = xf.mean(axes, keepdim=True)
+    var = (xf - mean).square().mean(axes, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + epsilon)
+    if has_affine:
+        out = _affine(out, weight, bias, 1)
+    return out.to(x.dtype)
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Each sample's channel normalised over its spatial axes (axis 1 the
+    channel axis, whatever ``data_format`` says, as in the JAX package)."""
+    if weight is not None and bias is not None:
+        return _instance_norm_raw(x, weight, bias, epsilon=eps,
+                                  has_affine=True)
+    return _instance_norm_raw(x, epsilon=eps, has_affine=False)
+
+
+@op("group_norm_op")
+def _group_norm_raw(x, weight=None, bias=None, epsilon=1e-5, groups=1,
+                    channel_last=False):
+    if channel_last:
+        x = x.movedim(-1, 1)
+    n, c = x.shape[:2]
+    xf = x.float()
+    axes = tuple(range(2, x.ndim))
+    lift = [n, c] + [1] * len(axes)
+
+    def group_mean(per_channel):
+        g = per_channel.reshape(n, groups, c // groups).mean(-1)
+        return g.repeat_interleave(c // groups, 1).reshape(lift)
+
+    mean = group_mean(xf.mean(axes))
+    dev = xf - mean
+    var = group_mean(dev.square().mean(axes))
+    out = dev * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight.float().reshape(c, *[1] * len(axes))
+    if bias is not None:
+        out = out + bias.float().reshape(c, *[1] * len(axes))
+    out = out.to(x.dtype)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Each sample's ``num_groups`` channel groups normalised over the
+    group's channels and spatial axes, then ``weight`` and ``bias`` where
+    given (the JAX package drops a bias given without a weight and fails
+    on a weight without a bias; ``ROADMAP.md`` C)."""
+    return _group_norm_raw(x, weight, bias, epsilon=epsilon,
+                           groups=int(num_groups),
+                           channel_last=data_format.endswith("C")
+                           and data_format != "NCHW")
+
+
+@op("local_response_norm_op")
+def _lrn_raw(x, size=5, alpha=1e-4, beta=0.75, k=1.0, channel_last=False):
+    if channel_last:
+        x = x.movedim(-1, 1)
+    c = x.shape[1]
+    half = size // 2
+    sq = torch.nn.functional.pad(x.square().movedim(1, -1),
+                                 (half, size - half - 1)).movedim(-1, 1)
+    acc = sum(sq[:, i:i + c] for i in range(size))
+    out = x / (k + alpha * acc) ** beta
+    return out.movedim(1, -1) if channel_last else out
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """``x / (k + alpha * s)^beta``, ``s`` the sum of squares over ``size``
+    neighbouring channels (zeros past the ends)."""
+    return _lrn_raw(x, size=int(size), alpha=alpha, beta=beta, k=k,
+                    channel_last=data_format not in ("NCHW", "NCL", "NCW",
+                                                     "NCDHW"))
+
+
+@op("spectral_norm_op")
+def _spectral_norm_raw(weight, u, v, dim=0, power_iters=1, eps=1e-12):
+    wm = weight.movedim(dim, 0)
+    wm = wm.reshape(wm.shape[0], -1)
+    for _ in range(power_iters):
+        v = wm.t() @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = wm @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    return weight / (u @ (wm @ v))
+
+
+def spectral_norm(x, weight_u, weight_v, dim=0, power_iters=1, eps=1e-12,
+                  name=None):
+    """``x`` over its largest singular value (of ``x`` as a matrix with
+    axis ``dim`` first), estimated from ``weight_u``, ``weight_v``."""
+    return _spectral_norm_raw(x, weight_u, weight_v, dim=int(dim),
+                              power_iters=int(power_iters), eps=eps)

@@ -1,6 +1,6 @@
 """Pooling — port of ``paddle_tpu/nn/functional/pooling.py`` (max and avg
-pooling in 1-3 D, adaptive avg pooling in 1-3 D, adaptive max pooling in
-2 D).
+pooling in 1-3 D, adaptive avg and max pooling in 1-3 D, power-average
+pooling in 1-2 D, and max unpooling in 1-3 D).
 
 The JAX package pools with ``lax.reduce_window`` (no Pallas kernel), so the
 port calls PyTorch's pooling ops, and follows the JAX package where the two
@@ -24,6 +24,15 @@ differ:
 * Adaptive windows are ``[floor(i * in / out), ceil((i + 1) * in / out))``
   in both packages.
 * ``NHWC`` (``NLC``, ``NDHWC``) inputs pool on their channels-last view.
+* ``adaptive_max_pool1d/2d/3d`` are the JAX op ``adaptive_max_pool_nd``;
+  ``return_mask`` gives PyTorch's flat argmax indices (int64), where the
+  JAX package raises.
+* ``lp_pool1d/2d`` compute ``(k * avg_pool(|x|^p))^(1/p)`` from the port's
+  ``abs``, ``pow`` and ``multiply`` ops, as the JAX package composes them
+  (so ``amp`` casts the power to fp32).
+* ``max_unpool1d/2d/3d`` scatter each value to its flat index in a zero
+  output of ``(in - 1) * stride - 2 * padding + kernel`` (or the
+  ``output_size``) a spatial dim.
 """
 from __future__ import annotations
 
@@ -32,13 +41,16 @@ import math
 import torch
 import torch.nn.functional as TF
 
+from ...ops import math as _m
+from ...ops.dispatch import apply_op, op
 from .conv import _norm_padding, _norm_tuple, pad_input, same_pads
 
 __all__ = [
     "max_pool1d", "max_pool2d", "max_pool3d",
     "avg_pool1d", "avg_pool2d", "avg_pool3d",
     "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
-    "adaptive_max_pool2d",
+    "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
+    "lp_pool1d", "lp_pool2d", "max_unpool1d", "max_unpool2d", "max_unpool3d",
 ]
 
 _MAX = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
@@ -198,8 +210,97 @@ def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
                      data_format.endswith("C"), 3)
 
 
+_ADAPTIVE_MAX = {1: TF.adaptive_max_pool1d, 2: TF.adaptive_max_pool2d,
+                 3: TF.adaptive_max_pool3d}
+
+
+@op("adaptive_max_pool_nd")
+def _adaptive_max_raw(x, output_size=(), return_mask=False, nd=2):
+    return _ADAPTIVE_MAX[nd](x, output_size, return_indices=return_mask)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    """``return_mask`` gives PyTorch's flat argmax indices (int64); the JAX
+    package raises there (``ROADMAP.md`` C)."""
+    return _adaptive_max_raw(x, output_size=_norm_tuple(output_size, 1),
+                             return_mask=return_mask, nd=1)
+
+
 def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
     """``return_mask`` gives PyTorch's flat argmax indices (int64); the JAX
     package raises there (``ROADMAP.md`` C)."""
-    return TF.adaptive_max_pool2d(x, _norm_tuple(output_size, 2),
-                                  return_indices=return_mask)
+    return _adaptive_max_raw(x, output_size=_norm_tuple(output_size, 2),
+                             return_mask=return_mask, nd=2)
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    """``return_mask`` gives PyTorch's flat argmax indices (int64); the JAX
+    package raises there (``ROADMAP.md`` C)."""
+    return _adaptive_max_raw(x, output_size=_norm_tuple(output_size, 3),
+                             return_mask=return_mask, nd=3)
+
+
+def _lp_pool(x, norm_type, pool, window):
+    p = float(norm_type)
+    pooled = pool(_m.pow_(_m.abs(x), p))
+    return _m.pow_(_m.multiply(pooled, float(window)), 1.0 / p)
+
+
+def lp_pool1d(x, norm_type, kernel_size, stride=None, padding=0,
+              ceil_mode=False, data_format="NCL", name=None):
+    k = kernel_size if isinstance(kernel_size, int) else math.prod(
+        kernel_size)
+    return _lp_pool(x, norm_type, lambda v: avg_pool1d(
+        v, kernel_size, stride, padding, exclusive=False,
+        ceil_mode=ceil_mode, data_format=data_format), k)
+
+
+def lp_pool2d(x, norm_type, kernel_size, stride=None, padding=0,
+              ceil_mode=False, data_format="NCHW", name=None):
+    return _lp_pool(x, norm_type, lambda v: avg_pool2d(
+        v, kernel_size, stride, padding, ceil_mode=ceil_mode,
+        exclusive=False, data_format=data_format),
+        math.prod(_norm_tuple(kernel_size, 2)))
+
+
+def _unpool(x, indices, kernel_size, stride, padding, nd, data_format,
+            output_size):
+    channel_last = data_format.endswith("C")
+    ks = _norm_tuple(kernel_size, nd)
+    st = _norm_tuple(stride if stride is not None else kernel_size, nd)
+    pd = _norm_tuple(padding, nd)
+
+    def fwd(v, idx):
+        if channel_last:
+            v, idx = v.movedim(-1, 1), idx.movedim(-1, 1)
+        n, c = v.shape[:2]
+        if output_size is not None:
+            out = tuple(int(o) for o in output_size)[-nd:]
+        else:
+            out = tuple((v.shape[2 + d] - 1) * st[d] - 2 * pd[d] + ks[d]
+                        for d in range(nd))
+        flat = v.new_zeros(n, c, math.prod(out)).scatter(
+            2, idx.reshape(n, c, -1).long(), v.reshape(n, c, -1))
+        flat = flat.reshape(n, c, *out)
+        return flat.movedim(1, -1) if channel_last else flat
+
+    return apply_op("max_unpool%dd" % nd, fwd, (x, indices), {})
+
+
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+    return _unpool(x, indices, kernel_size, stride, padding, 1,
+                   "NCW" if data_format in ("NCL", "NCW") else "NWC",
+                   output_size)
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+    return _unpool(x, indices, kernel_size, stride, padding, 2, data_format,
+                   output_size)
+
+
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+    return _unpool(x, indices, kernel_size, stride, padding, 3, data_format,
+                   output_size)

@@ -14,6 +14,10 @@ dropouts, ``Identity``, ``Flatten``, ``CosineSimilarity``, ``Bilinear`` and
   1/sqrt(in1))``. The dropout layers drop in ``train()`` only.
 * :func:`embedding_table` is an ``nn.Embedding`` drawn from a normal of
   ``std`` (the encoders' ``Normal(initializer_range)``).
+* The resampling, padding and rearranging layers (``Upsample``,
+  ``UpsamplingNearest2D``, ``UpsamplingBilinear2D``, ``Pad1D/2D/3D``,
+  ``ZeroPad2D``, ``PixelShuffle``, ``PixelUnshuffle``, ``ChannelShuffle``,
+  ``Fold``, ``Unfold``) hold no parameter and call their functional.
 
 Weights are drawn on the CPU from ``generator`` (``None``: PyTorch's
 default one), so one seed gives one model on every device; a Linear built
@@ -34,7 +38,10 @@ from .layers import Layer, ParamAttr, make_parameter
 
 __all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
            "AlphaDropout", "Identity", "Flatten", "CosineSimilarity",
-           "Bilinear", "PairwiseDistance", "embedding_table"]
+           "Bilinear", "PairwiseDistance", "embedding_table", "Upsample",
+           "UpsamplingNearest2D", "UpsamplingBilinear2D", "Pad1D", "Pad2D",
+           "Pad3D", "ZeroPad2D", "PixelShuffle", "PixelUnshuffle",
+           "ChannelShuffle", "Fold", "Unfold"]
 
 
 def normal_(t, std, generator=None):
@@ -42,15 +49,6 @@ def normal_(t, std, generator=None):
     with torch.no_grad():
         t.normal_(0.0, std, generator=generator)
 
-
-def _check_attrs(weight_attr, bias_attr, layer):
-    """The layers other than Linear take no ``ParamAttr`` yet
-    (``ROADMAP.md``): their default initializers only, and ``bias_attr=False``
-    for no bias."""
-    if weight_attr is not None or bias_attr not in (None, False):
-        raise NotImplementedError(
-            f"{layer}: the port takes weight_attr=None and bias_attr None or "
-            f"False, not {weight_attr!r}, {bias_attr!r}")
 
 
 class Linear(Layer):
@@ -213,3 +211,124 @@ def embedding_table(num, dim, std, generator=None):
     emb = nn.Embedding(num, dim)
     normal_(emb.weight, std, generator)
     return emb
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0,
+                         data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    """Bilinear with ``align_corners=True`` (Paddle's result; the JAX
+    package drops the flag, ``ROADMAP.md`` C)."""
+
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0,
+                         data_format)
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value,
+                     self.data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    pass
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(_PadNd):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.args = (output_sizes, kernel_sizes, strides, paddings,
+                     dilations)
+
+    def forward(self, x):
+        return F.fold(x, *self.args)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)

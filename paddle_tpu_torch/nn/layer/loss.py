@@ -1,6 +1,10 @@
 """Loss layers — port of ``paddle_tpu/nn/layer/loss.py``, on the port's
-functionals; ``CTCLoss`` and ``HSigmoidLoss`` wait for ``ROADMAP.md``
-A7(a2)."""
+functionals. ``HSigmoidLoss`` owns the tree's internal-node weight
+``[num_classes - 1, feature_size]`` (``[num_classes, feature_size]`` with
+``is_custom``, as Paddle sizes it for a caller's tree; the JAX layer keeps
+``num_classes - 1`` rows, ``ROADMAP.md`` C), drawn by ``weight_attr``
+(default Xavier-normal), and a bias (zeros; ``bias_attr=False`` leaves it
+out)."""
 from __future__ import annotations
 
 from .. import functional as F
@@ -11,7 +15,7 @@ __all__ = [
     "BCEWithLogitsLoss", "KLDivLoss", "SmoothL1Loss", "HuberLoss",
     "MarginRankingLoss", "HingeEmbeddingLoss", "CosineEmbeddingLoss",
     "TripletMarginLoss", "SigmoidFocalLoss", "MultiLabelSoftMarginLoss",
-    "TripletMarginWithDistanceLoss",
+    "TripletMarginWithDistanceLoss", "CTCLoss", "HSigmoidLoss",
 ]
 
 
@@ -203,3 +207,36 @@ class TripletMarginWithDistanceLoss(Layer):
             input, positive, negative,
             distance_function=self.distance_function, margin=self.margin,
             swap=self.swap, reduction=self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)
+
+
+class HSigmoidLoss(Layer):
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False,
+                 name=None):
+        super().__init__()
+        if num_classes < 2:
+            raise ValueError("num_classes must be >= 2")
+        self.num_classes = num_classes
+        self.is_custom = is_custom
+        self.is_sparse = is_sparse
+        rows = num_classes if is_custom else num_classes - 1
+        self.weight = self.create_parameter([rows, feature_size],
+                                            weight_attr)
+        self.bias = self.create_parameter([rows], bias_attr, is_bias=True)
+
+    def forward(self, input, label, path_table=None, path_code=None):
+        return F.hsigmoid_loss(input, label, self.num_classes, self.weight,
+                               self.bias, path_table, path_code,
+                               self.is_sparse)

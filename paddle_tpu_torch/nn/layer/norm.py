@@ -1,22 +1,36 @@
 """Normalization layers — port of ``paddle_tpu/nn/layer/norm.py``
-(``LayerNorm``, ``BatchNorm1D/2D/3D`` and the legacy ``BatchNorm``).
+(``LayerNorm``, ``BatchNorm1D/2D/3D`` and the legacy ``BatchNorm``,
+``RMSNorm``, ``GroupNorm``, ``InstanceNorm1D/2D/3D``,
+``LocalResponseNorm`` and ``SpectralNorm``).
 
 The batch norms keep their running statistics as buffers named ``_mean``
 (zeros) and ``_variance`` (ones), the names of the JAX model's
-``state_dict``; gamma starts at 1 and beta at 0. The class names are the JAX
-package's, which ``amp.decorate`` reads to keep norm layers fp32.
+``state_dict``. gamma starts at 1 and beta at 0, each drawn by its
+``weight_attr`` / ``bias_attr`` (a :class:`~.layers.ParamAttr`, an
+initializer or a name) when one is given; ``False`` leaves it out (an
+instance norm loses both, as in the JAX package, and keeps them as
+``scale`` and ``bias``). ``RMSNorm`` computes ``x * rsqrt(mean(x^2) + eps) *
+weight`` in the input's dtype (the JAX op ``rms_norm``, fp32 under
+``auto_cast``). ``SpectralNorm`` holds ``weight_u`` and ``weight_v`` drawn
+from ``N(0, 1)`` as parameters that take no gradient, as the JAX layer does.
+The class names are the JAX package's, which ``amp.decorate`` reads to keep
+norm layers fp32.
 """
 from __future__ import annotations
 
+import math
+
 import torch
-from torch import nn
 
 from .. import functional as F
-from .common import _check_attrs
+from ...ops.dispatch import apply_op
+from ..initializer import Constant, Normal
 from .layers import Layer
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D"]
+           "BatchNorm3D", "RMSNorm", "GroupNorm", "InstanceNorm1D",
+           "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
+           "SpectralNorm"]
 
 
 class LayerNorm(Layer):
@@ -28,16 +42,20 @@ class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, name=None, *, device=None, dtype=None):
         super().__init__()
-        _check_attrs(None if weight_attr is False else weight_attr,
-                     bias_attr, type(self).__name__)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        self.weight = (None if weight_attr is False else nn.Parameter(
-            torch.ones(self._normalized_shape, device=device, dtype=dtype)))
-        self.bias = (None if bias_attr is False else nn.Parameter(
-            torch.zeros(self._normalized_shape, device=device, dtype=dtype)))
+        self.weight = self.create_parameter(
+            self._normalized_shape, weight_attr, dtype,
+            default_initializer=Constant(1.0))
+        self.bias = self.create_parameter(self._normalized_shape, bias_attr,
+                                          dtype, is_bias=True)
+        if device is not None:
+            for name in ("weight", "bias"):
+                p = getattr(self, name)
+                if p is not None:
+                    p.data = p.data.to(device)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
@@ -53,15 +71,15 @@ class _BatchNormBase(Layer):
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None):
         super().__init__()
-        _check_attrs(weight_attr, bias_attr, type(self).__name__)
         self._num_features = num_features
         self._momentum = momentum
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = (None if bias_attr is False
-                     else nn.Parameter(torch.zeros(num_features)))
+        self.weight = self.create_parameter(
+            [num_features], weight_attr, default_initializer=Constant(1.0))
+        self.bias = self.create_parameter([num_features], bias_attr,
+                                          is_bias=True)
         self.register_buffer("_mean", torch.zeros(num_features))
         self.register_buffer("_variance", torch.ones(num_features))
 
@@ -114,3 +132,120 @@ class BatchNorm3D(_BatchNormBase):
                  use_global_stats=None, name=None):
         super().__init__(num_features, momentum, epsilon, weight_attr,
                          bias_attr, data_format, use_global_stats)
+
+
+class RMSNorm(Layer):
+    """``x * rsqrt(mean(x^2, -1) + epsilon) * weight``, weight starting at
+    1."""
+
+    def __init__(self, normalized_shape, epsilon=1e-6, weight_attr=None,
+                 name=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            self._normalized_shape, weight_attr,
+            default_initializer=Constant(1.0))
+
+    def forward(self, x):
+        eps = self._epsilon
+
+        def rms(v, w):
+            return v * torch.rsqrt(v.square().mean(-1, keepdim=True)
+                                   + eps) * w
+
+        return apply_op("rms_norm", rms, (x, self.weight), {})
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._num_groups = num_groups
+        self._num_channels = num_channels
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [num_channels], weight_attr, default_initializer=Constant(1.0))
+        self.bias = self.create_parameter([num_channels], bias_attr,
+                                          is_bias=True)
+
+    def forward(self, input):
+        return F.group_norm(input, self._num_groups, self._epsilon,
+                            self.weight, self.bias, self._data_format)
+
+    def extra_repr(self):
+        return (f"num_groups={self._num_groups}, num_channels="
+                f"{self._num_channels}, epsilon={self._epsilon}")
+
+
+class _InstanceNormBase(Layer):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._epsilon = epsilon
+        if weight_attr is False or bias_attr is False:
+            self.scale = self.bias = None
+        else:
+            self.scale = self.create_parameter(
+                [num_features], weight_attr,
+                default_initializer=Constant(1.0))
+            self.bias = self.create_parameter([num_features], bias_attr,
+                                              is_bias=True)
+
+    def forward(self, input):
+        return F.instance_norm(input, weight=self.scale, bias=self.bias,
+                               eps=self._epsilon)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=0.0001, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+        self.data_format = data_format
+
+    def forward(self, input):
+        return F.local_response_norm(input, self.size, self.alpha, self.beta,
+                                     self.k, self.data_format)
+
+
+class SpectralNorm(Layer):
+    """The weight it is given over its largest singular value
+    (``F.spectral_norm`` from ``weight_u`` ``[shape[dim]]`` and
+    ``weight_v`` ``[numel / shape[dim]]``)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, epsilon=1e-12,
+                 dtype="float32"):
+        super().__init__()
+        self._dim = dim
+        self._power_iters = power_iters
+        self._epsilon = epsilon
+        h = weight_shape[dim]
+        w = math.prod(weight_shape) // h
+        self.weight_u = self.create_parameter(
+            [h], dtype=dtype, default_initializer=Normal(0.0, 1.0))
+        self.weight_u.stop_gradient = True
+        self.weight_v = self.create_parameter(
+            [w], dtype=dtype, default_initializer=Normal(0.0, 1.0))
+        self.weight_v.stop_gradient = True
+
+    def forward(self, x):
+        return F.spectral_norm(x, self.weight_u, self.weight_v, self._dim,
+                               self._power_iters, self._epsilon)

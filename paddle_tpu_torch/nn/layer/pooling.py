@@ -1,7 +1,7 @@
 """Pooling layers — port of ``paddle_tpu/nn/layer/pooling.py``
-(``MaxPool1D/2D/3D``, ``AvgPool1D/2D/3D``, ``AdaptiveAvgPool1D/2D/3D`` and
-``AdaptiveMaxPool2D``), each a call of its functional
-(``nn/functional/pooling.py``)."""
+(``MaxPool1D/2D/3D``, ``AvgPool1D/2D/3D``, ``AdaptiveAvgPool1D/2D/3D``,
+``AdaptiveMaxPool1D/2D/3D`` and ``MaxUnPool1D/2D/3D``), each a call of its
+functional (``nn/functional/pooling.py``)."""
 from __future__ import annotations
 
 
@@ -12,7 +12,8 @@ __all__ = [
     "MaxPool1D", "MaxPool2D", "MaxPool3D",
     "AvgPool1D", "AvgPool2D", "AvgPool3D",
     "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
-    "AdaptiveMaxPool2D",
+    "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
+    "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D",
 ]
 
 
@@ -141,3 +142,54 @@ class AdaptiveMaxPool2D(Layer):
 
     def forward(self, x):
         return F.adaptive_max_pool2d(x, self._output_size, self._return_mask)
+
+
+class AdaptiveMaxPool1D(AdaptiveMaxPool2D):
+    def forward(self, x):
+        return F.adaptive_max_pool1d(x, self._output_size, self._return_mask)
+
+
+class AdaptiveMaxPool3D(AdaptiveMaxPool2D):
+    def forward(self, x):
+        return F.adaptive_max_pool3d(x, self._output_size, self._return_mask)
+
+
+class _MaxUnPool(Layer):
+    _fn = None
+
+    def __init__(self, kernel_size, stride=None, padding=0, data_format=None,
+                 output_size=None, name=None):
+        super().__init__()
+        self._args = (kernel_size, stride, padding, data_format, output_size)
+
+    def forward(self, x, indices):
+        k, s, p, df, osz = self._args
+        return getattr(F, self._fn)(x, indices, k, stride=s, padding=p,
+                                    data_format=df, output_size=osz)
+
+
+class MaxUnPool1D(_MaxUnPool):
+    _fn = "max_unpool1d"
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)
+
+
+class MaxUnPool2D(_MaxUnPool):
+    _fn = "max_unpool2d"
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)
+
+
+class MaxUnPool3D(_MaxUnPool):
+    _fn = "max_unpool3d"
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)

@@ -670,6 +670,11 @@ def _pad_raw(x, pad=(), mode="constant", value=0.0):
     padded = [d for d, w in enumerate(pad) if w != (0, 0)]
     if not padded:
         return x
+    if x.ndim in (3, 4, 5) and padded[0] >= 2:
+        # the spatial axes of [N, C, *spatial]: torch's own form, which
+        # keeps a channels-last input channels-last
+        flat = [w for pair in reversed(pad[2:]) for w in pair]
+        return torch.nn.functional.pad(x, flat, mode=mode)
     # torch pads the trailing 1-3 axes of a batched input: move the padded
     # axes last, fold the others into one batch axis
     rest = [d for d in range(x.ndim) if d not in padded]

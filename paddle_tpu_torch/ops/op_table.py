@@ -269,6 +269,7 @@ _f("F.fused_linear_cross_entropy", (((6, 4), "f"), ((5, 4), "f"),
 _f("F.linear", (((3, 4), "f"), ((4, 5), "f"), ((5,), "f")))
 _f("F.conv2d", (((1, 2, 5, 5), "f"), ((3, 2, 3, 3), "f")))
 _f("F.conv1d", (((1, 2, 8), "f"), ((3, 2, 3), "f")))
+_f("F.conv2d_transpose", (((1, 2, 4, 4), "f"), ((2, 3, 3, 3), "f")))
 _f("F.avg_pool2d", (((1, 2, 4, 4), "f"),), kwargs=dict(kernel_size=2))
 _f("F.max_pool2d", (((1, 2, 4, 4), "funique"),), kwargs=dict(kernel_size=2))
 _f("F.adaptive_avg_pool2d", (((1, 2, 4, 4), "f"),),
@@ -276,13 +277,21 @@ _f("F.adaptive_avg_pool2d", (((1, 2, 4, 4), "f"),),
 _f("F.layer_norm_w", (((3, 4), "f"), ((4,), "fp"), ((4,), "f")))
 _f("F.embedding", (((3,), "int:5"), ((5, 4), "f")), only=(1,))
 _f("F.dropout_eval", ((S, "f"),))
+_f("F.unfold", (((1, 2, 4, 4), "f"),), kwargs=dict(kernel_sizes=2))
+_f("F.interpolate_nearest", (((1, 2, 4, 4), "f"),), only=(0,))
+_f("F.pixel_shuffle", (((1, 4, 2, 2), "f"),), kwargs=dict(upscale_factor=2))
+_f("F.grid_sample", (((1, 1, 4, 4), "f"), ((1, 2, 2, 2), "unit")))
 _f("F.scaled_dot_product_attention",
    (((1, 4, 2, 4), "f"), ((1, 4, 2, 4), "f2"), ((1, 4, 2, 4), "f3")),
    kwargs=dict(training=False))
+_f("F.group_norm", (((2, 4, 3, 3), "f"),), kwargs=dict(num_groups=2))
+_f("F.instance_norm", (((2, 3, 4, 4), "f"),))
 _f("F.batch_norm", (((2, 3, 4, 4), "f"), ((3,), "f2"), ((3,), "fp"),
                     ((3,), "fp"), ((3,), "f3")),
    kwargs=dict(training=False), only=(0, 3, 4))
 _f("F.cosine_similarity", (((3, 4), "fnz"), ((3, 4), "f2")))
+_f("F.fold", (((1, 8, 4), "f"),),
+   kwargs=dict(output_sizes=[4, 4], kernel_sizes=2, strides=2))
 
 #: the number of the JAX table's ``F.*`` entries above
 N_JAX_F = len(F_OPS)
@@ -316,6 +325,47 @@ _f("F.multi_label_soft_margin_loss", ((S, "f"), (S, "unit"), ((4,), "unit")),
    kwargs=dict(reduction="sum"), only=(0,))
 _f("F.npair_loss", ((S, "f"), (S, "f2"), ((3,), "int:2")), only=(0, 1))
 _f("F.dice_loss", ((S, "unit"), ((3, 1), "int:4")), only=(0,))
+_f("F.zeropad2d", (((1, 2, 3, 3), "f"),), kwargs=dict(padding=[1, 0, 2, 1]))
+_f("F.pixel_unshuffle", (((1, 2, 4, 4), "f"),),
+   kwargs=dict(downscale_factor=2))
+_f("F.channel_shuffle", (((1, 4, 2, 2), "f"),), kwargs=dict(groups=2))
+_f("F.temporal_shift", (((4, 4, 2, 2), "f"),), kwargs=dict(seg_num=2))
+_f("F.affine_grid", (((2, 2, 3), "f"),),
+   kwargs=dict(out_shape=[2, 1, 3, 4], align_corners=False))
+_f("F.local_response_norm", (((1, 5, 3, 3), "f"),), kwargs=dict(size=3))
+_f("F.spectral_norm", (((4, 6), "f"), ((4,), "f2"), ((6,), "f3")),
+   kwargs=dict(power_iters=2), only=(0,))
+_f("F.adaptive_max_pool1d", (((1, 2, 7), "funique"),),
+   kwargs=dict(output_size=3))
+_f("F.adaptive_max_pool3d", (((1, 1, 4, 4, 4), "funique"),),
+   kwargs=dict(output_size=2))
+_f("F.ctc_loss_full", (((12, 2, 5), "f"), ((2, 3), "int:4")), only=(0,))
+_f("F.conv1d_transpose", (((1, 2, 5), "f"), ((2, 3, 3), "f")),
+   kwargs=dict(stride=2, padding=[1, 0], output_padding=1))
+_f("F.conv2d_transpose", (((1, 4, 4, 4), "f"), ((4, 2, 3, 3), "f"),
+                          ((4,), "f2")),
+   kwargs=dict(stride=2, padding=1, groups=2, dilation=2))
+_f("F.conv3d_transpose", (((1, 2, 3, 3, 3), "f"), ((2, 2, 2, 2, 2), "f")),
+   kwargs=dict(stride=2, output_size=[7, 6, 6]))
+_f("F.interpolate", (((1, 2, 5, 5), "f"),),
+   kwargs=dict(size=[3, 3], mode="bilinear"))
+_f("F.interpolate", (((1, 2, 5, 5), "f"),), kwargs=dict(size=[3, 2]),
+   only=(0,))
+_f("F.interpolate", (((1, 1, 3, 3), "f"),),
+   kwargs=dict(scale_factor=2, mode="bicubic"))
+_f("F.interpolate", (((1, 2, 4), "f"),), kwargs=dict(size=7, mode="linear"))
+_f("F.interpolate", (((1, 1, 3, 3, 3), "f"),),
+   kwargs=dict(size=[2, 4, 5], mode="trilinear"))
+_f("F.unfold", (((1, 2, 4, 4), "f"),),
+   kwargs=dict(kernel_sizes=2, paddings=[1, 0, 0, 1], dilations=[1, 2]))
+_f("F.fold", (((1, 8, 6), "f"),),
+   kwargs=dict(output_sizes=[4, 4], kernel_sizes=2, strides=2,
+               paddings=[1, 0, 1, 0]))
+_f("F.grid_sample", (((1, 2, 4, 4), "f"), ((1, 3, 2, 2), "f")),
+   kwargs=dict(mode="nearest", align_corners=False), only=(0,))
+_f("F.group_norm_affine", (((2, 4, 3, 3), "f"), ((4,), "fp"),
+                           ((4,), "f2")))
+_f("F.instance_norm", (((2, 3, 5), "f"),))
 # options where PyTorch's function of the same name means something else,
 # and the others' non-default options
 _f("F.hardsigmoid", ((S, "wide"),), kwargs=dict(slope=0.2, offset=0.3))
@@ -501,7 +551,9 @@ SIZE_CAP = 1 << 22
 K_OF = {"ops.kron": 16, "ops.bmm": 64, "ops.det": 16, "ops.flatten": 128,
         "ops.moveaxis": 128, "ops.cummax": 256, "ops.cummin": 256,
         "F.diag_embed": 16, "F.scaled_dot_product_attention": 16,
-        "F.bilinear": 16}
+        "F.bilinear": 16, "F.conv3d_transpose": 8, "F.ctc_loss_full": 8,
+        # the output size is an attribute: the inputs keep theirs
+        "F.affine_grid": 1, "F.fold": 1}
 #: ``k`` of the linalg entries (256-square matrices from 3-square ones)
 K_LINALG = 85
 _SHAPE_KW = {"shape", "repeat_times"}
@@ -509,7 +561,13 @@ _SHAPE_KW = {"shape", "repeat_times"}
 #: index tuple's length of gather_nd / scatter_nd_add, cross's axis of 3,
 #: the two rows setitem_rows writes
 _KEEP = {"ops.gather_nd": {1: (1,)}, "ops.scatter_nd_add": {1: (1,)},
-         "ops.cross": {0: (0,), 1: (0,)}, "ops.setitem_rows": {1: (0,)}}
+         "ops.cross": {0: (0,), 1: (0,)}, "ops.setitem_rows": {1: (0,)},
+         "F.grid_sample": {1: (3,)},
+         # a transposed conv's kernel keeps its 3 or 2 taps an axis, as its
+         # users' do (cuDNN's bf16 transposed conv at 24 x 24 taps stood 5 %
+         # from the CPU's)
+         "F.conv1d_transpose": {1: (2,)}, "F.conv2d_transpose": {1: (2, 3)},
+         "F.conv3d_transpose": {1: (2, 3, 4)}}
 
 
 def _grow(d, k):
@@ -590,6 +648,13 @@ def resolve(api, paddle):
         "F.layer_norm_w": lambda x, w, b: F.layer_norm(
             x, [int(x.shape[-1])], w, b),
         "F.dropout_eval": lambda x: F.dropout(x, 0.5, training=False),
+        "F.interpolate_nearest": lambda x: F.interpolate(
+            x, scale_factor=2, mode="nearest"),
+        "F.group_norm_affine": lambda x, w, b: F.group_norm(
+            x, 4, 1e-5, w, b),
+        "F.ctc_loss_full": lambda x, y: F.ctc_loss(
+            x, y + 1, paddle.full([x.shape[1]], x.shape[0], "int64"),
+            paddle.full([y.shape[0]], y.shape[1], "int64")),
         "F.dropout_infer": lambda x: F.dropout(
             x, 0.3, training=False, mode="downscale_in_infer"),
         "F.bce_logits_pos": lambda x, y, pw:

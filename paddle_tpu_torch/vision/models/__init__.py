@@ -1,5 +1,5 @@
-"""Vision models of the port: LeNet, the MobileNets and the ResNet
-family."""
+"""Vision models of the port: LeNet, the MobileNets, the ResNet family and
+ShuffleNetV2."""
 from .lenet import LeNet  # noqa: F401
 from .mobilenet import (  # noqa: F401
     MobileNetV1,
@@ -28,4 +28,14 @@ from .resnet import (  # noqa: F401
     resnext152_64x4d,
     wide_resnet50_2,
     wide_resnet101_2,
+)
+from .shufflenetv2 import (  # noqa: F401
+    ShuffleNetV2,
+    shufflenet_v2_swish,
+    shufflenet_v2_x0_25,
+    shufflenet_v2_x0_33,
+    shufflenet_v2_x0_5,
+    shufflenet_v2_x1_0,
+    shufflenet_v2_x1_5,
+    shufflenet_v2_x2_0,
 )

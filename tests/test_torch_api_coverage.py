@@ -25,20 +25,10 @@ WAITING = {
     "XPUPlace": "none: the port has no XPU (ROADMAP.md C)",
 }
 
-_A7A2 = "A7(a2) (padding, resampling, transposed convs, the remaining " \
-    "pools, norms and losses)"
 _A7B = "A7(b) (the RNN layers and decoding)"
 
 #: ``paddle_tpu.nn`` names still to port, by queue item
 NN_WAITING = {
-    **{n: _A7A2 for n in (
-        "AdaptiveMaxPool1D", "AdaptiveMaxPool3D", "CTCLoss", "ChannelShuffle",
-        "Conv1DTranspose", "Conv2DTranspose", "Conv3DTranspose", "Fold",
-        "GroupNorm", "HSigmoidLoss", "InstanceNorm1D", "InstanceNorm2D",
-        "InstanceNorm3D", "LocalResponseNorm", "MaxUnPool1D", "MaxUnPool2D",
-        "MaxUnPool3D", "Pad1D", "Pad2D", "Pad3D", "PixelShuffle",
-        "PixelUnshuffle", "RMSNorm", "SpectralNorm", "Unfold", "Upsample",
-        "UpsamplingBilinear2D", "UpsamplingNearest2D", "ZeroPad2D")},
     **{n: _A7B for n in (
         "BeamSearchDecoder", "BiRNN", "Decoder", "GRU", "GRUCell", "LSTM",
         "LSTMCell", "RNN", "RNNCellBase", "SimpleRNN", "SimpleRNNCell",
@@ -48,16 +38,6 @@ NN_WAITING = {
 
 #: ``paddle_tpu.nn.functional`` names still to port, by queue item
 F_WAITING = {
-    **{n: _A7A2 for n in (
-        "adaptive_max_pool1d", "adaptive_max_pool3d", "affine_grid",
-        "channel_shuffle", "class_center_sample", "conv1d_transpose",
-        "conv2d_transpose", "conv3d_transpose", "ctc_loss", "fold",
-        "grid_sample", "group_norm", "hsigmoid_loss", "instance_norm",
-        "interpolate", "local_response_norm", "lp_pool1d", "lp_pool2d",
-        "margin_cross_entropy", "max_unpool1d", "max_unpool2d",
-        "max_unpool3d", "pad", "pixel_shuffle", "pixel_unshuffle",
-        "sequence_mask", "sparse_attention", "spectral_norm",
-        "temporal_shift", "unfold", "upsample", "zeropad2d")},
     "gather_tree": _A7B,
     "Tensor": "none: the JAX package's module leaks its Tensor class into "
               "the namespace; paddle.Tensor exists",
@@ -148,7 +128,7 @@ def test_every_nn_callable_exists_or_waits():
 
     missing = [n for n in _public_callables(jnn) if not hasattr(pnn, n)]
     assert sorted(missing) == sorted(NN_WAITING)
-    assert len(_public_callables(jnn)) - len(missing) >= 89
+    assert len(_public_callables(jnn)) - len(missing) >= 118
 
 
 def test_every_functional_exists_or_waits():
@@ -158,7 +138,7 @@ def test_every_functional_exists_or_waits():
 
     missing = [n for n in _public_callables(JF) if not hasattr(PF, n)]
     assert sorted(missing) == sorted(F_WAITING)
-    assert len(_public_callables(JF)) - len(missing) >= 85
+    assert len(_public_callables(JF)) - len(missing) >= 117
 
 
 def test_every_tensor_method_exists_or_waits():

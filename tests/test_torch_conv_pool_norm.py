@@ -434,8 +434,12 @@ def test_conv_layers_draw_xavier_normal_and_take_no_param_attr():
     assert abs(float(conv.weight.detach().std()) / want - 1) < 0.02
     assert float(conv.bias.detach().abs().max()) == 0.0
     assert pnn.Conv1D(2, 3, 3, bias_attr=False).bias is None
-    with pytest.raises(NotImplementedError):
-        pnn.Conv2D(2, 3, 3, weight_attr=object())
+    # a ParamAttr is taken since A7(a2) (tests/test_torch_nn_utils.py
+    # holds every layer's against the JAX package's)
+    attr = pt.ParamAttr(name="w", initializer=pnn.initializer.Constant(0.5))
+    w = pnn.Conv2D(2, 3, 3, weight_attr=attr).weight
+    assert w.name == "w" and float(w.detach().min()) == 0.5 == float(
+        w.detach().max())
     with pytest.raises(NotImplementedError):
         pnn.Conv2D(2, 3, 3, padding_mode="reflect")
 

@@ -241,15 +241,15 @@ def test_clone_layer_redraws_weights_with_the_xavier_std():
 
 
 def test_layers_default_to_the_card_and_take_no_param_attr():
-    # Linear takes a ParamAttr (its name, initializer, trainable); the
-    # other layers still refuse one
+    # Linear takes a ParamAttr (its name, initializer, trainable); since
+    # A7(a2) the conv and norm layers take one too
+    # (tests/test_torch_nn_utils.py holds them against the JAX package)
     lin = pnn.Linear(4, 4, weight_attr=pnn.ParamAttr(
         name="w", initializer=pnn.initializer.Constant(0.5)), bias_attr="b")
     assert lin.weight.name == "w" and lin.bias.name == "b"
     assert torch.equal(lin.weight, torch.full((4, 4), 0.5))
     assert pnn.Linear(4, 4, bias_attr=False).bias is None
-    with pytest.raises(NotImplementedError, match="bias_attr"):
-        pnn.Conv2D(2, 3, 3, bias_attr="b")
+    assert pnn.Conv2D(2, 3, 3, bias_attr="b").bias.name == "b"
     if not torch.cuda.is_available():
         with default_place():
             with pytest.raises(RuntimeError, match="device='cpu'"):

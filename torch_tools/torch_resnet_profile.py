@@ -1,5 +1,5 @@
-"""Where the time goes in a vision train step of the port (ResNet-50 or
-MobileNetV3-Large), on one NVIDIA card.
+"""Where the time goes in a vision train step of the port (ResNet-50,
+MobileNetV3-Large or ShuffleNetV2 x1.0), on one NVIDIA card.
 
     python3 torch_tools/torch_resnet_profile.py [--model M] [--steps N]
 
@@ -10,7 +10,9 @@ search, ``Momentum(0.1, 0.9, weight decay 1e-4, multi_precision)``, cross
 entropy on fp32 logits, batch 128 x 3 x 224 x 224, random weights and
 seeded images) or its ``mobilenet_v3_large_train`` step (``--model
 mobilenet_v3_large``: the same recipe on ``mobilenet_v3_large(scale=1.0,
-num_classes=1000)``, the classifier's dropout live): 3 warm-up steps, then
+num_classes=1000)``, the classifier's dropout live) or its
+``shufflenet_v2_train`` step (``--model shufflenet_v2_x1_0``): 3 warm-up
+steps, then
 ``--steps`` steps (default 2) under ``torch.profiler``, then the
 optimizer's step alone, as often, under a second profile.
 
@@ -57,7 +59,8 @@ KINDS = (
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="resnet50",
-                    choices=("resnet50", "mobilenet_v3_large"))
+                    choices=("resnet50", "mobilenet_v3_large",
+                             "shufflenet_v2_x1_0"))
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
@@ -78,12 +81,16 @@ def main():
     warm = 3
     if args.model == "resnet50":
         shape = (cs.RESNET_BATCH, cs.RESNET_SIZE, cs.RESNET_CLASSES)
-    else:
+    elif args.model == "mobilenet_v3_large":
         shape = (cs.MOBILENET_BATCH, cs.MOBILENET_SIZE,
                  cs.MOBILENET_CLASSES)
+    else:
+        shape = (cs.SHUFFLE_BATCH, cs.SHUFFLE_SIZE, cs.SHUFFLE_CLASSES)
     with cs._vision_setup(torch):
         model = (cs._resnet50(torch, 0) if args.model == "resnet50"
-                 else cs._mobilenet(torch, args.model, 70))
+                 else cs._mobilenet(torch, args.model, 70)
+                 if args.model == "mobilenet_v3_large"
+                 else cs._shufflenet(torch, args.model, 90))
         opt = cs._momentum(model)
         batches = cs._image_batches(torch, 60, warm + args.steps, *shape)
         model.train()
